@@ -1,0 +1,211 @@
+"""`jellyfish count` on the GPU (the single-device packed path of
+jellyfish_tpu/cli/count.py).
+
+The flag surface is the JAX package's (count_main_cmdline.yaggo:4-112).
+Flags whose paths are not ported yet raise NotPortedError rather than
+doing something else.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+__all__ = ["add_parser", "run", "NotPortedError"]
+
+
+class NotPortedError(NotImplementedError):
+    """A count option whose path jellyfish_tpu_torch does not have yet."""
+
+
+def add_parser(sub):
+    from jellyfish_tpu_torch.cli.common import add_common_input_flags, suffix_int
+
+    p = sub.add_parser("count", help="Count k-mers in fasta or fastq files")
+    p.add_argument("-m", "--mer-len", type=int, required=True,
+                   dest="mer_len", help="Length of mer")
+    p.add_argument("-s", "--size", type=suffix_int, required=True,
+                   help="Initial hash size (suffixes k/M/G/T ok)")
+    p.add_argument("-o", "--output", default="mer_counts.jf",
+                   help="Output file (default mer_counts.jf)")
+    p.add_argument("-c", "--counter-len", type=int, default=7, dest="counter_len",
+                   help="Length in bits of counting field (header val_len)")
+    p.add_argument("--out-counter-len", type=int, default=4,
+                   help="Length in bytes of counter field in output")
+    p.add_argument("-C", "--canonical", action="store_true",
+                   help="Count both strands, canonical representation")
+    p.add_argument("--bc", metavar="path",
+                   help="Bloom counter to filter out singleton mers")
+    p.add_argument("--bf-size", type=suffix_int, default=None,
+                   help="Use bloom filter to count high-frequency mers")
+    p.add_argument("--bf-fp", type=float, default=0.01,
+                   help="False positive rate of bloom filter")
+    p.add_argument("--if", dest="if_files", action="append", default=[],
+                   metavar="path", help="Count only k-mers in these files")
+    p.add_argument("-Q", "--min-qual-char", dest="min_qual_char",
+                   help="Any base with quality below this character becomes N")
+    p.add_argument("--quality-start", type=int, default=64,
+                   help="ASCII for quality values")
+    p.add_argument("--min-quality", type=int, default=None,
+                   help="Minimum quality; a lesser-quality base becomes an N")
+    p.add_argument("-p", "--reprobes", type=int, default=126,
+                   help="Maximum number of reprobes (header compatibility)")
+    p.add_argument("--text", action="store_true", help="Dump in text format")
+    p.add_argument("--disk", action="store_true",
+                   help="Spill sorted partials to disk instead of growing")
+    p.add_argument("--no-merge", action="store_true",
+                   help="Do not merge --disk intermediate files")
+    p.add_argument("--no-unlink", action="store_true",
+                   help="Do not delete intermediate files after merging")
+    p.add_argument("--no-write", action="store_true",
+                   help="Do not write the database")
+    p.add_argument("-L", "--lower-count", type=int, default=None,
+                   help="Do not output mers with count < lower-count")
+    p.add_argument("-U", "--upper-count", type=int, default=None,
+                   help="Do not output mers with count > upper-count")
+    p.add_argument("--sam", action="append", default=[], metavar="PATH",
+                   help="SAM/BAM/CRAM formatted input file")
+    p.add_argument("-d", "--devices", default="1", metavar="N|auto",
+                   help="Shard the hash across N devices")
+    p.add_argument("--coordinator", metavar="HOST:PORT",
+                   help="Multi-host run: coordinator address")
+    p.add_argument("--num-processes", type=int, dest="num_processes",
+                   help="Multi-host run: total number of processes")
+    p.add_argument("--process-id", type=int, dest="process_id",
+                   help="Multi-host run: this process's rank [0, N)")
+    p.add_argument("--packed-store", action="store_true",
+                   dest="packed_store",
+                   help="Bit-pack resting store runs")
+    p.add_argument("--matrix-seed", type=int, dest="matrix_seed",
+                   default=None,
+                   help="Seed for the random hash matrix")
+    add_common_input_flags(p)
+    p.add_argument("file", nargs="*", help="Sequence file(s) (fasta/fastq)")
+    p.set_defaults(func=run)
+    return p
+
+
+def _check_ported(args) -> None:
+    unported = [
+        ("-d/--devices", args.devices != "1"),
+        ("--bc", args.bc is not None),
+        ("--bf-size", args.bf_size is not None),
+        ("--if", bool(args.if_files)),
+        ("--disk", args.disk),
+        ("--packed-store", args.packed_store),
+        ("--sam", bool(args.sam)),
+        ("-g/--generator", args.generator is not None),
+        ("--coordinator", args.coordinator is not None),
+        ("--text", args.text),
+        ("--chunk-len not a multiple of 32", args.chunk_len % 32 != 0),
+    ]
+    for flag, used in unported:
+        if used:
+            raise NotPortedError(
+                f"count {flag}: not yet ported to jellyfish_tpu_torch "
+                "(use python -m jellyfish_tpu count)"
+            )
+
+
+def _prefetch(iterable, depth: int = 4):
+    """Run `iterable` on a producer thread with a bounded queue."""
+    import queue
+    import threading
+
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    DONE = object()
+    state = {"error": None}
+
+    def producer():
+        try:
+            for item in iterable:
+                q.put(item)
+        except BaseException as e:
+            state["error"] = e
+        finally:
+            q.put(DONE)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is DONE:
+            break
+        yield item
+    t.join()
+    if state["error"] is not None:
+        raise state["error"]
+
+
+def _batched(iterable, n: int):
+    """Group (pwords, validbits) chunks into lists of n, padding the tail
+    with all-zero chunks (zero validity bits: no windows)."""
+    batch = []
+    for item in iterable:
+        batch.append(item)
+        if len(batch) == n:
+            yield batch
+            batch = []
+    if batch:
+        zero = tuple(np.zeros_like(x) for x in batch[-1])
+        batch.extend([zero] * (n - len(batch)))
+        yield batch
+
+
+def _min_qual(args):
+    if args.min_qual_char is not None:
+        if len(args.min_qual_char) != 1:
+            raise SystemExit("jellyfish count: -Q must be a single character")
+        return ord(args.min_qual_char)
+    if args.min_quality is not None:
+        return args.quality_start + args.min_quality
+    return None
+
+
+def run(args, argv, device=None):
+    from jellyfish_tpu_torch.cli.common import die
+    from jellyfish_tpu_torch.counter import MerCounter
+    from jellyfish_tpu_torch.io.dumpers import dump_counter
+    from jellyfish_tpu_torch.io.parse import SequenceChunker
+
+    t_start = time.perf_counter()
+    _check_ported(args)
+    k = args.mer_len
+    if not args.file:
+        die("count: no input files given")
+    counter = MerCounter(
+        k, size=args.size, canonical=args.canonical,
+        rng=np.random.default_rng(args.matrix_seed), device=device,
+    )
+    chunker = SequenceChunker(
+        list(args.file), k, chunk_len=args.chunk_len, min_qual=_min_qual(args),
+    )
+    t_init = time.perf_counter()
+
+    # B chunks per batch; parse+pack runs on a producer thread so host
+    # work overlaps the device's
+    B = int(os.environ.get("JF_INGEST_BATCH", 8))
+    for batch in _prefetch(_batched(chunker.chunks_packed(), B)):
+        counter.add_chunks_packed_batch(
+            np.stack([b[0] for b in batch]),
+            np.stack([b[1] for b in batch]),
+        )
+    t_count = time.perf_counter()
+
+    if not args.no_write:
+        dump_counter(
+            counter, args.output,
+            counter_len_bytes=args.out_counter_len,
+            val_len_bits=args.counter_len, max_reprobe=args.reprobes,
+            lower_count=args.lower_count or 0,
+            upper_count=args.upper_count, cmdline=argv,
+        )
+    t_write = time.perf_counter()
+    if args.timing:
+        with open(args.timing, "w") as f:
+            f.write(f"Init     {t_init - t_start:.4f}\n")
+            f.write(f"Counting {t_count - t_init:.4f}\n")
+            f.write(f"Writing  {t_write - t_count:.4f}\n")
+    return 0

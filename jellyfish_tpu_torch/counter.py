@@ -1,0 +1,168 @@
+"""The k-mer counting engine on the GPU (the counterpart of
+jellyfish_tpu/counter.py).
+
+Per batch of host-packed chunks, plain PyTorch on the device:
+
+    2-bit codes + validity bitstream -> phase-major window extraction ->
+    canonical fold -> GF(2) hash (AND + XOR-fold parity) -> hash-order
+    sortkeys as store key columns, premasked to PAD
+
+No per-batch sort: raw runs accumulate in SortedCountStore, whose grain
+consolidations and merges run the hand-written kernels. finalize_np()
+yields the whole table in the reference's dump order (ascending
+(pos, key)).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from jellyfish_tpu_torch.device import resolve_device
+from jellyfish_tpu_torch.gf2 import GF2Matrix
+from jellyfish_tpu_torch.ops import multiword as mw
+from jellyfish_tpu_torch.ops.hashing import (
+    inverse_masks_of_matrix,
+    masks_of_matrix,
+    mers_of_sortkeys,
+    sortkey_of_mers,
+)
+from jellyfish_tpu_torch.ops.mers import extract_mers_packed
+from jellyfish_tpu_torch.store import SortedCountStore
+
+__all__ = ["MerCounter", "ceil_log2"]
+
+
+def ceil_log2(x: int) -> int:
+    return max(0, (int(x) - 1).bit_length())
+
+
+class MerCounter:
+    """Accumulates k-mer counts from packed sequence chunks.
+
+    `size` plays the reference's -s role: it fixes lsize =
+    ceil(log2(size)) and hence the hash matrix shape and the dump order.
+    If size >= 4^k the identity matrix is used
+    (large_hash_array.hpp:997-1001). `device` None means the GPU, and
+    raises when there is none; pass device="cpu" to run on the CPU.
+    """
+
+    def __init__(
+        self,
+        k: int,
+        size: int,
+        canonical: bool = False,
+        matrix: GF2Matrix | None = None,
+        rng: np.random.Generator | None = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.k = int(k)
+        c = 2 * self.k
+        self.W = mw.nwords(c)
+        # the table size rounds up to a power of two, so the identity
+        # regime starts as soon as the ROUNDED size reaches 4^k
+        if c <= 64 and ceil_log2(size) >= c:
+            self.lsize = c
+            self.size = 1 << c
+            self.matrix = matrix if matrix is not None else GF2Matrix.identity(c)
+            if not self.matrix.is_low_identity():
+                raise ValueError("size >= 4^k requires the identity matrix")
+        else:
+            self.lsize = max(1, min(ceil_log2(size), 64 if c > 64 else c))
+            self.size = 1 << self.lsize
+            if matrix is not None:
+                self.matrix = matrix
+                if matrix.r != self.lsize or matrix.c != c:
+                    raise ValueError(
+                        f"matrix is {matrix.r}x{matrix.c}, need {self.lsize}x{c}"
+                    )
+            else:
+                rng = rng or np.random.default_rng()
+                self.matrix = GF2Matrix.random_invertible(self.lsize, c, rng)
+        self.canonical = bool(canonical)
+
+        if self.matrix.is_identity() or (
+            self.matrix.is_low_identity() and self.lsize == c
+        ):
+            self._A = None
+            self._Ainv = None
+        else:
+            self._A = masks_of_matrix(self.matrix, self.W)
+            self._Ainv = inverse_masks_of_matrix(self.matrix, self.W)
+        self._pad = mw.pad_key(self.W)
+        self.store = SortedCountStore(self.W, self.device)
+
+    # -- ingestion ------------------------------------------------------------
+
+    def _words(self, x) -> torch.Tensor:
+        """Packed 32-bit words (numpy uint32, or a tensor of int64 word
+        values) -> int64 tensor on the device, values 0 .. 2^32-1."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.int64)
+        x = np.ascontiguousarray(x, dtype=np.uint32).view(np.int32)
+        t = torch.from_numpy(x).to(self.device)
+        return t.to(torch.int64) & mw.M32
+
+    def add_chunks_packed_batch(self, pwords, validbits) -> None:
+        """Count the k-mers of B equal-length host-packed chunks:
+        pwords [B, L/16], validbits [B, ceil(L/32)] (see
+        SequenceChunker.chunks_packed). Chunks are independent: no window
+        crosses from one to the next."""
+        pw = self._words(pwords)
+        vb = self._words(validbits)
+        L = int(pw.shape[-1]) * 16
+        if L < self.k:
+            return
+        mers, valid = extract_mers_packed(pw, vb, self.k, L, self.canonical)
+        mers = mers.reshape(-1, self.W)
+        valid = valid.reshape(-1)
+        sk = sortkey_of_mers(mers, self._A, self.k, self.lsize)
+        cols = torch.where(valid[:, None], mw.key_columns(sk), self._pad)
+        self.store.insert_raw(cols.contiguous(), valid.sum())
+
+    def add_chunk_packed(self, pwords, validbits) -> None:
+        """One host-packed chunk: pwords [L/16], validbits [ceil(L/32)]."""
+        self.add_chunks_packed_batch(self._words(pwords)[None],
+                                     self._words(validbits)[None])
+
+    # -- extraction -----------------------------------------------------------
+
+    def finalize_np(self):
+        """Return (mer limbs [n, W] uint32, counts [n] uint64) in hash
+        order (the reference's dump order: ascending (pos, key))."""
+        empty = (np.zeros((0, self.W), dtype=np.uint32),
+                 np.zeros(0, dtype=np.uint64))
+        keys, counts, pads = self.store.finalize()
+        n = keys.shape[0]
+        if n == 0:
+            return empty
+        counts = counts.cpu().numpy().astype(np.uint64)
+        if pads and bool((keys[-1] == self._pad).all()):
+            # the PAD entry holds the pad rows, plus one real mer if one
+            # maps to the PAD key (the sortkey is a bijection)
+            if int(counts[-1]) < pads:
+                raise AssertionError(
+                    "pad accounting mismatch: PAD entry holds "
+                    f"{int(counts[-1])} < {pads} pads"
+                )
+            counts[-1] -= np.uint64(pads)
+            if counts[-1] == 0:
+                n -= 1
+                keys, counts = keys[:n], counts[:n]
+        if n == 0:
+            return empty
+        limbs = mw.limbs_of_key_columns(keys, self.W)
+        mers = mers_of_sortkeys(limbs, self._Ainv, self.k, self.lsize)
+        return mers.cpu().numpy().astype(np.uint32), counts
+
+    def finalize(self):
+        """Return (mers [n] object ints, counts [n] uint64) in hash order
+        (scripting convenience over finalize_np)."""
+        mers, counts = self.finalize_np()
+        if len(counts) == 0:
+            return np.zeros(0, dtype=object), counts
+        return mw.to_ints(mers), counts
+
+    def reset(self) -> None:
+        self.store.reset()

@@ -1,0 +1,141 @@
+// Order-preserving stream compaction of a sorted masked run of
+// (key row, count) pairs: keep the rows whose count is nonzero.
+//
+// Replaces the Pallas gap-removal compaction of
+// experiments/pallas_compact.py (_compact_pallas / compact_sorted_masked,
+// kernel _kernel). That kernel moved rows with one-hot selection matmuls on
+// the MXU (the TPU has no scatter) and left up to 127 PAD rows between
+// tiles; this one scatters each kept row to its exact output position, so
+// the output is the dense live prefix and nothing else.
+//
+// Inputs: keys [M, WK] int64 rows, counts [M] int64. Output: the rows with
+// count != 0, in input order, and their counts.
+//
+// Bound on this card: bytes. Every count is read (8 bytes a row), every
+// key row is read once and every kept row written once, against one
+// compare a row. The design reads each input byte once in a pass and does
+// no sorting:
+//   - pass 1 (jf_compact_count) counts the kept rows of each tile of kTile
+//     rows, reading only the counts;
+//   - the per-tile output offsets are an exclusive scan of those counts,
+//     which the wrapper takes with torch.cumsum (a few thousand values,
+//     precomputed outside the kernel as the Pallas version did too);
+//   - pass 2 (jf_compact_scatter) walks its tile in rounds of one row a
+//     thread: a warp ballot and popc give each kept row its rank in the
+//     warp, shared memory adds the ranks of the warps before it, and the
+//     row is written at tile offset + running total + rank. Neighbouring
+//     kept rows land on neighbouring addresses, so the stores coalesce.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 4096;  // rows a block owns
+
+__global__ void __launch_bounds__(kThreads)
+compact_count_kernel(const int64_t* __restrict__ cnt, int64_t m,
+                     int64_t* __restrict__ tile_n) {
+  __shared__ int s_warp[kWarps];
+  const int64_t row0 = (int64_t)blockIdx.x * kTile;
+  int c = 0;
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const int64_t i = row0 + r;
+    c += (i < m && cnt[i] != 0) ? 1 : 0;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += s_warp[w];
+    tile_n[blockIdx.x] = t;
+  }
+}
+
+template <int WK>
+__global__ void __launch_bounds__(kThreads)
+compact_scatter_kernel(const int64_t* __restrict__ keys,
+                       const int64_t* __restrict__ cnt, int64_t m,
+                       const int64_t* __restrict__ tile_off,
+                       int64_t* __restrict__ out_keys,
+                       int64_t* __restrict__ out_cnt) {
+  __shared__ int s_warp[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t row0 = (int64_t)blockIdx.x * kTile;
+  int64_t base = tile_off[blockIdx.x];
+  for (int r = 0; r < kTile; r += kThreads) {
+    const int64_t i = row0 + r + threadIdx.x;
+    const int64_t c = i < m ? cnt[i] : 0;
+    const bool keep = c != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int t = s_warp[w];
+      before += w < warp ? t : 0;
+      total += t;
+    }
+    if (keep) {
+      const int64_t o = base + before + __popc(ballot & below);
+      out_cnt[o] = c;
+#pragma unroll
+      for (int w = 0; w < WK; ++w) out_keys[o * WK + w] = keys[i * WK + w];
+    }
+    base += total;
+    __syncthreads();  // s_warp is rewritten by the next round
+  }
+}
+
+template <int WK>
+int scatter(const void* keys, const void* cnt, int64_t m, const void* tile_off,
+            void* out_keys, void* out_cnt, cudaStream_t s) {
+  const int64_t tiles = (m + kTile - 1) / kTile;
+  if (tiles > 0) {
+    compact_scatter_kernel<WK><<<(unsigned)tiles, kThreads, 0, s>>>(
+        (const int64_t*)keys, (const int64_t*)cnt, m,
+        (const int64_t*)tile_off, (int64_t*)out_keys, (int64_t*)out_cnt);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int64_t jf_compact_tile() { return kTile; }
+
+// tile_n[ceil(m / kTile)] <- kept rows of each tile
+extern "C" int jf_compact_count(const void* cnt, int64_t m, void* tile_n,
+                                void* stream) {
+  const int64_t tiles = (m + kTile - 1) / kTile;
+  if (tiles > 0) {
+    compact_count_kernel<<<(unsigned)tiles, kThreads, 0,
+                           (cudaStream_t)stream>>>((const int64_t*)cnt, m,
+                                                   (int64_t*)tile_n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// tile_off: exclusive scan of tile_n; out_* hold exactly the kept rows
+extern "C" int jf_compact_scatter(const void* keys, const void* cnt, int64_t m,
+                                  const void* tile_off, void* out_keys,
+                                  void* out_cnt, int wk, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (wk) {
+    case 1: return scatter<1>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
+    case 2: return scatter<2>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
+    case 3: return scatter<3>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
+    case 4: return scatter<4>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
+    case 5: return scatter<5>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
+    case 6: return scatter<6>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
+    case 7: return scatter<7>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,71 @@
+"""Sort + segment-length counting, and the fold that follows a merge.
+
+The counterpart of the parts of jellyfish_tpu/ops/count.py that the store
+needs. Keys are store key columns [M, Wk] int64 (ops/multiword.py): one
+packed column for 2k <= 64, else limbs compared from the last column.
+Counts are one int64 (the JAX package's lo/hi uint32 pair with explicit
+carries was a TPU workaround).
+
+A "masked" run is sorted by key, carries each real key's count on one row
+and zero on every other row; kernels/compact.py drops the zero rows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["sort_rows", "consolidate_premasked", "fold_adjacent"]
+
+
+def sort_rows(keys):
+    """Stable ascending sort of key rows [M, Wk] -> (sorted keys, perm).
+    One sort for a packed column; for Wk > 1 a chain of stable sorts from
+    the least significant column upward (LSD radix order)."""
+    if keys.shape[1] == 1:
+        s, perm = torch.sort(keys[:, 0], stable=True)
+        return s.unsqueeze(1), perm
+    perm = torch.argsort(keys[:, 0], stable=True)
+    for w in range(1, keys.shape[1]):
+        perm = perm[torch.argsort(keys[perm, w], stable=True)]
+    return keys[perm], perm
+
+
+def _row_changes(keys):
+    """[M-1] bool: row i+1 differs from row i."""
+    return (keys[1:] != keys[:-1]).any(dim=1)
+
+
+def consolidate_premasked(keys):
+    """Sort a raw backlog of PREMASKED sortkeys and count by segment length.
+
+    keys [M, Wk]: invalid windows already carry the PAD key, so every row
+    has implicit weight 1, pads included: the PAD segment's count is the
+    number of pad rows (plus one if a real key equals PAD), which the
+    counter corrects at finalize from the exact pad total.
+
+    Returns (sorted keys [M, Wk], counts [M] int64) masked: each segment's
+    length sits on its LAST row, every other row has count 0."""
+    s, _ = sort_rows(keys)
+    M = s.shape[0]
+    is_last = torch.ones(M, dtype=torch.bool, device=s.device)
+    is_last[:-1] = _row_changes(s)
+    # a segment's length is the distance from the previous segment's end
+    ends = torch.nonzero(is_last).squeeze(1)
+    counts = torch.zeros(M, dtype=torch.int64, device=s.device)
+    counts[ends] = torch.diff(ends, prepend=ends.new_full((1,), -1))
+    return s, counts
+
+
+def fold_adjacent(keys, counts):
+    """Sum the equal adjacent pairs that a merge of two deduplicated runs
+    leaves (the role of merge_runs in the JAX package): the first row of a
+    pair takes both counts, the second gets 0. Returns the new counts."""
+    M = keys.shape[0]
+    if M < 2:
+        return counts
+    eq = ~_row_changes(keys)
+    nxt = torch.zeros_like(counts)
+    nxt[:-1] = torch.where(eq, counts[1:], 0)
+    second = torch.zeros(M, dtype=torch.bool, device=keys.device)
+    second[1:] = eq
+    return torch.where(second, 0, counts + nxt)

@@ -1,0 +1,178 @@
+"""Device-resident store of (sortkey, count) runs.
+
+The counterpart of jellyfish_tpu/store.py, keeping its semantics and
+leaving out what existed only to cut TPU sort bytes (the coverage model,
+preslice, pad trim, rowsort compaction plans, u16 counts, narrowed top
+limbs, pow2 sort groups and the asynchronous resolve):
+
+  - the counter appends RAW runs of PREMASKED sortkeys (invalid windows
+    already carry the PAD key), keys only;
+  - raw rows accumulate to a grain (`consolidate_rows`, 2^27 rows for
+    W <= 3 limbs; the first grain runs at 1/8 of it). The grain is sorted
+    with torch.sort, counted by segment length (ops/count.py) and
+    compacted by kernel K2 (kernels/compact.py) into a level-0 run;
+  - compacted runs collect in a forest of levels, `branch` runs merging
+    into one run of the next level. A merge takes at most
+    `merge_bytes_budget` bytes of input runs (at least two runs) and
+    combines them pairwise, ceil(log2(runs)) rounds, each pair through
+    kernel K1 (kernels/merge_path.py), ops/count.fold_adjacent and K2;
+  - finalize() merges every run the same way, into the resting run.
+
+Every run is exact: sorted, each key once, its count beside it, no PAD
+rows except the one PAD entry whose count is the number of pad rows
+ingested (plus one if a real key equals PAD). The store tracks the exact
+pad total; the counter subtracts it from that entry at finalize, as in
+the JAX package. Counts are int64.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from jellyfish_tpu_torch.kernels.compact import compact
+from jellyfish_tpu_torch.kernels.merge_path import merge_path
+from jellyfish_tpu_torch.ops import multiword as mw
+from jellyfish_tpu_torch.ops.count import consolidate_premasked, fold_adjacent
+
+__all__ = ["SortedCountStore"]
+
+_LEVELS = 16
+
+
+def _run_bytes(run) -> int:
+    keys, counts = run
+    return 8 * (keys.numel() + counts.numel())
+
+
+class SortedCountStore:
+    """Grain-consolidating count store (see module docstring).
+
+    W is the limb count of the keys (store key columns as in
+    ops/multiword.key_columns)."""
+
+    def __init__(self, W: int, device, branch: int = 8,
+                 consolidate_rows: int | None = None):
+        self.W = W
+        self.key_cols = 1 if mw.packs(W) else W
+        self.device = torch.device(device)
+        self.branch = int(branch)
+        if consolidate_rows is None:
+            consolidate_rows = (1 << 27) if W <= 3 else (1 << 26)
+        self.consolidate_rows = int(consolidate_rows)
+        # cap on one merge's input bytes; the pairwise merge holds about
+        # three times its input live (inputs, merged pair, compacted pair)
+        self.merge_bytes_budget = 8_000_000_000
+        self.reset()
+
+    def reset(self) -> None:
+        self.raw: list = []            # premasked key tensors [M, Wk]
+        self.raw_rows = 0
+        self.valid_scalars: list = []  # device scalars: valid rows per raw run
+        self.raw_rows_ever = 0         # host int: raw rows since finalize
+        self.levels: list[list] = [[] for _ in range(_LEVELS)]
+        self._cold = True              # no grain consolidated yet
+        # pads already baked into the resting run's PAD entry by an earlier
+        # finalize, carried so repeated finalizes stay exact
+        self.residual_pads = 0
+
+    # -- ingestion ------------------------------------------------------------
+
+    def insert_raw(self, keys, n_valid) -> None:
+        """Append a premasked raw run [M, Wk]; n_valid is the (device)
+        scalar count of its non-PAD rows."""
+        self.raw.append(keys)
+        self.raw_rows += keys.shape[0]
+        self.raw_rows_ever += keys.shape[0]
+        self.valid_scalars.append(n_valid)
+        # consolidate before another run of this size would cross the grain
+        grain = self._grain()
+        if self.raw_rows >= grain or self.raw_rows + keys.shape[0] > grain:
+            self.flush()
+
+    def _grain(self) -> int:
+        if self._cold:
+            return max(self.consolidate_rows >> 3, 1024)
+        return self.consolidate_rows
+
+    def flush(self) -> None:
+        """Sort the raw backlog, count segments, compact into level 0, so
+        that every row ingested so far sits in a compacted run."""
+        if not self.raw:
+            return
+        runs, self.raw, self.raw_rows = self.raw, [], 0
+        self._cold = False
+        keys = runs[0] if len(runs) == 1 else torch.cat(runs)
+        del runs
+        s, c = consolidate_premasked(keys)
+        del keys
+        k2, c2, _ = compact(s, c)
+        self.levels[0].append((k2, c2))
+        self._maybe_merge()
+
+    def _maybe_merge(self) -> None:
+        lvl = 0
+        while len(self.levels[lvl]) >= self.branch:
+            level = self.levels[lvl]
+            take, nbytes = [], 0
+            for r in level:
+                rb = _run_bytes(r)
+                if len(take) >= 2 and nbytes + rb > self.merge_bytes_budget:
+                    break
+                take.append(r)
+                nbytes += rb
+            self.levels[lvl] = level[len(take):]
+            if lvl + 1 >= _LEVELS:
+                raise RuntimeError("store exceeded maximum level count")
+            self.levels[lvl + 1].append(self._merge(take))
+            # a budget-limited partial take can leave this level >= branch:
+            # keep merging here before moving up
+            if len(self.levels[lvl]) < self.branch:
+                lvl += 1
+
+    @staticmethod
+    def _merge(runs):
+        """Merge exact runs pairwise into one exact run."""
+        while len(runs) > 1:
+            nxt = []
+            for i in range(0, len(runs) - 1, 2):
+                (ak, ac), (bk, bc) = runs[i], runs[i + 1]
+                keys, counts = merge_path(ak, ac, bk, bc)
+                counts = fold_adjacent(keys, counts)
+                k2, c2, _ = compact(keys, counts)
+                nxt.append((k2, c2))
+            if len(runs) % 2:
+                nxt.append(runs[-1])
+            runs = nxt
+        return runs[0]
+
+    # -- inspection -----------------------------------------------------------
+
+    def total_pads(self) -> int:
+        """Exact count of PAD rows inserted since the last finalize."""
+        if not self.valid_scalars:
+            return 0
+        valid = int(torch.stack(self.valid_scalars).sum())
+        return self.raw_rows_ever - valid
+
+    # -- extraction -----------------------------------------------------------
+
+    def finalize(self):
+        """Merge everything. Returns (keys [n, Wk], counts [n], pads): the
+        sorted exact run, and the pad total the caller subtracts from the
+        trailing PAD entry (dropping it if it reaches zero)."""
+        self.flush()
+        pads = self.residual_pads + self.total_pads()
+        runs = [r for level in self.levels for r in level]
+        self.valid_scalars = []
+        self.raw_rows_ever = 0
+        self.residual_pads = pads
+        for level in self.levels:
+            level.clear()
+        if not runs:
+            keys = torch.empty((0, self.key_cols), dtype=torch.int64,
+                               device=self.device)
+            return keys, torch.empty(0, dtype=torch.int64,
+                                     device=self.device), 0
+        keys, counts = self._merge(runs)
+        self.levels[-1].append((keys, counts))
+        return keys, counts, pads

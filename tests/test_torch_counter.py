@@ -1,0 +1,168 @@
+"""MerCounter(device="cpu") of jellyfish_tpu_torch against jellyfish_tpu's
+MerCounter on the same packed chunks and the same hash matrix (exact:
+integer counts).
+
+The port's store runs with a small grain and merge budget, so one run
+reaches several grains, level merges (branch 8) that take a budget-bounded
+part of a level, a final merge of many runs, and the PAD correction; the
+JAX store runs at its defaults. Cases also cover a real mer whose sortkey
+is the all-ones PAD pattern, the identity-matrix regime (-s >= 4^k) and
+repeated finalize."""
+
+import numpy as np
+import pytest
+import torch
+
+from jellyfish_tpu.counter import MerCounter as JaxCounter
+from jellyfish_tpu_torch.counter import MerCounter
+from jellyfish_tpu_torch.io.parse import pack_chunk
+from jellyfish_tpu_torch.ops import hashing, multiword as mw
+
+torch.set_num_threads(1)
+
+L = 512       # bases per chunk
+B = 2         # chunks per batch
+GRAIN = 2048  # the port's consolidate_rows
+
+
+def _chunks(rng, n_chunks, k, motif=None):
+    """Reads of 40-150 bases from a 4000-base genome (so mers repeat),
+    with N bases, joined by N separators into chunks of L bytes. `motif`
+    is spliced into every 5th read."""
+    genome = rng.integers(0, 4, 4000)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    out = np.full((n_chunks, L), ord("N"), dtype=np.uint8)
+    for c in range(n_chunks):
+        pos = 0
+        while pos < L - k:
+            n = int(rng.integers(40, 151))
+            s = int(rng.integers(0, len(genome) - n))
+            read = acgt[genome[s:s + n]].copy()
+            read[rng.random(n) < 0.01] = ord("N")
+            if motif is not None and rng.random() < 0.2:
+                read = np.frombuffer(motif.encode(), dtype=np.uint8)
+            n = min(len(read), L - pos)
+            out[c, pos:pos + n] = read[:n]
+            pos += n + 1
+    return out
+
+
+def _feed(counters, chunks):
+    for i in range(0, len(chunks), B):
+        packed = [pack_chunk(c) for c in chunks[i:i + B]]
+        pw = np.stack([p[0] for p in packed])
+        vb = np.stack([p[1] for p in packed])
+        for c in counters:
+            c.add_chunks_packed_batch(pw, vb)
+
+
+def _same(port, ref):
+    got_m, got_c = port.finalize_np()
+    want_m, want_c = ref.finalize_np()
+    assert got_m.dtype == np.uint32 and got_c.dtype == np.uint64
+    np.testing.assert_array_equal(got_m, np.asarray(want_m))
+    np.testing.assert_array_equal(got_c, np.asarray(want_c))
+    return got_m, got_c
+
+
+def _all_ones_mer(counter) -> str:
+    """The k-mer whose sortkey under counter's matrix is all ones."""
+    k = counter.k
+    ones = torch.full((1, counter.W), mw.M32, dtype=torch.int64)
+    ones = mw.mw_and_mask_top(ones, 2 * k)
+    limbs = hashing.mers_of_sortkeys(ones, counter._Ainv, k, counter.lsize)
+    v = int(mw.to_ints(limbs)[0])
+    return "".join("ACGT"[(v >> (2 * (k - 1 - j))) & 3] for j in range(k))
+
+
+# (k, canonical, size, motif): size None is a random matrix with -s 4096;
+# motif "ones" splices in the mer whose sortkey is the PAD pattern
+CASES = [
+    (21, True, None, None),
+    (31, False, None, None),
+    (32, True, None, None),
+    (32, False, None, "ones"),
+    (33, False, None, None),
+    (63, True, None, None),
+    (8, False, 4 ** 8, "T" * 60),     # identity: poly-T is the all-ones key
+    (16, False, 4 ** 16, "T" * 60),
+    (32, False, 1 << 64, "T" * 60),
+]
+
+
+@pytest.mark.parametrize(
+    "k,canonical,size,motif", CASES,
+    ids=[f"k{k}-{'C' if c else 'F'}-{'identity' if s else 'random'}-{m and m[:4]}"
+         for k, c, s, m in CASES],
+)
+def test_counter_matches_jax(k, canonical, size, motif):
+    seed = 9000 + k + 2 * canonical + (size is not None)
+    port = MerCounter(k, size or 4096, canonical=canonical,
+                      rng=np.random.default_rng(seed), device="cpu")
+    ref = JaxCounter(k, size or 4096, canonical=canonical,
+                     rng=np.random.default_rng(seed))
+    np.testing.assert_array_equal(port.matrix.bit_matrix(),
+                                  ref.matrix.bit_matrix())
+    assert (port._A is None) == (size is not None)
+    port.store.consolidate_rows = GRAIN
+    if motif == "ones":
+        motif = _all_ones_mer(port)
+    rng = np.random.default_rng(seed)
+    chunks = _chunks(rng, 72, k, motif)
+    _feed([port, ref], chunks)
+    store = port.store
+    assert store.levels[1] and store.total_pads() > 0
+
+    m, c = _same(port, ref)
+    if motif is not None:
+        # the motif's first k-mer has the all-ones sortkey: a real mer,
+        # kept as the last record after the PAD correction
+        v = sum("ACGT".index(b) << (2 * (k - 1 - j))
+                for j, b in enumerate(motif[:k]))
+        want = mw.from_ints([v], port.W).numpy().astype(np.uint32)[0]
+        np.testing.assert_array_equal(m[-1], want)
+        assert c[-1] > 0
+
+
+def test_budget_take_and_repeated_finalize():
+    """A merge budget of about three runs: level merges take part of a
+    level at a time. Then finalize, ingest more, finalize again: the
+    resting run's PAD entry carries the earlier pads."""
+    k, seed = 21, 9100
+    port = MerCounter(k, 4096, rng=np.random.default_rng(seed), device="cpu")
+    ref = JaxCounter(k, 4096, rng=np.random.default_rng(seed))
+    port.store.consolidate_rows = GRAIN
+    port.store.merge_bytes_budget = 3 * GRAIN * 16
+    rng = np.random.default_rng(seed)
+    _feed([port, ref], _chunks(rng, 72, k))
+    assert len(port.store.levels[1]) >= 2
+    _same(port, ref)
+    _feed([port, ref], _chunks(rng, 20, k))
+    _same(port, ref)
+    _same(port, ref)  # nothing new: the same table again
+    port.reset()
+    ref.reset()
+    _feed([port, ref], _chunks(rng, 4, k))
+    m, c = _same(port, ref)
+    assert len(c) > 0
+    mers, counts = port.finalize()
+    assert list(mers) == list(mw.to_ints(m)) and (counts == c).all()
+
+
+
+def test_flush_mid_stream():
+    """flush() between batches consolidates the raw backlog into compacted
+    runs without changing what finalize returns."""
+    k, seed = 21, 9200
+    port = MerCounter(k, 4096, canonical=True,
+                      rng=np.random.default_rng(seed), device="cpu")
+    ref = JaxCounter(k, 4096, canonical=True, rng=np.random.default_rng(seed))
+    port.store.consolidate_rows = GRAIN
+    rng = np.random.default_rng(seed)
+    for _ in range(3):
+        _feed([port, ref], _chunks(rng, 6, k))
+        port.store.flush()
+        assert not port.store.raw and port.store.raw_rows == 0
+        assert port.store.levels[0]
+    port.store.flush()  # an empty backlog: nothing to do
+    _same(port, ref)
