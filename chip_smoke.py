@@ -2,14 +2,19 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from jellyfish_tpu_torch/csrc, holds each against
-its plain PyTorch version at the shapes the counting path gives it, runs
-`count` end to end through the CLI at k = 21 and k = 33 with every record
-checked against a numpy oracle, and counts the 268M windows (231M valid
-mers) of the main configuration through MerCounter: k = 21, canonical,
--s 4M, 256 chunks of 1 MiB of 150-base reads at 8x coverage of a seeded
-random 33.5 Mbase genome, in batches of 8. Exits nonzero, with no result
-line, when there is no GPU or any phase fails.
+Builds the CUDA kernels from jellyfish_tpu_torch/csrc (K1 merge_path.cu,
+K2 compact.cu, K3 bitonic.cu) and holds each entry point against its plain
+PyTorch version at the shapes the counting path gives it and, for K3, at
+the Pallas kernels' own shapes. Runs `count` end to end through the CLI at
+k = 21, 33, 63 and 100 with every record checked against a numpy oracle.
+Counts the 268M windows of the main configuration through MerCounter
+twice: at k = 21 (231M valid mers, packed keys) and at k = 63 (156M valid
+mers, 4-limb keys that every grain consolidation sorts with K3's block
+sort and K1's merge passes; three more passes there time that sort against
+the LSD chain of stable argsorts it replaced). Both runs: canonical, -s 4M, 256 chunks of
+1 MiB of 150-base reads at 8x coverage of a seeded random 33.5 Mbase
+genome, in batches of 8. Exits nonzero, with no result line, when there
+is no GPU or any phase fails.
 
 The last lines of standard output are the kernels' JSON line, the card's
 name and power limit as nvidia-smi reports them, and
@@ -29,7 +34,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-K_FULL, CHUNKS, CHUNK_LEN, BATCH = 21, 256, 1 << 20, 8
+K_FULL, CHUNKS, CHUNK_LEN, BATCH = (21, 63), 256, 1 << 20, 8
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 
 
@@ -45,60 +50,68 @@ for _i, _b in enumerate(b"ACGT"):
     _CODE[_b | 0x20] = _i
 
 
-def canonical_windows(seq: np.ndarray, k: int):
-    """Canonical 2-bit codes of the valid k-windows of an ASCII sequence,
-    as (hi, lo) uint64 halves of the 2k-bit value (hi is None for
-    k <= 32)."""
+def canonical_words(seq: np.ndarray, k: int) -> np.ndarray:
+    """Canonical 2-bit codes of the valid k-windows of an ASCII sequence:
+    [n, nw] uint64 words of the 2k-bit value, most significant first."""
     code = _CODE[seq]
     n = max(len(seq) - k + 1, 0)
     csum = np.concatenate([[0], np.cumsum(code > 3, dtype=np.int64)])
     valid = csum[k:] - csum[:n] == 0
     c = (code & 3).astype(np.uint64)
-    wide = k > 32
-    f_lo, r_lo = np.zeros(n, np.uint64), np.zeros(n, np.uint64)
-    f_hi, r_hi = (np.zeros(n, np.uint64), np.zeros(n, np.uint64)) if wide \
-        else (None, None)
+    nw = (2 * k + 63) // 64
+    f = np.zeros((nw, n), np.uint64)
+    r = np.zeros((nw, n), np.uint64)
     for j in range(k):
         cj = c[j:j + n]
-        for val, pos, hi, lo in ((cj, 2 * (k - 1 - j), f_hi, f_lo),
-                                 (3 - cj, 2 * j, r_hi, r_lo)):
-            if pos >= 64:
-                hi |= val << np.uint64(pos - 64)
-            else:
-                lo |= val << np.uint64(pos)
-    if not wide:
-        return None, np.minimum(f_lo, r_lo)[valid]
-    rc_less = (r_hi < f_hi) | ((r_hi == f_hi) & (r_lo < f_lo))
-    hi = np.where(rc_less, r_hi, f_hi)[valid]
-    lo = np.where(rc_less, r_lo, f_lo)[valid]
-    return hi, lo
+        for val, pos, dst in ((cj, 2 * (k - 1 - j), f), (3 - cj, 2 * j, r)):
+            dst[nw - 1 - pos // 64] |= val << np.uint64(pos % 64)
+    rc_less = np.zeros(n, bool)
+    eq = np.ones(n, bool)
+    for w in range(nw):
+        rc_less |= eq & (r[w] < f[w])
+        eq &= r[w] == f[w]
+    return np.ascontiguousarray(np.where(rc_less, r, f)[:, valid].T)
 
 
-def distinct_count(arrays, bits: int, buckets: int = 256) -> int:
-    """len(np.unique(np.concatenate(arrays))) for uint64 values < 2^bits,
-    computed as np.unique of value-range buckets on 8 threads."""
-    shift = np.uint64(max(bits - 8, 0))
-    edges = np.arange(buckets + 1, dtype=np.uint64) << shift
+def _row_sorted(x: np.ndarray):
+    """x [n, nw] in ascending row order (first column most significant)."""
+    return x[np.lexsort(x.T[::-1])]
+
+
+def unique_rows(x: np.ndarray):
+    """(distinct rows ascending, their counts) of x [n, nw]."""
+    x = _row_sorted(x)
+    new = np.ones(len(x), bool)
+    new[1:] = (x[1:] != x[:-1]).any(axis=1)
+    idx = np.flatnonzero(new)
+    return x[idx], np.diff(np.append(idx, len(x)))
+
+
+def distinct_count(parts, top_bits: int, buckets: int = 256) -> int:
+    """Distinct rows among the [n, nw] uint64 arrays `parts` (first column
+    most significant and below 2^top_bits), counted in value-range buckets
+    of the first column on 8 threads."""
+    shift = np.uint64(max(top_bits - 8, 0))
 
     def split(a):
-        a = np.sort(a)
-        cut = np.searchsorted(a, edges)
+        b = (a[:, 0] >> shift).astype(np.int64)
+        order = np.argsort(b, kind="stable")
+        a, b = a[order], b[order]
+        cut = np.searchsorted(b, np.arange(buckets + 1))
         return [a[cut[i]:cut[i + 1]] for i in range(buckets)]
 
+    def count(i):
+        x = np.concatenate([p[i] for p in split_parts])
+        return len(unique_rows(x)[1]) if len(x) else 0
+
     with ThreadPoolExecutor(8) as pool:
-        parts = list(pool.map(split, arrays))
-        return sum(pool.map(
-            lambda i: len(np.unique(np.concatenate([p[i] for p in parts]))),
-            range(buckets)))
-
-
-def _as_void(hi, lo):
-    be = np.stack([hi.astype(">u8"), lo.astype(">u8")], axis=1)
-    return np.ascontiguousarray(be).view("V16").ravel()
+        split_parts = list(pool.map(split, parts))
+        return sum(pool.map(count, range(buckets)))
 
 
 def read_db(path):
-    """(header, key hi, key lo, counts) of a binary/sorted database."""
+    """(header, keys [n, nw] uint64 words most significant first, counts)
+    of a binary/sorted database."""
     from jellyfish_tpu_torch.io.header import FileHeader
 
     with open(path, "rb") as f:
@@ -106,12 +119,13 @@ def read_db(path):
         data = f.read()
     kb = (h.key_len + 7) // 8
     rec = np.frombuffer(data, np.uint8).reshape(-1, kb + h.counter_len)
-    le = lambda cols: (cols.astype(np.uint64) << (  # noqa: E731
-        8 * np.arange(cols.shape[1], dtype=np.uint64))).sum(
-            axis=1, dtype=np.uint64)
-    lo = le(rec[:, :min(kb, 8)])
-    hi = le(rec[:, 8:kb]) if kb > 8 else np.zeros(len(rec), np.uint64)
-    return h, hi, lo, le(rec[:, kb:])
+    nw = (kb + 7) // 8
+    key = np.zeros((len(rec), 8 * nw), np.uint8)
+    key[:, :kb] = rec[:, :kb]
+    cnt = np.zeros((len(rec), 8), np.uint8)
+    cnt[:, :h.counter_len] = rec[:, kb:]
+    words = np.ascontiguousarray(key.view("<u8")[:, ::-1])
+    return h, words, cnt.view("<u8")[:, 0].copy()
 
 
 def _parity(t):
@@ -120,7 +134,7 @@ def _parity(t):
     return t & np.uint64(1)
 
 
-def sortkeys_ascend(h, hi, lo) -> bool:
+def sortkeys_ascend(h, words) -> bool:
     """Whether the records ascend in (pos, key >> l) order, pos = the
     header matrix applied to the key: the reference's dump order."""
     from jellyfish_tpu_torch.ops.hashing import masks_of_matrix
@@ -128,16 +142,22 @@ def sortkeys_ascend(h, hi, lo) -> bool:
     k, lsize = h.key_len // 2, (h.size - 1).bit_length()
     W = (2 * k + 31) // 32
     masks = masks_of_matrix(h.matrix(), W).astype(np.uint64)
-    limbs = [lo & np.uint64(0xFFFFFFFF), lo >> np.uint64(32), hi]
-    pos = np.zeros(len(lo), np.uint64)
+    lsw = words[:, ::-1]  # least significant word first
+    n, nw = lsw.shape
+    limbs = [lsw[:, w // 2] >> np.uint64(32 * (w % 2)) & np.uint64(0xFFFFFFFF)
+             for w in range(W)]
+    pos = np.zeros(n, np.uint64)
     for j in range(masks.shape[0]):
-        t = np.zeros(len(lo), np.uint64)
+        t = np.zeros(n, np.uint64)
         for w in range(W):
             t ^= limbs[w] & masks[j, w]
         pos |= _parity(t) << np.uint64(j)
-    kh = (hi << np.uint64(64 - lsize)) | (lo >> np.uint64(lsize))
-    up = (pos[1:] > pos[:-1]) | ((pos[1:] == pos[:-1]) & (kh[1:] > kh[:-1]))
-    return bool(up.all())
+    q, r = divmod(lsize, 64)
+    zero = np.zeros(n, np.uint64)
+    word = lambda i: lsw[:, i] if i < nw else zero  # noqa: E731
+    high = [(word(i + q) >> np.uint64(r)) | (word(i + q + 1) << np.uint64(64 - r))
+            if r else word(i + q) for i in range(nw)]
+    return bool((np.lexsort([*high, pos]) == np.arange(n)).all())
 
 
 def synth_chunks(n_chunks, L, read_len=150, seed=1234):
@@ -192,8 +212,41 @@ def cuda_ms(fn, reps=5):
 
 
 def max_abs_err(got, want):
-    return max(int((g - w).abs().max()) if g.numel() else 0
-               for g, w in zip(got, want))
+    """Largest |g - w| over pairs of outputs of one shape: 0 exactly when
+    they are equal (a difference that overflows int64 counts as >= 1)."""
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape:
+            raise AssertionError(f"shapes differ: {g.shape} vs {w.shape}")
+        if g.numel() and not torch.equal(g, w):
+            err = max(err, int((g - w).abs().max()), 1)
+    return err
+
+
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port, by name; each counts its calls
+    that launched on the card in its `launches` attribute."""
+    from jellyfish_tpu_torch.kernels.bitonic import (
+        block_sort,
+        exchange_stages,
+        flip,
+    )
+    from jellyfish_tpu_torch.kernels.compact import compact
+    from jellyfish_tpu_torch.kernels.merge_path import merge_pass, merge_path
+
+    return {"merge_path": merge_path, "merge_pass": merge_pass,
+            "compact": compact, "block_sort": block_sort,
+            "exchange_stages": exchange_stages, "flip": flip}
+
+
+def kernel_counts() -> dict:
+    """Launch counts of every kernel wrapper of the port."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 # -- phases --------------------------------------------------------------------
@@ -213,7 +266,7 @@ def phase_kernels(dev):
 
     def sorted_run(n, wk, hi):
         k = torch.randint(0, hi, (n, wk), device=dev, generator=g)
-        return sort_rows(k)[0].contiguous()
+        return sort_rows(k).contiguous()
 
     def shared_runs(n, wk, share=0.9):
         """Two sorted runs of n rows drawn from one sorted pool of n / share
@@ -233,7 +286,7 @@ def phase_kernels(dev):
                                  generator=g)
             pad = M32
         pool = torch.cat([pool, torch.full((1, wk), pad, device=dev)])
-        pool = sort_rows(pool)[0]
+        pool = sort_rows(pool)
         last = torch.tensor([m - 1], device=dev)
 
         def pick():
@@ -316,50 +369,257 @@ def phase_kernels(dev):
     return rows
 
 
-def phase_cli(tmp, k, n_bases, genome_len, seed):
+def _outs(x):
+    """A wrapper's result as a tuple of tensors (None payloads dropped)."""
+    return tuple(t for t in (x if isinstance(x, tuple) else (x,))
+                 if t is not None)
+
+
+def hold(label, fn, plain, nbytes=None, library=None):
+    """Run a kernel entry point and its plain version on the same inputs,
+    fail unless they agree exactly; with nbytes, also time both (and the
+    library call) and return the kernel table's numbers."""
+    err = max_abs_err(_outs(fn()), _outs(plain()))
+    log(f"{label}: max_abs_err {err}")
+    if err:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    if nbytes is None:
+        return None
+    row = dict(max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+               bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
+               library_ms=None if library is None else cuda_ms(library),
+               shape=label)
+    log(f"  {label}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f}, "
+        f"plain {row['plain_ms']:.4f}, library {row['library_ms']}")
+    return row
+
+
+def _cycle(r, n, lanes=128):
+    """The Pallas probes' step distances, as row distances of the [R, 128]
+    tile read row-major: tile rows R/2, R/4, ..., 1, R/2, ... (n steps)."""
+    out, m = [], r // 2
+    for _ in range(n):
+        out.append(max(m, 1) * lanes)
+        m = m // 2 or r // 2
+    return out
+
+
+def phase_k3(dev):
+    """K3's entry points and K1's merge_pass against their plain versions:
+    at the Pallas kernels' own shapes (kernel table rows 6, 7, 8, 11, 12)
+    and at a grain's shape (2^26 rows of 4 limbs, keys only; 2^24 rows of
+    7 limbs with a row-index payload), plus a ragged row count. Returns
+    the JSON rows of K3's entry points and merge_pass, and the table's
+    per-row numbers."""
+    from jellyfish_tpu_torch.kernels.bitonic import (
+        block_sort,
+        block_sort_plain,
+        exchange_stages,
+        exchange_stages_plain,
+        flip,
+        flip_plain,
+        tile_rows,
+    )
+    from jellyfish_tpu_torch.kernels.merge_path import (
+        merge_pass,
+        merge_pass_plain,
+    )
+    from jellyfish_tpu_torch.kernels.sort import sort_rows_blocked
+    from jellyfish_tpu_torch.ops.count import sort_rows, sort_rows_plain
+    from jellyfish_tpu_torch.ops.multiword import M32
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    u32 = lambda *shape: torch.randint(  # noqa: E731
+        0, 1 << 32, shape, device=dev, generator=g)
+    table = {}
+
+    # row 6, pallas_sort_proto.py: one tile of 131,072 u32 keys sorted, by
+    # the counting path's route: K3 on shared-memory tiles, then K1 passes
+    t6 = 1 << 17
+    x = u32(t6, 1)
+    table["6 block_sort"] = hold(
+        f"K3 block_sort (tile {tile_rows(1, False)}) + K1 merge_pass, {t6} "
+        "keys sorted whole (row 6)",
+        lambda: sort_rows_blocked(x), lambda: block_sort_plain(x, tile=t6),
+        2 * t6 * 8, library=lambda: torch.sort(x.view(-1, t6), dim=1))
+    # row 7, pallas_probe2.py build_stages(arrays=1): u32[4096, 128], one
+    # cycle of 12 steps
+    d7 = _cycle(4096, 12)
+    x = u32(4096 * 128, 1)
+    table["7 exchange_stages"] = hold(
+        "K3 exchange_stages u32[4096, 128], 12 steps (row 7)",
+        lambda: exchange_stages(x, distances=d7),
+        lambda: exchange_stages_plain(x, distances=d7), 2 * x.numel() * 8)
+    # row 8, build_stages(arrays=3): (hi, lo, count) triples, compared on
+    # (hi, lo); few distinct hi values, so lo decides and some rows tie
+    keys = torch.stack([u32(4096 * 128) % 64, u32(4096 * 128) % 4], 1)
+    cnt = u32(4096 * 128)
+    table["8 exchange_stages"] = hold(
+        "K3 exchange_stages (hi, lo, count) 3x u32[4096, 128], 12 steps "
+        "(row 8)",
+        lambda: exchange_stages(keys, cnt, d7),
+        lambda: exchange_stages_plain(keys, cnt, d7),
+        2 * (keys.numel() + cnt.numel()) * 8)
+    # row 11, pallas_stage_probe.py build: u32[1024, 128], transposes of
+    # each [128, 128] sub-tile, then 10 steps
+    d11 = _cycle(1024, 10)
+    x = u32(1024 * 128, 1)
+    for t in (0, 2):
+        hold(f"K3 exchange_stages u32[1024, 128], {t} transposes + 10 steps "
+             "(row 11)",
+             lambda: exchange_stages(x, distances=d11, transposes=t),
+             lambda: exchange_stages_plain(x, distances=d11, transposes=t))
+    table["11 exchange_stages"] = hold(
+        "K3 exchange_stages u32[1024, 128], 1 transpose + 10 steps (row 11)",
+        lambda: exchange_stages(x, distances=d11, transposes=1),
+        lambda: exchange_stages_plain(x, distances=d11, transposes=1),
+        2 * x.numel() * 8)
+    # row 12, pallas_stage_probe.py flip: u32[1024, 128] reversed
+    table["12 flip"] = hold(
+        "K3 flip u32[1024, 128] (row 12)",
+        lambda: flip(x, x.shape[0]), lambda: flip_plain(x, x.shape[0]),
+        2 * x.numel() * 8,
+        library=lambda: torch.flip(x.view(-1, x.shape[0], 1), [1]))
+
+    def grain(n, wk, distinct):
+        """n rows of wk limbs drawn from `distinct` pooled rows (so rows
+        repeat, as k-mers do at 8x coverage), 40% of them the all-ones
+        PAD row (invalid windows, as in the full-size run)."""
+        pool = u32(distinct, wk)
+        x = pool[torch.randint(0, distinct, (n,), device=dev, generator=g)]
+        x[torch.rand(n, device=dev, generator=g) < 0.4] = M32
+        return x.contiguous()
+
+    # the whole grain sort against the LSD chain at each limb width of the
+    # large-key path's grains: 3 limbs (k = 33-48, 2^27 rows), 4 (k = 63)
+    # and 7 (k = 100, both 2^26 rows)
+    for wk, m in ((3, 1 << 27), (7, 1 << 26)):
+        x = grain(m, wk, m >> 2)
+        table[f"grain sort_rows wk={wk}"] = hold(
+            f"sort_rows (K3 + merge_pass) {m} rows, Wk {wk}, keys only",
+            lambda: sort_rows(x), lambda: sort_rows_plain(x)[0],
+            2 * m * wk * 8)
+        del x
+        torch.cuda.empty_cache()
+    # a grain of the k = 63 store: 2^26 rows of 4 limbs, keys only
+    m = 1 << 26
+    x = grain(m, 4, 1 << 24)
+    row_bytes = m * 4 * 8
+    sort_row = hold(
+        f"K3 block_sort {m} rows, Wk 4, keys only, tile 2048 (a k=63 grain)",
+        lambda: block_sort(x), lambda: block_sort_plain(x), 2 * row_bytes,
+        library=lambda: sort_rows_plain(x))
+    hold(f"K3 exchange_stages {m} rows, Wk 4, 3 steps",
+         lambda: exchange_stages(x, distances=[1 << 25, 2048, 1]),
+         lambda: exchange_stages_plain(x, distances=[1 << 25, 2048, 1]))
+    hold(f"K3 flip {m} rows, Wk 4, tile 2048",
+         lambda: flip(x, 2048), lambda: flip_plain(x, 2048))
+    table["grain sort_rows"] = hold(
+        f"sort_rows (K3 + 15 merge_pass) {m} rows, Wk 4, keys only",
+        lambda: sort_rows(x), lambda: sort_rows_plain(x)[0], 2 * row_bytes)
+    runs = block_sort_plain(x, tile=1 << 22)[0]
+    pass_row = hold(
+        f"K1 merge_pass {m} rows, Wk 4, keys only, runs of 2^22",
+        lambda: merge_pass(runs, 1 << 22),
+        lambda: merge_pass_plain(runs, 1 << 22), 2 * row_bytes)
+    del x, runs
+    # 2^24 rows of 7 limbs (k = 100) with a row-index payload: stable
+    m = 1 << 24
+    x = grain(m, 7, 1 << 22)
+    idx = torch.arange(m, device=dev)
+    hold(f"K3 block_sort {m} rows, Wk 7 + payload, tile 1024",
+         lambda: block_sort(x, idx), lambda: block_sort_plain(x, idx))
+    hold(f"K3 exchange_stages {m} rows, Wk 7 + payload, 1 transpose + 3 "
+         "steps",
+         lambda: exchange_stages(x, idx, [1 << 23, 64, 1], transposes=1),
+         lambda: exchange_stages_plain(x, idx, [1 << 23, 64, 1], 1))
+    hold(f"K3 flip {m} rows, Wk 7, tile 1024",
+         lambda: flip(x, 1024), lambda: flip_plain(x, 1024))
+    runs, ridx = block_sort_plain(x, idx, tile=1 << 16)
+    hold(f"K1 merge_pass {m} rows, Wk 7 + payload, runs of 2^16",
+         lambda: merge_pass(runs, 1 << 16, ridx),
+         lambda: merge_pass_plain(runs, 1 << 16, ridx))
+    hold(f"sort_rows_blocked {m} rows, Wk 7 + row index: the stable perm",
+         lambda: sort_rows_blocked(x, idx), lambda: sort_rows_plain(x))
+    del x, idx, runs, ridx
+    # a ragged row count: a padded last tile, a short last pair, a lone run
+    m = (1 << 20) + 777
+    x = grain(m, 4, 1 << 18)
+    idx = torch.arange(m, device=dev)
+    hold(f"K3 block_sort {m} rows, Wk 4 (+ payload)",
+         lambda: block_sort(x) + block_sort(x, idx),
+         lambda: block_sort_plain(x) + block_sort_plain(x, idx))
+    runs = block_sort_plain(x, tile=1 << 17)[0]
+    hold(f"K1 merge_pass {m} rows, Wk 4, runs of 2^17",
+         lambda: merge_pass(runs, 1 << 17),
+         lambda: merge_pass_plain(runs, 1 << 17))
+    del x, idx, runs
+    torch.cuda.empty_cache()
+
+    def json_row(name, row, source, replaces, **extra):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, **row, **extra)
+
+    k3_src = "jellyfish_tpu_torch/csrc/bitonic.cu"
+    off_path = ("off the counting path, which runs block_sort only: held "
+                "against its plain version here")
+    rows = {
+        "block_sort": json_row(
+            "bitonic.block_sort", sort_row, k3_src,
+            "experiments/pallas_sort_proto.py:65",
+            library="sort_rows_plain: a chain of 4 stable sorts and "
+                    "gathers over the whole grain (no single PyTorch call "
+                    "sorts multi-column rows)"),
+        "exchange_stages": json_row(
+            "bitonic.exchange_stages", table["8 exchange_stages"], k3_src,
+            "experiments/pallas_probe2.py:103", note=off_path),
+        "flip": json_row(
+            "bitonic.flip", table["12 flip"], k3_src,
+            "experiments/pallas_stage_probe.py:112", note=off_path),
+        "merge_pass": json_row(
+            "merge_path.merge_pass", pass_row,
+            "jellyfish_tpu_torch/csrc/merge_path.cu",
+            "experiments/pallas_merge_probe.py:492"),
+    }
+    return rows, table
+
+
+def phase_cli(tmp, k, n_bases, genome_len, seed, need):
+    """`count -m k -s 4M -C` through the CLI on a seeded FASTQ; every
+    record against the numpy oracle, the dump order checked, and each
+    kernel in `need` launched at least once."""
     from jellyfish_tpu_torch import cli
-    from jellyfish_tpu_torch.kernels.compact import compact
-    from jellyfish_tpu_torch.kernels.merge_path import merge_path
 
     fq, out = os.path.join(tmp, f"r{k}.fq"), os.path.join(tmp, f"o{k}.jf")
     seq = write_fastq(fq, n_bases, genome_len, seed)
-    merge_path.launches = compact.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     rc = cli.main(["count", "-m", str(k), "-s", "4M", "-C",
                    "--matrix-seed", "1", "-o", out, fq])
     dt = time.perf_counter() - t0
-    launches = (merge_path.launches, compact.launches)
+    launches = kernel_counts()
     if rc != 0:
         raise AssertionError(f"count exited {rc}")
-    h, hi, lo, counts = read_db(out)
-    whi, wlo = canonical_windows(seq, k)
-    if whi is None:
-        uniq, ucnt = np.unique(wlo, return_counts=True)
-        order = np.argsort(lo, kind="stable")
-        same = (np.array_equal(lo[order], uniq) and not hi.any()
-                and np.array_equal(counts[order], ucnt))
-    else:
-        uniq, ucnt = np.unique(_as_void(whi, wlo), return_counts=True)
-        got = _as_void(hi, lo)
-        order = np.argsort(got, kind="stable")
-        same = (np.array_equal(got[order], uniq)
-                and np.array_equal(counts[order], ucnt))
-    ascend = sortkeys_ascend(h, hi, lo)
+    h, words, counts = read_db(out)
+    uniq, ucnt = unique_rows(canonical_words(seq, k))
+    order = np.lexsort(words.T[::-1])
+    same = (np.array_equal(words[order], uniq)
+            and np.array_equal(counts[order], ucnt))
+    ascend = sortkeys_ascend(h, words)
     log(f"CLI count k={k} -C: {len(seq)} bases, {len(counts)} records, "
         f"{int(counts.sum())} mers in {dt:.2f} s; records == numpy oracle: "
-        f"{same}; sortkey order: {ascend}; launches merge_path "
-        f"{launches[0]} compact {launches[1]}")
+        f"{same}; sortkey order: {ascend}; launches {launches}")
     if not (same and ascend and len(counts) > 0):
         raise AssertionError(f"count k={k} database is wrong")
-    if launches[1] == 0:
-        raise AssertionError("count ran without the compaction kernel")
+    missed = [n for n in need if launches[n] == 0]
+    if missed:
+        raise AssertionError(f"count k={k} ran without {missed}")
 
 
-def phase_full(dev):
-    from jellyfish_tpu_torch.counter import MerCounter
+def stage_chunks(dev):
+    """The full-size input: host chunks and their packed form on the
+    device, in batches of BATCH."""
     from jellyfish_tpu_torch.io.parse import pack_chunk
-    from jellyfish_tpu_torch.kernels.compact import compact
-    from jellyfish_tpu_torch.kernels.merge_path import merge_path
 
     t0 = time.perf_counter()
     chunks = synth_chunks(CHUNKS, CHUNK_LEN)
@@ -374,6 +634,29 @@ def phase_full(dev):
             for j in (0, 1)))
     log(f"full size: {CHUNKS} chunks of {CHUNK_LEN} bases staged in "
         f"{time.perf_counter() - t0:.1f} s")
+    return chunks, staged
+
+
+def lsd_chain_sort(keys):
+    """Key rows [M, Wk > 1] sorted by a chain of Wk stable argsorts and
+    gathers, least significant column first: the grain sort of limb keys
+    that K3 and K1's merge passes replaced, for phase_full's A/B."""
+    perm = torch.argsort(keys[:, 0], stable=True)
+    for w in range(1, keys.shape[1]):
+        perm = perm[torch.argsort(keys[perm, w], stable=True)]
+    return keys[perm]
+
+
+def phase_full(k, chunks, staged, need, compare_lsd=False):
+    """Count the staged chunks at k through MerCounter: the counting
+    region ends when every row is consolidated; then finalize, a profiled
+    second pass, and the totals against the host. Each kernel in `need`
+    must have launched in the first pass. With compare_lsd, three more
+    passes time the grain sort's routes against each other: the LSD
+    chain, the kernels, the LSD chain; each must give the first pass's
+    totals."""
+    import jellyfish_tpu_torch.ops.count as ops_count
+    from jellyfish_tpu_torch.counter import MerCounter
 
     def one_pass(counter):
         torch.cuda.synchronize()
@@ -389,13 +672,12 @@ def phase_full(dev):
         mers, counts = counter.finalize_np()
         return mers, counts, t_count, time.perf_counter() - t
 
-    counter = MerCounter(K_FULL, 4 << 20, canonical=True,
+    counter = MerCounter(k, 4 << 20, canonical=True,
                          rng=np.random.default_rng(42))
     torch.cuda.reset_peak_memory_stats()
-    merge_path.launches = compact.launches = 0
+    reset_counts()
     mers, counts, t_count, t_final = one_pass(counter)
-    launches = {"merge_path": merge_path.launches,
-                "compact": compact.launches}
+    launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
 
     # where the time goes: the same pass again under the profiler
@@ -407,6 +689,25 @@ def phase_full(dev):
     with prof:
         one_pass(counter)
     t_prof = time.perf_counter() - t
+
+    routes = {"kernels": [t_count], "lsd_chain": []}
+    kernel_route = ops_count.sort_rows
+    for name in ("lsd_chain", "kernels", "lsd_chain") if compare_lsd else ():
+        ops_count.sort_rows = (lsd_chain_sort if name == "lsd_chain"
+                               else kernel_route)
+        try:
+            counter.reset()
+            _, c, t_c, _ = one_pass(counter)
+        finally:
+            ops_count.sort_rows = kernel_route
+        if len(c) != len(counts) or c.sum() != counts.sum():
+            raise AssertionError(f"k={k} totals differ by sort route")
+        routes[name].append(t_c)
+    if compare_lsd:
+        log(f"k={k} counting s by grain sort route (kernels, LSD chain, "
+            f"kernels, LSD chain in run order): kernels {routes['kernels']}, "
+            f"lsd_chain {routes['lsd_chain']}")
+    del counter
     rows = [(e.key, e.device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -414,36 +715,40 @@ def phase_full(dev):
     # device time against the unprofiled pass's wall time instead
     busy = sum(r[1] for r in rows) / 1e6
     busy_share = busy / (t_count + t_final)
-    log(f"profiled pass (count + finalize): {t_prof:.3f} s wall; device "
-        f"kernels {busy:.3f} s = {100 * busy_share:.1f}% of the unprofiled "
-        f"pass's {t_count + t_final:.3f} s; device kernels by time:")
+    log(f"k={k} profiled pass (count + finalize): {t_prof:.3f} s wall; "
+        f"device kernels {busy:.3f} s = {100 * busy_share:.1f}% of the "
+        f"unprofiled pass's {t_count + t_final:.3f} s; device kernels by "
+        "time:")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:15]:
         log(f"  {us / 1e3:10.1f} ms {100 * us / 1e6 / busy:5.1f}% "
             f"{n:6d}x  {key[:100]}")
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(8) as pool:
-        lo = list(pool.map(lambda c: canonical_windows(c, K_FULL)[1], chunks))
+        words = list(pool.map(lambda c: canonical_words(c, k), chunks))
     t_windows = time.perf_counter() - t0
-    n_valid = sum(len(x) for x in lo)
+    n_valid = sum(len(x) for x in words)
     t0 = time.perf_counter()
-    distinct = distinct_count(lo, 2 * K_FULL)
+    distinct = distinct_count(words, 2 * k - 64 * (words[0].shape[1] - 1))
     t_unique = time.perf_counter() - t0
+    del words
     total = int(counts.sum(dtype=np.uint64))
-    log(f"full size k={K_FULL} -C -s 4M: {n_valid} valid mers, counting "
-        f"{t_count:.3f} s = {n_valid / t_count:.4g} mers/s, finalize "
-        f"{t_final:.3f} s, peak {peak / 2**30:.2f} GiB; sum of counts "
-        f"{total} (host {n_valid}), distinct {len(counts)} (host np.unique "
+    log(f"full size k={k} -C -s 4M: {n_valid} valid mers, counting "
+        f"{t_count:.6f} s = {n_valid / t_count:.6g} mers/s, finalize "
+        f"{t_final:.6f} s, peak {peak / 2**30:.2f} GiB; sum of counts "
+        f"{total} (host {n_valid}), distinct {len(counts)} (host "
         f"{distinct}; host windows {t_windows:.1f} s, unique "
         f"{t_unique:.1f} s); launches {launches}")
     if total != n_valid or len(counts) != distinct:
-        raise AssertionError("full-size counts disagree with the host")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+        raise AssertionError(f"full-size k={k} counts disagree with the host")
+    missed = [n for n in need if launches[n] == 0]
+    if missed:
+        raise AssertionError(f"full-size k={k} ran without {missed}")
     return launches, dict(
-        mers=n_valid, counting_s=t_count, mers_per_s=n_valid / t_count,
+        k=k, mers=n_valid, counting_s=t_count, mers_per_s=n_valid / t_count,
         finalize_s=t_final, device_busy_share=busy_share,
-        peak_gib=peak / 2**30, distinct=len(counts))
+        peak_gib=peak / 2**30, distinct=len(counts),
+        **({"counting_s_by_route": routes} if compare_lsd else {}))
 
 
 def main() -> int:
@@ -467,17 +772,38 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.build(["merge_path", "compact"])
+    _build.build(["merge_path", "compact", "bitonic"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     rows = phase_kernels(dev)
+    k3_rows, k3_table = phase_k3(dev)
+    rows.update(k3_rows)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_cli(tmp, 21, 32_000_000, 4_000_000, seed=21)
-        phase_cli(tmp, 33, 4_000_000, 1_000_000, seed=33)
-    launches, full = phase_full(dev)
+        phase_cli(tmp, 21, 32_000_000, 4_000_000, seed=21, need=["compact"])
+        phase_cli(tmp, 33, 4_000_000, 1_000_000, seed=33,
+                  need=["compact", "block_sort", "merge_pass"])
+        phase_cli(tmp, 63, 12_000_000, 3_000_000, seed=63,
+                  need=["compact", "block_sort", "merge_pass", "merge_path"])
+        phase_cli(tmp, 100, 2_000_000, 1_000_000, seed=100,
+                  need=["compact", "block_sort", "merge_pass"])
+    chunks, staged = stage_chunks(dev)
+    # each kernel's launches are read from the full-size run of its path;
+    # exchange_stages and flip lie on no path and report the k = 63 run's
+    path = {"merge_path": 21, "compact": 21, "block_sort": 63,
+            "merge_pass": 63, "exchange_stages": 63, "flip": 63}
+    off_path = {"exchange_stages", "flip"}
+    full, launches = {}, {}
+    for k in K_FULL:
+        need = [n for n in path
+                if n not in off_path and (k == 63 or path[n] == k)]
+        launches[k], full[k] = phase_full(k, chunks, staged, need,
+                                          compare_lsd=k == 63)
+        torch.cuda.empty_cache()
     for name, row in rows.items():
-        row["launches"] = launches[name]
-    log(json.dumps({"full_size": full}))
+        row["launches"] = launches[path[name]][name]
+        row["path"] = f"full size k={path[name]}"
+    log(json.dumps({"full_size": list(full.values())}))
+    log(json.dumps({"k3_table": k3_table}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -17,6 +17,11 @@ __version__ = "0.1.0"
 from jellyfish_tpu_torch.gf2 import GF2Matrix
 
 
+class NotPortedError(NotImplementedError):
+    """An option or a size whose path jellyfish_tpu_torch does not have
+    yet (the JAX package has it)."""
+
+
 def __getattr__(name):
     # lazily exported, keeping `import jellyfish_tpu_torch` light
     if name == "MerCounter":

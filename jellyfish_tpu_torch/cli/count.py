@@ -13,11 +13,9 @@ import time
 
 import numpy as np
 
+from jellyfish_tpu_torch import NotPortedError
+
 __all__ = ["add_parser", "run", "NotPortedError"]
-
-
-class NotPortedError(NotImplementedError):
-    """A count option whose path jellyfish_tpu_torch does not have yet."""
 
 
 def add_parser(sub):

@@ -18,8 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from jellyfish_tpu_torch import NotPortedError
 from jellyfish_tpu_torch.device import resolve_device
 from jellyfish_tpu_torch.gf2 import GF2Matrix
+from jellyfish_tpu_torch.kernels.merge_path import MAX_KEY_COLS
 from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.hashing import (
     inverse_masks_of_matrix,
@@ -45,6 +47,8 @@ class MerCounter:
     If size >= 4^k the identity matrix is used
     (large_hash_array.hpp:997-1001). `device` None means the GPU, and
     raises when there is none; pass device="cpu" to run on the CPU.
+    k above 16 * MAX_KEY_COLS = 112 raises NotPortedError: the kernels
+    take keys of at most MAX_KEY_COLS 32-bit limbs.
     """
 
     def __init__(
@@ -56,10 +60,16 @@ class MerCounter:
         rng: np.random.Generator | None = None,
         device=None,
     ):
-        self.device = resolve_device(device)
         self.k = int(k)
         c = 2 * self.k
         self.W = mw.nwords(c)
+        if self.W > MAX_KEY_COLS:
+            raise NotPortedError(
+                f"k = {self.k}: keys of {self.W} 32-bit limbs, and the "
+                f"kernels take at most {MAX_KEY_COLS} (k <= "
+                f"{16 * MAX_KEY_COLS}); use python -m jellyfish_tpu count"
+            )
+        self.device = resolve_device(device)
         # the table size rounds up to a power of two, so the identity
         # regime starts as soon as the ROUNDED size reaches 4^k
         if c <= 64 and ceil_log2(size) >= c:

@@ -1,19 +1,25 @@
-// Merge-path merge of two sorted runs of (key row, count) pairs.
+// Merge-path merge of sorted runs of key rows, each with an optional count.
 //
 // Replaces the Pallas merge-path kernels of experiments/pallas_merge_probe.py
 // (build_merge, build_merge3, build_merge_n, build_merge3_chunked: split
 // points by binary search, then a 16-stage bitonic merger per tile).
 //
-// Inputs: A and B sorted ascending; keys are [M, WK] int64 rows compared
-// lexicographically from the last column (WK = 1 is the packed 2k <= 64
-// sortkey, whose signed order is the unsigned order of the key). Output:
-// the STABLE merge, A's row first on equal keys, with each row's count.
+// Keys are [M, WK] int64 rows compared as csrc/rows.cuh says. Two entry
+// points, one tile routine:
+//   - jf_merge_path: the STABLE merge of runs A and B (A's row first on
+//     equal keys), with each row's count;
+//   - jf_merge_pass: one pass of a merge sort. Every adjacent pair of
+//     sorted runs of `run` rows in one [M, WK] array is merged the same
+//     way in one launch; the last pair may be short, and a lone last run
+//     is copied. The count (payload) is optional, so a sort can move keys
+//     only.
 //
 // Bound on this card: bytes. Every input row is read once and every output
-// row written once, (WK + 1) * 8 bytes each way, against a few integer
+// row written once, (WK + payload) * 8 bytes each way, against a few integer
 // compares per row. The design keeps the traffic at that minimum:
-//   - each block owns kRows consecutive output positions and finds its two
-//     diagonal splits by binary search in device memory (log2(M) reads);
+//   - each block owns kRows consecutive output positions of one pair and
+//     finds its two diagonal splits by binary search in device memory
+//     (log2(M) reads);
 //   - it stages its A and B windows, which are contiguous, in shared memory
 //     with coalesced loads;
 //   - each thread finds its own sub-split by binary search in shared memory
@@ -26,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -36,15 +44,6 @@ struct Tile {
   static constexpr int kItems = WK == 1 ? 8 : (WK <= 3 ? 4 : 2);
   static constexpr int kRows = kThreads * kItems;
 };
-
-template <int WK>
-__device__ __forceinline__ bool row_le(const int64_t* a, const int64_t* b) {
-#pragma unroll
-  for (int w = WK - 1; w >= 0; --w) {
-    if (a[w] != b[w]) return a[w] < b[w];
-  }
-  return true;
-}
 
 // Number of A rows among the first `diag` outputs of the stable merge:
 // the first i with A[i] > B[diag - 1 - i] (A[i] <= B[j] means A[i] goes
@@ -65,21 +64,21 @@ __device__ __forceinline__ I split(const int64_t* a, I na, const int64_t* b,
   return lo;
 }
 
-template <int WK>
-__global__ void __launch_bounds__(kThreads)
-merge_path_kernel(const int64_t* __restrict__ ak, const int64_t* __restrict__ ac,
-                  int64_t na, const int64_t* __restrict__ bk,
-                  const int64_t* __restrict__ bc, int64_t nb,
-                  int64_t* __restrict__ ok, int64_t* __restrict__ oc) {
+// Output rows [d0, d0 + kRows) of the stable merge of A and B (clipped to
+// na + nb). ac, bc and oc are the counts, used only when PAY.
+template <int WK, bool PAY>
+__device__ __forceinline__ void merge_tile(
+    const int64_t* __restrict__ ak, const int64_t* __restrict__ ac, int64_t na,
+    const int64_t* __restrict__ bk, const int64_t* __restrict__ bc, int64_t nb,
+    int64_t* __restrict__ ok, int64_t* __restrict__ oc, int64_t d0) {
   constexpr int kItems = Tile<WK>::kItems;
   constexpr int kRows = Tile<WK>::kRows;
   __shared__ int64_t s_key[kRows * WK];
-  __shared__ int64_t s_cnt[kRows];
+  __shared__ int64_t s_cnt[PAY ? kRows : 1];
   __shared__ int s_src[kRows];
   __shared__ int64_t s_split[2];
 
   const int64_t total = na + nb;
-  const int64_t d0 = (int64_t)blockIdx.x * kRows;
   const int64_t d1 = d0 + kRows < total ? d0 + kRows : total;
   if (threadIdx.x < 2) {
     s_split[threadIdx.x] =
@@ -95,8 +94,10 @@ merge_path_kernel(const int64_t* __restrict__ ak, const int64_t* __restrict__ ac
   // A's window at rows [0, nA), B's at [nA, n)
   for (int i = threadIdx.x; i < nA * WK; i += kThreads) s_key[i] = ak[a0 * WK + i];
   for (int i = threadIdx.x; i < nB * WK; i += kThreads) s_key[nA * WK + i] = bk[b0 * WK + i];
-  for (int i = threadIdx.x; i < nA; i += kThreads) s_cnt[i] = ac[a0 + i];
-  for (int i = threadIdx.x; i < nB; i += kThreads) s_cnt[nA + i] = bc[b0 + i];
+  if constexpr (PAY) {
+    for (int i = threadIdx.x; i < nA; i += kThreads) s_cnt[i] = ac[a0 + i];
+    for (int i = threadIdx.x; i < nB; i += kThreads) s_cnt[nA + i] = bc[b0 + i];
+  }
   __syncthreads();
 
   const int64_t* sa = s_key;
@@ -111,7 +112,9 @@ merge_path_kernel(const int64_t* __restrict__ ak, const int64_t* __restrict__ ac
   }
   __syncthreads();
 
-  for (int p = threadIdx.x; p < n; p += kThreads) oc[d0 + p] = s_cnt[s_src[p]];
+  if constexpr (PAY) {
+    for (int p = threadIdx.x; p < n; p += kThreads) oc[d0 + p] = s_cnt[s_src[p]];
+  }
   for (int e = threadIdx.x; e < n * WK; e += kThreads) {
     const int p = e / WK;
     ok[d0 * WK + e] = s_key[s_src[p] * WK + (e - p * WK)];
@@ -119,8 +122,41 @@ merge_path_kernel(const int64_t* __restrict__ ak, const int64_t* __restrict__ ac
 }
 
 template <int WK>
-int launch(const void* ak, const void* ac, int64_t na, const void* bk,
-           const void* bc, int64_t nb, void* ok, void* oc, cudaStream_t s) {
+__global__ void __launch_bounds__(kThreads)
+merge_path_kernel(const int64_t* __restrict__ ak, const int64_t* __restrict__ ac,
+                  int64_t na, const int64_t* __restrict__ bk,
+                  const int64_t* __restrict__ bc, int64_t nb,
+                  int64_t* __restrict__ ok, int64_t* __restrict__ oc) {
+  merge_tile<WK, true>(ak, ac, na, bk, bc, nb, ok, oc,
+                       (int64_t)blockIdx.x * Tile<WK>::kRows);
+}
+
+// blocks_per_pair consecutive blocks serve one pair of runs: pair p holds
+// rows [2 p run, 2 p run + 2 run) of the array, A its first run rows.
+template <int WK, bool PAY>
+__global__ void __launch_bounds__(kThreads)
+merge_pass_kernel(const int64_t* __restrict__ ik, const int64_t* __restrict__ ip,
+                  int64_t m, int64_t run, int64_t blocks_per_pair,
+                  int64_t* __restrict__ ok, int64_t* __restrict__ op) {
+  const int64_t pair = (int64_t)blockIdx.x / blocks_per_pair;
+  const int64_t d0 =
+      ((int64_t)blockIdx.x - pair * blocks_per_pair) * Tile<WK>::kRows;
+  const int64_t base = pair * 2 * run;
+  const int64_t na = run < m - base ? run : m - base;
+  const int64_t rest = m - base - na;
+  const int64_t nb = run < rest ? run : rest;
+  if (d0 >= na + nb) return;  // the short last pair needs fewer blocks
+  const int64_t* pa = PAY ? ip + base : nullptr;
+  const int64_t* pb = PAY ? ip + base + na : nullptr;
+  int64_t* po = PAY ? op + base : nullptr;
+  merge_tile<WK, PAY>(ik + base * WK, pa, na, ik + (base + na) * WK, pb, nb,
+                      ok + base * WK, po, d0);
+}
+
+template <int WK>
+int launch_merge(const void* ak, const void* ac, int64_t na, const void* bk,
+                 const void* bc, int64_t nb, void* ok, void* oc,
+                 cudaStream_t s) {
   const int64_t total = na + nb;
   if (total > 0) {
     const int64_t blocks = (total + Tile<WK>::kRows - 1) / Tile<WK>::kRows;
@@ -131,21 +167,54 @@ int launch(const void* ak, const void* ac, int64_t na, const void* bk,
   return (int)cudaGetLastError();
 }
 
+template <int WK>
+int launch_pass(const void* keys, const void* pay, int64_t m, int64_t run,
+                void* out_keys, void* out_pay, cudaStream_t s) {
+  if (m > 0) {
+    const int64_t pairs = (m + 2 * run - 1) / (2 * run);
+    const int64_t per_pair = (2 * run + Tile<WK>::kRows - 1) / Tile<WK>::kRows;
+    const int64_t blocks = pairs * per_pair;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    if (pay) {
+      merge_pass_kernel<WK, true><<<(unsigned)blocks, kThreads, 0, s>>>(
+          (const int64_t*)keys, (const int64_t*)pay, m, run, per_pair,
+          (int64_t*)out_keys, (int64_t*)out_pay);
+    } else {
+      merge_pass_kernel<WK, false><<<(unsigned)blocks, kThreads, 0, s>>>(
+          (const int64_t*)keys, nullptr, m, run, per_pair,
+          (int64_t*)out_keys, nullptr);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+using MergeFn = int (*)(const void*, const void*, int64_t, const void*,
+                        const void*, int64_t, void*, void*, cudaStream_t);
+using PassFn = int (*)(const void*, const void*, int64_t, int64_t, void*,
+                       void*, cudaStream_t);
+constexpr MergeFn kMerge[] = {nullptr, launch_merge<1>, launch_merge<2>,
+                              launch_merge<3>, launch_merge<4>,
+                              launch_merge<5>, launch_merge<6>,
+                              launch_merge<7>};
+constexpr PassFn kPass[] = {nullptr, launch_pass<1>, launch_pass<2>,
+                            launch_pass<3>, launch_pass<4>, launch_pass<5>,
+                            launch_pass<6>, launch_pass<7>};
+
 }  // namespace
 
 extern "C" int jf_merge_path(const void* a_keys, const void* a_cnt, int64_t na,
                              const void* b_keys, const void* b_cnt, int64_t nb,
                              void* out_keys, void* out_cnt, int wk,
                              void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (wk) {
-    case 1: return launch<1>(a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys, out_cnt, s);
-    case 2: return launch<2>(a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys, out_cnt, s);
-    case 3: return launch<3>(a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys, out_cnt, s);
-    case 4: return launch<4>(a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys, out_cnt, s);
-    case 5: return launch<5>(a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys, out_cnt, s);
-    case 6: return launch<6>(a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys, out_cnt, s);
-    case 7: return launch<7>(a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys, out_cnt, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (wk < 1 || wk > 7) return (int)cudaErrorInvalidValue;
+  return kMerge[wk](a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys, out_cnt,
+                    (cudaStream_t)stream);
+}
+
+// pay and out_pay NULL: keys only. run >= 1; out must not overlap the input.
+extern "C" int jf_merge_pass(const void* keys, const void* pay, int64_t m,
+                             int64_t run, void* out_keys, void* out_pay,
+                             int wk, void* stream) {
+  if (wk < 1 || wk > 7 || run < 1) return (int)cudaErrorInvalidValue;
+  return kPass[wk](keys, pay, m, run, out_keys, out_pay, (cudaStream_t)stream);
 }

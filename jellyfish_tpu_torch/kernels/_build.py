@@ -2,8 +2,9 @@
 
 Each csrc/<name>.cu has a plain C interface and compiles on its own into
 build/jellyfish_tpu_torch/lib<name>.so at the repository root (no PyTorch
-headers, so a build takes seconds). A library is rebuilt when its source
-is newer. `build` starts one nvcc per source, all at once.
+headers, so a build takes seconds); csrc/*.cuh are headers the sources
+share. A library is rebuilt when its source or a header is newer. `build`
+starts one nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -40,8 +41,13 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """Whether lib<name>.so is missing or older than its source or any
+    header under csrc/."""
     src, out = _paths(name)
-    return not out.exists() or out.stat().st_mtime < src.stat().st_mtime
+    if not out.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    return out.stat().st_mtime < newest
 
 
 def build(names) -> None:

@@ -1,0 +1,246 @@
+"""K3: the bitonic sorting network on tiles of key rows.
+
+`block_sort`, `exchange_stages` and `flip` launch csrc/bitonic.cu on CUDA
+tensors and run their plain versions (`block_sort_plain`,
+`exchange_stages_plain`, `flip_plain`) on CPU tensors; any other device
+raises. Keys are store key columns [M, Wk] int64 (ops/multiword.py),
+compared from the last column; a payload is an optional int64 [M] column
+that travels with its row.
+
+They port the Pallas bitonic kernels of experiments/ (PERF.md, kernel table
+rows 6, 7, 8, 11 and 12). A Pallas u32 tile [R, 128] is a run of key rows
+here in row-major order: tile row r, lane c is position 128 r + c, so a
+step between tile rows r and r + m is a step at distance 128 m.
+
+`block_sort.launches`, `exchange_stages.launches` and `flip.launches`
+count the calls that launched each entry point on the card: a
+`block_sort` call is one kernel launch, an `exchange_stages` call one a
+step. The counting path runs `block_sort` only (kernels/sort.py);
+`exchange_stages` and `flip` hold rows 7, 8, 11 and 12 on their own.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from jellyfish_tpu_torch.kernels import _build
+from jellyfish_tpu_torch.kernels.merge_path import MAX_KEY_COLS
+from jellyfish_tpu_torch.ops import multiword as mw
+from jellyfish_tpu_torch.ops.count import row_order
+
+__all__ = [
+    "block_sort", "block_sort_plain", "exchange_stages",
+    "exchange_stages_plain", "flip", "flip_plain", "tile_rows",
+]
+
+SHARED_TILE_BYTES = 96 * 1024  # two sorting blocks fit in an SM's 228 KB
+PAD = (1 << 63) - 1            # INT64_MAX: pad rows sort last
+_SQUARE = 128                  # side of the transposed square blocks
+
+_EXCHANGE, _FLIP = range(2)  # jf_exchange modes
+
+_P, _N, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SIGNATURES = {
+    "jf_block_sort": (_I, [_P, _P, _P, _P, _N, _I, _I, _P]),
+    "jf_exchange": (_I, [_P, _P, _P, _P, _N, _I, _I, _I, _I, _P]),
+}
+
+
+def tile_rows(wk: int, payload: bool) -> int:
+    """The block sort's tile: the largest power of two T with T rows of
+    (wk + payload) int64 columns in SHARED_TILE_BYTES."""
+    cols = wk + int(payload)
+    return 1 << ((SHARED_TILE_BYTES // (8 * cols)).bit_length() - 1)
+
+
+def _log2(x: int, what: str) -> int:
+    if x < 1 or x & (x - 1):
+        raise ValueError(f"{what} must be a power of two, got {x}")
+    return x.bit_length() - 1
+
+
+def _check(keys, payload=None):
+    if keys.dtype != torch.int64 or not keys.is_contiguous() or keys.dim() != 2:
+        raise ValueError("bitonic kernels take contiguous int64 keys [M, Wk]")
+    if not 1 <= keys.shape[1] <= MAX_KEY_COLS:
+        raise ValueError(f"bitonic kernels: key width {keys.shape[1]}")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bitonic kernels: unsupported device {keys.device}")
+    if payload is not None and (
+            payload.dtype != torch.int64 or not payload.is_contiguous()
+            or payload.shape != (keys.shape[0],)
+            or payload.device != keys.device):
+        raise ValueError("a payload is a contiguous int64 [M] column on the "
+                         "keys' device")
+
+
+# -- plain versions --------------------------------------------------------
+
+
+def block_sort_plain(keys, payload=None, tile=None):
+    """A stable per-tile sort: the LSD chain of torch.sort over a
+    [M/T, T] view, key columns first and the payload last. A ragged last
+    tile is padded with PAD rows, which sort after every real row."""
+    m, wk = keys.shape
+    tile = tile or tile_rows(wk, payload is not None)
+    pad = -m % tile
+    k = torch.cat([keys, keys.new_full((pad, wk), PAD)]).view(-1, tile, wk)
+    p = None
+    if payload is not None:
+        p = torch.cat([payload, payload.new_full((pad,), PAD)]).view(-1, tile)
+    order = row_order(k, p)
+    k = torch.gather(k, 1, order[..., None].expand_as(k)).reshape(-1, wk)[:m]
+    if p is not None:
+        p = torch.gather(p, 1, order).reshape(-1)[:m]
+    return k, p
+
+
+def _transposed_plain(x):
+    """Each run of 128 * 128 rows transposed as a square."""
+    return (x.reshape(-1, _SQUARE, _SQUARE, *x.shape[1:]).transpose(1, 2)
+            .reshape(x.shape))
+
+
+def exchange_stages_plain(keys, payload=None, distances=(), transposes=0):
+    """`transposes` transposes of each 128 x 128 square of rows, then one
+    ascending compare-exchange step per distance d in `distances`: row i
+    meets row i + d inside each 2d-row block, and the smaller key goes
+    first (equal keys stay). The payload is carried, not compared."""
+    k, p = keys, payload
+    if transposes % 2:
+        k = _transposed_plain(k)
+        p = None if p is None else _transposed_plain(p)
+    wk = k.shape[1]
+    for d in distances:
+        y = k.reshape(-1, 2, d, wk)
+        lo, hi = y[:, 0], y[:, 1]
+        swap = mw.mw_less(hi, lo)
+        k = torch.stack([mw.mw_select(swap, hi, lo),
+                         mw.mw_select(swap, lo, hi)], 1).reshape(-1, wk)
+        if p is not None:
+            yp = p.reshape(-1, 2, d)
+            plo, phi = yp[:, 0], yp[:, 1]
+            p = torch.stack([torch.where(swap, phi, plo),
+                             torch.where(swap, plo, phi)], 1).reshape(-1)
+    return k.contiguous(), None if p is None else p.contiguous()
+
+
+def flip_plain(keys, tile):
+    """Each tile of `tile` rows reversed."""
+    return keys.view(-1, tile, keys.shape[1]).flip(1).reshape(keys.shape)
+
+
+# -- kernels ---------------------------------------------------------------
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+class _Launcher:
+    """The K3 library on one device and its current stream; each call
+    runs with that device current and checks the returned CUDA error."""
+
+    def __init__(self, dev):
+        self.lib = _build.load("bitonic", _SIGNATURES)
+        self.dev = dev
+        with torch.cuda.device(dev):
+            self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def sort(self, src, dst, m, wk, log_t):
+        with torch.cuda.device(self.dev):
+            rc = self.lib.jf_block_sort(
+                _ptr(src[0]), _ptr(src[1]), _ptr(dst[0]), _ptr(dst[1]), m,
+                wk, log_t, self.stream)
+        _build.check(rc, "bitonic block_sort")
+
+    def steps(self, src, dst, m, wk, steps, transpose=False):
+        """(log_d, mode) steps: the first reads `src` (through the
+        transpose if asked) and writes `dst`, the others update `dst`."""
+        for i, (log_d, mode) in enumerate(steps):
+            ik, ip = src if i == 0 else dst
+            with torch.cuda.device(self.dev):
+                rc = self.lib.jf_exchange(
+                    _ptr(ik), _ptr(ip), _ptr(dst[0]), _ptr(dst[1]), m, wk,
+                    log_d, mode, int(transpose and i == 0), self.stream)
+            _build.check(rc, "bitonic exchange")
+
+
+def _empty_like(keys, payload):
+    return (torch.empty_like(keys),
+            None if payload is None else torch.empty_like(payload))
+
+
+def block_sort(keys, payload=None, tile=None):
+    """Sort each tile of `tile` rows (a power of two, at most and by
+    default tile_rows(Wk, payload): one tile in shared memory), comparing
+    the key first and then the payload, so that a row-index payload gives
+    a stable order. Returns (keys, payload or None). Longer runs are
+    kernels/sort.sort_rows_blocked's work."""
+    _check(keys, payload)
+    m, wk = keys.shape
+    cap = tile_rows(wk, payload is not None)
+    tile = tile or cap
+    log_t = _log2(tile, "tile")
+    if tile > cap:
+        raise ValueError(f"block_sort: a tile of {tile} rows exceeds shared "
+                         f"memory ({cap} rows)")
+    if keys.device.type == "cpu":
+        return block_sort_plain(keys, payload, tile)
+    out = _empty_like(keys, payload)
+    _Launcher(keys.device).sort((keys, payload), out, m, wk, log_t)
+    block_sort.launches += 1
+    return out
+
+
+block_sort.launches = 0
+
+
+def exchange_stages(keys, payload=None, distances=(), transposes=0):
+    """exchange_stages_plain on the card (rows 7, 8 and 11 of the kernel
+    table): at least one distance, each a power of two, M a multiple of
+    twice each (and of 128 * 128 for an odd number of transposes). Returns
+    (keys, payload or None)."""
+    _check(keys, payload)
+    m, wk = keys.shape
+    if not distances:
+        raise ValueError("exchange_stages: no distance")
+    steps = [(_log2(d, "distance"), _EXCHANGE) for d in distances]
+    if any(m % (2 << ld) for ld, _ in steps):
+        raise ValueError("exchange_stages: M must be whole blocks of 2d rows")
+    transpose = transposes % 2 == 1
+    if transpose and m % (_SQUARE * _SQUARE):
+        raise ValueError("exchange_stages: transposes need whole 128 x 128 "
+                         "squares of rows")
+    if keys.device.type == "cpu":
+        return exchange_stages_plain(keys, payload, distances, transposes)
+    out = _empty_like(keys, payload)
+    _Launcher(keys.device).steps((keys, payload), out, m, wk, steps,
+                                 transpose)
+    exchange_stages.launches += 1
+    return out
+
+
+exchange_stages.launches = 0
+
+
+def flip(keys, tile):
+    """Each tile of `tile` rows reversed (row 12 of the kernel table);
+    `tile` is a power of two >= 2 dividing M."""
+    _check(keys)
+    m, wk = keys.shape
+    log_t = _log2(tile, "tile")
+    if log_t == 0 or m % tile:
+        raise ValueError(f"flip: {m} rows are not whole tiles of {tile} >= 2")
+    if keys.device.type == "cpu":
+        return flip_plain(keys, tile)
+    out = torch.empty_like(keys)
+    _Launcher(keys.device).steps((keys, None), (out, None), m, wk,
+                                 [(log_t - 1, _FLIP)])
+    flip.launches += 1
+    return out
+
+
+flip.launches = 0

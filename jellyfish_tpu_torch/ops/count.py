@@ -14,20 +14,43 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sort_rows", "consolidate_premasked", "fold_adjacent"]
+__all__ = ["row_order", "sort_rows", "sort_rows_plain",
+           "consolidate_premasked", "fold_adjacent"]
+
+
+def row_order(keys, payload=None):
+    """Stable ascending order of the rows of keys [..., N, Wk] along N,
+    compared from the last column down and then by payload [..., N]:
+    a chain of stable sorts from the least significant column upward (LSD
+    radix order). Returns indices [..., N]."""
+    cols = ([] if payload is None else [payload]) + list(keys.unbind(-1))
+    order = None
+    for c in cols:
+        v = c if order is None else torch.gather(c, -1, order)
+        o = torch.sort(v, dim=-1, stable=True).indices
+        order = o if order is None else torch.gather(order, -1, o)
+    return order
+
+
+def sort_rows_plain(keys):
+    """Stable ascending sort of key rows [M, Wk] -> (sorted keys, perm) by
+    the LSD chain: the plain reference of the whole sort."""
+    perm = row_order(keys)
+    return keys[perm], perm
 
 
 def sort_rows(keys):
-    """Stable ascending sort of key rows [M, Wk] -> (sorted keys, perm).
-    One sort for a packed column; for Wk > 1 a chain of stable sorts from
-    the least significant column upward (LSD radix order)."""
+    """Ascending sort of key rows [M, Wk] -> sorted keys [M, Wk].
+
+    One torch.sort for a packed column. For Wk > 1, on every device,
+    kernels/sort.sort_rows_blocked: the bitonic block sort (K3) on tiles,
+    then merge passes (K1), keys only."""
     if keys.shape[1] == 1:
-        s, perm = torch.sort(keys[:, 0], stable=True)
-        return s.unsqueeze(1), perm
-    perm = torch.argsort(keys[:, 0], stable=True)
-    for w in range(1, keys.shape[1]):
-        perm = perm[torch.argsort(keys[perm, w], stable=True)]
-    return keys[perm], perm
+        return torch.sort(keys[:, 0]).values.unsqueeze(1)
+    # imported here: the kernels import this module's plain sorts
+    from jellyfish_tpu_torch.kernels.sort import sort_rows_blocked
+
+    return sort_rows_blocked(keys.contiguous())[0]
 
 
 def _row_changes(keys):
@@ -45,7 +68,7 @@ def consolidate_premasked(keys):
 
     Returns (sorted keys [M, Wk], counts [M] int64) masked: each segment's
     length sits on its LAST row, every other row has count 0."""
-    s, _ = sort_rows(keys)
+    s = sort_rows(keys)
     M = s.shape[0]
     is_last = torch.ones(M, dtype=torch.bool, device=s.device)
     is_last[:-1] = _row_changes(s)

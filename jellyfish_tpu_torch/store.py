@@ -9,8 +9,9 @@ limbs, pow2 sort groups and the asynchronous resolve):
     already carry the PAD key), keys only;
   - raw rows accumulate to a grain (`consolidate_rows`, 2^27 rows for
     W <= 3 limbs; the first grain runs at 1/8 of it). The grain is sorted
-    with torch.sort, counted by segment length (ops/count.py) and
-    compacted by kernel K2 (kernels/compact.py) into a level-0 run;
+    (ops/count.sort_rows: torch.sort for a packed key column, the K3 block
+    sort and K1 merge passes for limb columns), counted by segment length
+    and compacted by kernel K2 (kernels/compact.py) into a level-0 run;
   - compacted runs collect in a forest of levels, `branch` runs merging
     into one run of the next level. A merge takes at most
     `merge_bytes_budget` bytes of input runs (at least two runs) and

@@ -59,6 +59,8 @@ def _split(path):
     (21, ["-L", "2", "-U", "6"]),
     (33, []),
     (33, ["-C", "-L", "3", "--out-counter-len", "1", "-Q", "5"]),
+    (63, ["-C"]),
+    (100, ["-L", "2"]),
 ])
 def test_count_db_matches_jax(reads, monkeypatch, k, extra):
     d, fq, fa = reads
@@ -100,3 +102,13 @@ def test_unported_flags_raise(reads, tmp_path, flags):
     with pytest.raises(NotPortedError, match="not yet ported"):
         torch_main(["count", "-m", "21", "-s", "1M", *flags,
                     "-o", str(tmp_path / "x.jf"), fq], device="cpu")
+
+
+@pytest.mark.parametrize("k", [113, 128])
+def test_key_width_above_the_kernels_raises(tmp_path, k):
+    """k > 112 needs keys of more 32-bit limbs than the kernels' template
+    instances take: count refuses before it opens any input."""
+    missing = str(tmp_path / "never_read.fq")
+    with pytest.raises(NotPortedError, match="k <= 112"):
+        torch_main(["count", "-m", str(k), "-s", "1M", "-o",
+                    str(tmp_path / "x.jf"), missing], device="cpu")

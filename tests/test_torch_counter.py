@@ -124,6 +124,30 @@ def test_counter_matches_jax(k, canonical, size, motif):
         assert c[-1] > 0
 
 
+@pytest.mark.parametrize("k", [63, 100])
+def test_large_keys_sort_through_merge_passes(monkeypatch, k):
+    """W = 4 and W = 7 limb keys with a grain of a few block-sort tiles:
+    every consolidation sorts through K3's block sort and K1's merge
+    passes (their plain versions here), and the grains' runs merge as at
+    any key width."""
+    from jellyfish_tpu_torch.kernels import sort as ksort
+
+    passes = []
+    merge_pass = ksort.merge_pass
+    monkeypatch.setattr(ksort, "merge_pass",
+                        lambda *a: passes.append(a[1]) or merge_pass(*a))
+    seed = 9300 + k
+    port = MerCounter(k, 4096, canonical=True,
+                      rng=np.random.default_rng(seed), device="cpu")
+    ref = JaxCounter(k, 4096, canonical=True, rng=np.random.default_rng(seed))
+    assert port.store.key_cols == port.W == (4 if k == 63 else 7)
+    port.store.consolidate_rows = 5000
+    rng = np.random.default_rng(seed)
+    _feed([port, ref], _chunks(rng, 80, k))
+    assert len(passes) >= 8  # 1-2 passes a grain
+    _same(port, ref)
+
+
 def test_budget_take_and_repeated_finalize():
     """A merge budget of about three runs: level merges take part of a
     level at a time. Then finalize, ingest more, finalize again: the

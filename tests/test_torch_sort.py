@@ -1,0 +1,282 @@
+"""K3's plain versions against the Pallas bitonic kernels they replace, and
+the port's multi-column sort (K3 block sort + K1 merge passes, on the CPU
+through the plain versions) against the LSD chain (exact: integer data).
+
+Rows of the kernel table (PERF.md): 6 experiments/pallas_sort_proto.py
+sort_kernel, run in interpret mode; 7 and 8 pallas_probe2._xchg1 and
+_xchg3 and 11 pallas_stage_probe.make_kernel (interpret mode), whose u32
+[R, 128] tiles are runs of key rows in row-major order here; 12 the flip
+of pallas_stage_probe, x[::-1, ::-1]. On CPU tensors the wrappers take the
+plain path and launch nothing.
+"""
+
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from jellyfish_tpu_torch.kernels import sort as ksort
+from jellyfish_tpu_torch.kernels.bitonic import (
+    block_sort,
+    block_sort_plain,
+    exchange_stages,
+    exchange_stages_plain,
+    flip,
+    flip_plain,
+    tile_rows,
+)
+from jellyfish_tpu_torch.kernels.merge_path import merge_pass, merge_pass_plain
+from jellyfish_tpu_torch.kernels.sort import sort_rows_blocked
+from jellyfish_tpu_torch.ops import multiword as mw
+from jellyfish_tpu_torch.ops.count import sort_rows, sort_rows_plain
+
+torch.set_num_threads(1)
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                "experiments"))
+
+
+@pytest.fixture(scope="module")
+def probes():
+    """The probe modules; importing them points JAX's compilation cache at
+    a directory outside the checkout, which is undone here."""
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        import pallas_probe2
+        import pallas_sort_proto
+        import pallas_stage_probe
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+    return pallas_sort_proto, pallas_probe2, pallas_stage_probe
+
+
+def _u32(rng, shape, hi=1 << 32):
+    return rng.integers(0, hi, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _col(x):
+    """A u32 tile as one column of key rows, row-major."""
+    return torch.from_numpy(x.reshape(-1, 1).astype(np.int64))
+
+
+def _tile(t, shape):
+    return t.numpy().astype(np.uint32).reshape(shape)
+
+
+def _cycle(r, n):
+    """The probes' step distances: R/2, R/4, ..., 1, R/2, ... (n steps)."""
+    out, s = [], r // 2
+    for _ in range(n):
+        out.append(max(s, 1))
+        s = s // 2 or r // 2
+    return out
+
+
+def test_block_sort_plain_matches_pallas_sort(probes):
+    """Row 6: the whole-tile bitonic sort of 131,072 keys. The Pallas tile
+    is column-major: key i sits at (i mod R, i div R). The card sorts that
+    tile as the counting path does: K3 on shared-memory tiles, then K1
+    merge passes."""
+    ps = probes[0]
+    rng = np.random.default_rng(600)
+    vals = _u32(rng, ps.T)
+    vals[:5000] = vals[5000:10000]  # ties
+    x = jnp.asarray(vals.reshape(ps.LANES, ps.R).T)
+    want = np.asarray(pl.pallas_call(
+        ps.sort_kernel,
+        out_shape=jax.ShapeDtypeStruct((ps.R, ps.LANES), jnp.uint32),
+        interpret=True)(x)).T.reshape(-1)
+    np.testing.assert_array_equal(want, np.sort(vals))
+    got, _ = block_sort_plain(_col(vals), tile=ps.T)
+    np.testing.assert_array_equal(got[:, 0].numpy().astype(np.uint32), want)
+    got, _ = sort_rows_blocked(_col(vals))
+    np.testing.assert_array_equal(got[:, 0].numpy().astype(np.uint32), want)
+
+
+def test_exchange_stages_plain_matches_xchg1(probes):
+    """Row 7: build_stages(n, arrays=1), one array, steps at tile-row
+    distances R/2 ... 1 and around again."""
+    p2 = probes[1]
+    rng = np.random.default_rng(700)
+    x = _u32(rng, (p2.R, p2.C), hi=1000)  # many ties
+    ms = _cycle(p2.R, 14)
+    want = jnp.asarray(x)
+    for m in ms:
+        want = p2._xchg1(want, m)
+    got, p = exchange_stages_plain(_col(x), distances=[m * p2.C for m in ms])
+    assert p is None
+    np.testing.assert_array_equal(_tile(got, x.shape), np.asarray(want))
+
+
+def test_exchange_stages_plain_matches_xchg3(probes):
+    """Row 8: build_stages(n, arrays=3), (hi, lo, count) triples compared
+    on (hi, lo) with the count carried: keys [M, 2] of (lo, hi) limbs,
+    compared from the last column, and the count as the payload."""
+    p2 = probes[1]
+    rng = np.random.default_rng(800)
+    kh = _u32(rng, (p2.R, p2.C), hi=4)       # hi ties decided by lo
+    kl = _u32(rng, (p2.R, p2.C), hi=64)      # and some full ties
+    cnt = _u32(rng, (p2.R, p2.C))
+    ms = _cycle(p2.R, 13)
+    want = [jnp.asarray(a) for a in (kh, kl, cnt)]
+    for m in ms:
+        want = p2._xchg3(*want, m)
+    keys = torch.from_numpy(
+        np.stack([kl.reshape(-1), kh.reshape(-1)], 1).astype(np.int64))
+    got, pay = exchange_stages_plain(keys, _col(cnt)[:, 0].contiguous(),
+                                     [m * p2.C for m in ms])
+    np.testing.assert_array_equal(_tile(got[:, 1], kh.shape),
+                                  np.asarray(want[0]))
+    np.testing.assert_array_equal(_tile(got[:, 0], kh.shape),
+                                  np.asarray(want[1]))
+    np.testing.assert_array_equal(_tile(pay, kh.shape), np.asarray(want[2]))
+
+
+@pytest.mark.parametrize("transposes", [0, 1, 2])
+def test_exchange_stages_plain_matches_stage_probe(probes, transposes):
+    """Row 11: make_kernel(n, t), t transposes of each [128, 128] sub-tile
+    and then n row-exchange steps, run in interpret mode."""
+    sp = probes[2]
+    rng = np.random.default_rng(1100 + transposes)
+    x = _u32(rng, (sp.R, sp.C))
+    n = 12
+    want = np.asarray(pl.pallas_call(
+        sp.make_kernel(n, transposes),
+        out_shape=jax.ShapeDtypeStruct((sp.R, sp.C), jnp.uint32),
+        interpret=True)(jnp.asarray(x)))
+    got, _ = exchange_stages_plain(
+        _col(x), distances=[m * sp.C for m in _cycle(sp.R, n)],
+        transposes=transposes)
+    np.testing.assert_array_equal(_tile(got, x.shape), want)
+
+
+def test_flip_plain_matches_probe_flip(probes):
+    """Row 12: a [1024, 128] tile reversed along both axes."""
+    sp = probes[2]
+    rng = np.random.default_rng(1200)
+    x = _u32(rng, (2, sp.R, sp.C))
+    got = flip_plain(_col(x), sp.R * sp.C)
+    np.testing.assert_array_equal(_tile(got, x.shape), x[:, ::-1, ::-1])
+
+
+def _rows(rng, m, wk):
+    """m key rows of wk columns as the store holds them: limbs for wk > 1,
+    packed over the whole int64 range for wk = 1, with ties (repeated
+    rows, rows equal in the top columns only) and all-ones PAD rows."""
+    if wk == 1:
+        x = rng.integers(-(1 << 63), (1 << 63) - 1, (m, 1), dtype=np.int64)
+    else:
+        x = rng.integers(0, 1 << 32, (m, wk), dtype=np.int64)
+        x[: m // 4, 1:] = x[m // 4: 2 * (m // 4), 1:]  # ties above column 0
+    x[m // 2: m // 2 + m // 8] = x[: m // 8]       # whole-row ties
+    x[rng.random(m) < 0.05] = mw.pad_key(3 if wk > 1 else 2)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("wk", range(1, 8))
+def test_sort_route_matches_lsd_chain(wk):
+    """sort_rows_blocked with a payload and with keys only, at the default
+    tile and at small tiles that leave a ragged last tile, an odd number
+    of tiles and a lone last run, against sort_rows_plain. The row-index
+    payload comes out as the stable perm."""
+    rng = np.random.default_rng(2000 + wk)
+    m = 3 * tile_rows(wk, True) + 101 if wk > 3 else 5000
+    keys = _rows(rng, m, wk)
+    want, want_perm = sort_rows_plain(keys)
+    idx = torch.arange(m)
+    for tile in (None, 64, 128):
+        got, perm = sort_rows_blocked(keys, idx, tile)
+        assert torch.equal(got, want) and torch.equal(perm, want_perm)
+        got, none = sort_rows_blocked(keys, None, tile)
+        assert none is None and torch.equal(got, want)
+    assert block_sort.launches == merge_pass.launches == 0
+
+
+@pytest.mark.parametrize("wk", [3, 4, 7])
+def test_sort_rows_takes_the_blocked_route(monkeypatch, wk):
+    """For Wk > 1 sort_rows runs K3's block sort and K1's merge passes on
+    every device (here their plain versions), keys only."""
+    calls = {"block": 0, "pass": 0}
+
+    def spy(name, fn):
+        def f(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return f
+
+    monkeypatch.setattr(ksort, "block_sort", spy("block", ksort.block_sort))
+    monkeypatch.setattr(ksort, "merge_pass", spy("pass", ksort.merge_pass))
+    rng = np.random.default_rng(2100 + wk)
+    m = 8 * tile_rows(wk, False) + 7
+    keys = _rows(rng, m, wk)
+    assert torch.equal(sort_rows(keys), sort_rows_plain(keys)[0])
+    assert calls == {"block": 1, "pass": 4}  # ceil(log2(9 tiles))
+
+
+@pytest.mark.parametrize("wk,run", [(1, 1), (3, 5), (4, 64), (7, 100)])
+def test_merge_pass_plain(wk, run):
+    """Every adjacent pair of sorted runs merged stably; the short last
+    pair and a lone last run included."""
+    rng = np.random.default_rng(3000 + wk)
+    m = 7 * run + run // 2 + 1  # 3 pairs, a short 4th pair
+    keys = _rows(rng, m, wk)
+    for s in range(0, m, run):  # sorted runs of `run` rows
+        keys[s:s + run] = sort_rows_plain(keys[s:s + run])[0]
+    pay = torch.arange(m) * 3
+    got, gp = merge_pass_plain(keys, run, pay)
+    for s in range(0, m, 2 * run):
+        k, perm = sort_rows_plain(keys[s:s + 2 * run])
+        assert torch.equal(got[s:s + 2 * run], k)
+        assert torch.equal(gp[s:s + 2 * run], pay[s:s + 2 * run][perm])
+    k2, p2 = merge_pass(keys, run, pay)
+    assert torch.equal(k2, got) and torch.equal(p2, gp)
+    k3, none = merge_pass(keys, run)
+    assert none is None and torch.equal(k3, got)
+    lone = merge_pass_plain(keys[:run], run)[0]  # one run: copied
+    assert torch.equal(lone, keys[:run])
+    assert merge_pass.launches == 0
+
+
+def test_wrappers_on_cpu_tensors_are_the_plain_versions():
+    rng = np.random.default_rng(4000)
+    keys = _rows(rng, 1 << 15, 2)
+    pay = torch.from_numpy(rng.integers(0, 1 << 40, 1 << 15))
+    for tile in (256, tile_rows(2, True)):
+        a = block_sort(keys, pay, tile)
+        b = block_sort_plain(keys, pay, tile)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = exchange_stages(keys, pay, [1, 64, 2], transposes=1)
+    b = exchange_stages_plain(keys, pay, [1, 64, 2], transposes=1)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(flip(keys, 512), flip_plain(keys, 512))
+    assert block_sort.launches == exchange_stages.launches == 0
+    assert flip.launches == 0
+
+
+def test_wrappers_reject_bad_inputs():
+    k = torch.zeros((64, 2), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        block_sort(k, tile=24)                       # not a power of two
+    with pytest.raises(ValueError):
+        block_sort(k, tile=1 << 14)                  # above shared memory
+    with pytest.raises(ValueError):
+        block_sort(torch.zeros((4, 8), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        block_sort(k, torch.zeros(63, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        exchange_stages(k, distances=[64])           # not whole 2d blocks
+    with pytest.raises(ValueError):
+        exchange_stages(k, distances=[1], transposes=1)  # not whole squares
+    with pytest.raises(ValueError):
+        exchange_stages(k)                           # no step
+    with pytest.raises(ValueError):
+        flip(k, 48)
+    with pytest.raises(ValueError):
+        merge_pass(k.t(), 4)
+    with pytest.raises(ValueError):
+        merge_pass(k, 0)
