@@ -3,22 +3,28 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from jellyfish_tpu_torch/csrc (K1 merge_path.cu,
-K2 compact.cu, K3 bitonic.cu) and holds each entry point against its plain
-PyTorch version at the shapes the counting path gives it and, for K3, at
-the Pallas kernels' own shapes. Runs `count` end to end through the CLI at
-k = 21, 33, 63 and 100 with every record checked against a numpy oracle.
-Counts the 268M windows of the main configuration through MerCounter
-twice: at k = 21 (231M valid mers, packed keys) and at k = 63 (156M valid
-mers, 4-limb keys that every grain consolidation sorts with K3's block
-sort and K1's merge passes; three more passes there time that sort against
-the LSD chain of stable argsorts it replaced). Both runs: canonical, -s 4M, 256 chunks of
-1 MiB of 150-base reads at 8x coverage of a seeded random 33.5 Mbase
-genome, in batches of 8. Exits nonzero, with no result line, when there
-is no GPU or any phase fails.
+K2 compact.cu, K3 bitonic.cu, rows 9 and 10 window.cu) and holds each
+entry point against its plain PyTorch version at the shapes its path gives
+it and at the Pallas kernels' own shapes. Runs `count` end to end through
+the CLI at k = 21, 33, 63 and 100 with every record checked against a
+numpy oracle; merges 4 parts of the k = 63 input in small windows (every
+slab rotated) and checks the result against the whole input's count, and
+MIN, MAX, JACCARD and -L/-U against a numpy oracle; runs `count --disk` at
+k = 21 and 63 against the in-memory count. Counts the 268M windows of the
+main configuration through MerCounter twice: at k = 21 (231M valid mers,
+packed keys) and at k = 63 (156M valid mers, 4-limb keys that every grain
+consolidation sorts with K3's block sort and K1's merge passes; three more
+passes there time that sort against the LSD chain of stable argsorts it
+replaced). Both runs: canonical, -s 4M, 256 chunks of 1 MiB of 150-base
+reads at 8x coverage of a seeded random 33.5 Mbase genome, in batches of
+8. Then merges, through the CLI, 4 databases each counted from a quarter
+of those chunks at k = 21 (110M records), and holds the result against the
+k = 21 count, record for record. Exits nonzero, with no result line, when
+there is no GPU or any phase fails.
 
-The last lines of standard output are the kernels' JSON line, the card's
-name and power limit as nvidia-smi reports them, and
-{"ok": true, "device": {...}}.
+The last lines of standard output are the kernels' JSON line, the
+script's time, the card's name and power limit as nvidia-smi reports
+them, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -233,10 +239,12 @@ def _wrappers() -> dict:
     )
     from jellyfish_tpu_torch.kernels.compact import compact
     from jellyfish_tpu_torch.kernels.merge_path import merge_pass, merge_path
+    from jellyfish_tpu_torch.kernels.window import roll_lanes, window_rows
 
     return {"merge_path": merge_path, "merge_pass": merge_pass,
             "compact": compact, "block_sort": block_sort,
-            "exchange_stages": exchange_stages, "flip": flip}
+            "exchange_stages": exchange_stages, "flip": flip,
+            "window_rows": window_rows, "roll_lanes": roll_lanes}
 
 
 def kernel_counts() -> dict:
@@ -365,6 +373,39 @@ def phase_kernels(dev):
         shape=f"{m} rows, Wk 1, {n} live",
     )
     del keys, cnt, got, want
+
+    # K2 with a keep mask, the instance the merge runs, at its shape: one
+    # round's merged takes of 4 inputs (4 x 2^20 rows) in segments of 1-4
+    # equal keys, each segment's value on all its rows, some values 0. Kept
+    # (as by merge -L 0 -U 5): a segment's first row when its value is at
+    # most 5, so kept rows of value 0 and dropped rows of any value
+    m = 4 << 20
+    for wk in (4, 1):
+        pool = sorted_run(m, wk, 1 << 62 if wk == 1 else 1 << 32)
+        reps = torch.randint(1, 5, (m,), device=dev, generator=g)
+        keys = torch.repeat_interleave(pool, reps, dim=0)[:m].contiguous()
+        is_new = torch.ones(m, dtype=torch.bool, device=dev)
+        is_new[1:] = (keys[1:] != keys[:-1]).any(dim=1)
+        vals = torch.randint(0, 9, (m,), device=dev,
+                             generator=g)[torch.cumsum(is_new, 0) - 1]
+        keep = is_new & (vals <= 5)
+        n = int(keep.sum())
+        zeros = int((keep & (vals == 0)).sum())
+        dropped = int((~keep & (vals != 0)).sum())
+        label = (f"K2 compact with a keep mask, {m} rows, Wk {wk}, {n} kept "
+                 f"({zeros} of value 0), {dropped} nonzero dropped")
+        if compact(keys, vals, keep)[2] != n or not zeros or not dropped:
+            raise AssertionError(f"{label}: wrong kept-row total or input")
+        row = hold(label, lambda: compact(keys, vals, keep)[:2],
+                   lambda: compact_plain(keys, vals, keep)[:2],
+                   m * (wk + 1) * 8 + m + n * (wk + 1) * 8,
+                   library=lambda: (keys[keep], vals[keep]))
+    # the row is the full-size merge's width, Wk 1
+    rows["compact_keep"] = dict(
+        name="compact.keep_mask", route="cuda",
+        source="jellyfish_tpu_torch/csrc/compact.cu",
+        replaces="experiments/pallas_compact.py:252", **row)
+    del pool, reps, keys, is_new, vals, keep
     torch.cuda.empty_cache()
     return rows
 
@@ -584,6 +625,98 @@ def phase_k3(dev):
     return rows, table
 
 
+def phase_window(dev):
+    """Rows 9 and 10 (csrc/window.cu) against their plain versions, exact:
+    at the Pallas probes' shapes, at the merge's shape (a 2^20-row window
+    out of a 2^24-row slab at an odd offset, Wk 1 and 4, and the slab's
+    rotation by -cursor) and at the edges, with offsets and shifts on the
+    host and on the device. Returns the JSON rows, timed at Wk 1 (the
+    full-size merge's width), and the Wk 4 timings."""
+    from jellyfish_tpu_torch.kernels.window import (
+        roll_lanes,
+        roll_lanes_plain,
+        window_rows,
+        window_rows_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    on = lambda v: torch.tensor(v, device=dev)  # noqa: E731
+
+    # row 9, test_unaligned_dma: u32[65536] as one key column, 4096 rows
+    x = torch.randint(0, 1 << 32, (1 << 16, 1), device=dev, generator=g)
+    c = torch.randint(0, 1 << 40, (1 << 16,), device=dev, generator=g)
+    for off in (0, 128, 131, 7777):
+        for o in (off, on(off)):
+            hold(f"window_rows u32[65536] off {off} ({type(o).__name__}) "
+                 "(row 9)", lambda: window_rows(x, c, o, 4096),
+                 lambda: window_rows_plain(x, c, off, 4096))
+        if not torch.equal(window_rows(x, c, on(off), 4096)[0],
+                           x[off:off + 4096]):
+            raise AssertionError("window_rows != x[off:off+4096]")
+    # row 10, test_dynamic_roll: u32[8, 128]
+    x = torch.randint(0, 1 << 32, (8, 128), device=dev, generator=g)
+    for s in (1, 37):
+        for v in (s, on(s)):
+            hold(f"roll_lanes u32[8, 128] shift {s} ({type(v).__name__}) "
+                 "(row 10)", lambda: roll_lanes(x, v),
+                 lambda: roll_lanes_plain(x, s))
+    # the edges: windows past the end and before the start, shifts 0,
+    # negative and larger than the row
+    m = 1_000_003
+    x = torch.randint(0, 1 << 32, (m, 4), device=dev, generator=g)
+    c = torch.randint(0, 1 << 40, (m,), device=dev, generator=g)
+    for off, n in ((m - 5, 100), (m + 7, 50), (-30, 100), (0, 0),
+                   (12345, 2 * m)):
+        hold(f"window_rows edge off {off} n {n}, Wk 4",
+             lambda: window_rows(x, c, on(off), n),
+             lambda: window_rows_plain(x, c, off, n))
+    flat = x.view(1, -1)
+    for s in (0, -1, -4 * 777_777, 4 * m + 9, -(13 * 4 * m) - 3, 4 * m):
+        hold(f"roll_lanes edge shift {s} of [1, {4 * m}]",
+             lambda: roll_lanes(flat, on(s)),
+             lambda: roll_lanes_plain(flat, s))
+    del x, c, flat
+
+    # the merge's shape
+    rows, table = {}, {}
+    slab, n, off = 1 << 24, 1 << 20, 5_000_001
+    for wk in (1, 4):
+        keys = torch.randint(0, 1 << 32, (slab, wk), device=dev, generator=g)
+        cnt = torch.randint(0, 1 << 40, (slab,), device=dev, generator=g)
+        cur = on(off)
+        win = hold(
+            f"window_rows {n} rows at {off} of a {slab}-row slab, Wk {wk}",
+            lambda: window_rows(keys, cnt, cur, n),
+            lambda: window_rows_plain(keys, cnt, off, n),
+            2 * n * (wk + 1) * 8,
+            library=lambda: (keys[off:off + n].clone(),
+                             cnt[off:off + n].clone()))
+        flat, cflat = keys.view(1, -1), cnt.view(1, -1)
+        sk, sc = cur * -wk, -cur
+        roll = hold(
+            f"roll_lanes of a {slab}-row slab by -{off} rows, Wk {wk} "
+            "(keys and counts)",
+            lambda: (roll_lanes(flat, sk), roll_lanes(cflat, sc)),
+            lambda: (roll_lanes_plain(flat, -off * wk),
+                     roll_lanes_plain(cflat, -off)),
+            2 * slab * (wk + 1) * 8,
+            library=lambda: (torch.roll(flat, -off * wk, 1),
+                             torch.roll(cflat, -off, 1)))
+        table[f"wk={wk}"] = {"window_rows": win, "roll_lanes": roll}
+        del keys, cnt, flat, cflat
+    torch.cuda.empty_cache()
+    src = "jellyfish_tpu_torch/csrc/window.cu"
+    rows["window_rows"] = dict(
+        name="window.window_rows", route="cuda", source=src,
+        replaces="experiments/pallas_probe2.py:163",
+        **table["wk=1"]["window_rows"])
+    rows["roll_lanes"] = dict(
+        name="window.roll_lanes", route="cuda", source=src,
+        replaces="experiments/pallas_probe2.py:194",
+        **table["wk=1"]["roll_lanes"])
+    return rows, table
+
+
 def phase_cli(tmp, k, n_bases, genome_len, seed, need):
     """`count -m k -s 4M -C` through the CLI on a seeded FASTQ; every
     record against the numpy oracle, the dump order checked, and each
@@ -647,14 +780,15 @@ def lsd_chain_sort(keys):
     return keys[perm]
 
 
-def phase_full(k, chunks, staged, need, compare_lsd=False):
+def phase_full(k, chunks, staged, need, compare_lsd=False, keep=False):
     """Count the staged chunks at k through MerCounter: the counting
     region ends when every row is consolidated; then finalize, a profiled
     second pass, and the totals against the host. Each kernel in `need`
     must have launched in the first pass. With compare_lsd, three more
     passes time the grain sort's routes against each other: the LSD
     chain, the kernels, the LSD chain; each must give the first pass's
-    totals."""
+    totals. With keep, the first pass's table (mers, counts) is returned
+    too."""
     import jellyfish_tpu_torch.ops.count as ops_count
     from jellyfish_tpu_torch.counter import MerCounter
 
@@ -744,11 +878,266 @@ def phase_full(k, chunks, staged, need, compare_lsd=False):
     missed = [n for n in need if launches[n] == 0]
     if missed:
         raise AssertionError(f"full-size k={k} ran without {missed}")
-    return launches, dict(
+    result = launches, dict(
         k=k, mers=n_valid, counting_s=t_count, mers_per_s=n_valid / t_count,
         finalize_s=t_final, device_busy_share=busy_share,
         peak_gib=peak / 2**30, distinct=len(counts),
         **({"counting_s_by_route": routes} if compare_lsd else {}))
+    return (*result, (mers, counts)) if keep else result
+
+
+def records_of(path) -> bytes:
+    """The record bytes of a database (what follows its header)."""
+    from jellyfish_tpu_torch.io.header import FileHeader
+
+    with open(path, "rb") as f:
+        f.seek(FileHeader.read(f).offset)
+        return f.read()
+
+
+def profiled(fn):
+    """fn() under torch.profiler: (its result, device seconds, the device
+    rows (name, us, calls) by time)."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, sum(r[1] for r in rows) / 1e6, sorted(rows,
+                                                      key=lambda r: -r[1])
+
+
+def phase_merge(tmp, staged, table, need):
+    """The full-size merge: 4 databases, each counted from a quarter of the
+    256 staged chunks (k = 21, -C, -s 4M, the full-size run's matrix),
+    merged through the CLI. The merged records must equal those of the
+    in-memory count of all 256 chunks (`table`, phase_full's k = 21
+    pass); each kernel in `need` must launch. A second merge, profiled,
+    gives the device share and the breakdown."""
+    from jellyfish_tpu_torch import cli
+    from jellyfish_tpu_torch.counter import MerCounter
+    from jellyfish_tpu_torch.io.dumpers import dump_counter
+    from jellyfish_tpu_torch.io.files import encode_binary_records_np
+    from jellyfish_tpu_torch.merge import merge_files
+
+    t0 = time.perf_counter()
+    paths, n_rec = [], []
+    q = len(staged) // 4
+    for i in range(4):
+        counter = MerCounter(21, 4 << 20, canonical=True,
+                             rng=np.random.default_rng(42))
+        for pw, vb in staged[i * q:(i + 1) * q]:
+            counter.add_chunks_packed_batch(pw, vb)
+        paths.append(os.path.join(tmp, f"quarter{i}.jf"))
+        n_rec.append(dump_counter(counter, paths[-1]))
+        del counter
+        torch.cuda.empty_cache()
+    sizes = [os.path.getsize(p) for p in paths]
+    log(f"merge inputs: 4 quarters written in {time.perf_counter() - t0:.1f}"
+        f" s: {n_rec} records, {sizes} bytes")
+
+    out = os.path.join(tmp, "merged.jf")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    rc = cli.main(["merge", "-o", out, *paths])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError(f"merge exited {rc}")
+    mers, counts = table
+    same = records_of(out) == encode_binary_records_np(mers, counts, 21, 4)
+    n_in = sum(n_rec)
+    log(f"full-size merge k=21: {n_in} input records -> {len(counts)} in "
+        f"{wall:.6f} s = {n_in / wall:.6g} input records/s, peak "
+        f"{peak / 2**30:.3f} GiB; records == in-memory count of all "
+        f"{CHUNKS} chunks: {same}; launches {launches}")
+    if not same:
+        raise AssertionError("the full-size merge differs from the count")
+    missed = [n for n in need if launches[n] == 0]
+    if missed:
+        raise AssertionError(f"the full-size merge ran without {missed}")
+    os.unlink(out)
+
+    t = time.perf_counter()
+    stats, busy, rows = profiled(
+        lambda: merge_files(paths, out, device="cuda"))
+    t_prof = time.perf_counter() - t
+    log(f"profiled merge: {t_prof:.3f} s wall, {stats}; device kernels "
+        f"{busy:.3f} s = {100 * busy / wall:.1f}% of the unprofiled "
+        f"{wall:.3f} s; device kernels by time:")
+    for key, us, n in rows[:12]:
+        log(f"  {us / 1e3:10.1f} ms {100 * us / 1e6 / busy:5.1f}% "
+            f"{n:6d}x  {key[:100]}")
+    for p in paths + [out]:
+        os.unlink(p)
+    return launches, dict(
+        k=21, inputs=n_rec, input_bytes=sizes, records_out=len(counts),
+        wall_s=wall, input_records_per_s=n_in / wall,
+        peak_gib=peak / 2**30, device_busy_share=busy / wall,
+        rounds=stats["rounds"], rolls=stats["rolls"],
+        host_read_s=stats["read_s"], host_write_s=stats["write_s"])
+
+
+def split_fastq(path, parts):
+    """The reads of a FASTQ dealt into `parts` files, in turn."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    recs = [b"\n".join(lines[i:i + 4]) + b"\n"
+            for i in range(0, len(lines) - 3, 4)]
+    out = []
+    for j in range(parts):
+        out.append(f"{path}.{j}")
+        with open(out[-1], "wb") as f:
+            f.write(b"".join(recs[j::parts]))
+    return out
+
+
+def read_records(path):
+    """(keys [n, nw] uint64 words most significant first, counts) of a
+    binary database, rows in ascending key order."""
+    h, words, counts = read_db(path)
+    order = np.lexsort(words.T[::-1])
+    return h, words, words[order], counts[order]
+
+
+def phase_merge_ops(tmp, fq, mem_db, dev, window=1 << 17, slab=1 << 19):
+    """k = 63 merges at the CLI phase's size. The 12 Mbase FASTQ dealt into
+    4 parts, each counted through the CLI; their merge in windows of
+    `window` rows and slabs of `slab` (Wk 4 through rows 9 and 10 and K1,
+    several rotations a slab) must equal the whole input's count `mem_db`.
+    MIN, MAX, JACCARD and -L/-U through the CLI against a numpy oracle."""
+    import contextlib
+    import io
+
+    import jellyfish_tpu_torch.merge as merge
+    from jellyfish_tpu_torch import cli
+
+    paths = []
+    for j, part in enumerate(split_fastq(fq, 4)):
+        paths.append(os.path.join(tmp, f"p63_{j}.jf"))
+        if cli.main(["count", "-m", "63", "-s", "4M", "-C", "--matrix-seed",
+                     "1", "-o", paths[-1], part]) != 0:
+            raise AssertionError("count of a part failed")
+    out = os.path.join(tmp, "m63.jf")
+    reset_counts()
+    t = time.perf_counter()
+    sizes = merge.WINDOW_ROWS, merge.SLAB_ROWS
+    merge.WINDOW_ROWS, merge.SLAB_ROWS = window, slab
+    try:
+        stats = merge.merge_files(paths, out, device=dev)
+    finally:
+        merge.WINDOW_ROWS, merge.SLAB_ROWS = sizes
+    dt = time.perf_counter() - t
+    launches = kernel_counts()
+    same = records_of(out) == records_of(mem_db)
+    log(f"k=63 merge of 4 parts, windows of {window} in slabs of {slab}: "
+        f"{stats} in {dt:.3f} s; records == the whole input's count: "
+        f"{same}; launches {launches}")
+    if not same or min(stats["rolls"]) < 1:
+        raise AssertionError("the k=63 merge is wrong or rotated no slab")
+    missed = [n for n in ("window_rows", "roll_lanes", "merge_path",
+                          "compact") if launches[n] == 0]
+    if missed:
+        raise AssertionError(f"the k=63 merge ran without {missed}")
+
+    # the numpy oracle: every (key, input) pair, in key order
+    keys, cnts, src = [], [], []
+    for i, p in enumerate(paths):
+        _, w, c = read_db(p)
+        keys.append(w)
+        cnts.append(c)
+        src.append(np.full(len(c), i))
+    keys, cnts = np.concatenate(keys), np.concatenate(cnts)
+    order = np.lexsort(keys.T[::-1])
+    keys, cnts = keys[order], cnts[order]
+    new = np.ones(len(keys), bool)
+    new[1:] = (keys[1:] != keys[:-1]).any(axis=1)
+    starts = np.flatnonzero(new)
+    seg_len = np.diff(np.append(starts, len(keys)))
+    uk = keys[starts]
+    total = np.add.reduceat(cnts, starts)
+    least = np.where(seg_len == 4, np.minimum.reduceat(cnts, starts), 0)
+    most = np.maximum.reduceat(cnts, starts)
+    for flags, vals, lo, hi in (
+            (["-m"], least, 1, None), (["-m", "-L", "0"], least, 0, None),
+            (["-M", "-U", "3"], most, 0, 3), (["-L", "2", "-U", "4"], total,
+                                              2, 4)):
+        sel = (vals >= lo) & (vals <= (hi if hi is not None else vals.max()))
+        if cli.main(["merge", *flags, "-o", out, *paths]) != 0:
+            raise AssertionError(f"merge {flags} failed")
+        h, words, sw, sc = read_records(out)
+        ok = (np.array_equal(sw, uk[sel]) and np.array_equal(sc, vals[sel])
+              and sortkeys_ascend(h, words))
+        log(f"k=63 merge {' '.join(flags)}: {len(sc)} records == numpy "
+            f"oracle, in sortkey order: {ok}")
+        if not ok:
+            raise AssertionError(f"merge {flags} differs from the oracle")
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        if cli.main(["merge", "-j", "-o", out, *paths]) != 0:
+            raise AssertionError("merge -j failed")
+    want = (f"Jaccard  {int((least > 0).sum()) / len(uk)}\n"
+            f"wJaccard {int(least.sum()) / int(most.sum())}\n")
+    log(f"k=63 merge -j: {text.getvalue()!r} == numpy oracle: "
+        f"{text.getvalue() == want}")
+    if text.getvalue() != want:
+        raise AssertionError("merge -j differs from the oracle")
+    for p in paths + [out]:
+        os.unlink(p)
+    return stats
+
+
+def phase_disk(tmp, fq, k, size, chunk_len, need):
+    """`count --disk` through the CLI with -s small enough for at least 3
+    spills: the merged records equal the same input's in-memory count, and
+    the partials of a --no-merge --no-unlink run merge into it."""
+    import glob
+
+    from jellyfish_tpu_torch import cli
+
+    common = ["count", "-m", str(k), "-s", size, "-C", "--matrix-seed", "1",
+              "--chunk-len", chunk_len]
+    mem, disk, part = (os.path.join(tmp, f"{n}{k}.jf")
+                       for n in ("mem", "disk", "part"))
+    if cli.main([*common, "-o", mem, fq]) != 0:
+        raise AssertionError("in-memory count failed")
+    reset_counts()
+    t = time.perf_counter()
+    if cli.main([*common, "--disk", "-o", disk, fq]) != 0:
+        raise AssertionError("count --disk failed")
+    dt = time.perf_counter() - t
+    launches = kernel_counts()
+    if cli.main([*common, "--disk", "--no-merge", "--no-unlink", "-o", part,
+                 fq]) != 0:
+        raise AssertionError("count --disk --no-merge failed")
+    parts = sorted(glob.glob(part + "[0-9]*"))
+    merged = os.path.join(tmp, f"merged{k}.jf")
+    if cli.main(["merge", "-o", merged, *parts]) != 0:
+        raise AssertionError("merge of the partials failed")
+    want = records_of(mem)
+    same = records_of(disk) == want
+    same_parts = records_of(merged) == want and not os.path.exists(part)
+    left = glob.glob(disk + "[0-9]*")
+    log(f"count --disk k={k} -s {size} --chunk-len {chunk_len}: "
+        f"{len(parts)} partials, {dt:.3f} s; records == in-memory count: "
+        f"{same}; --no-merge --no-unlink partials merged == it: "
+        f"{same_parts}; partials left by --disk: {left}; launches "
+        f"{launches}")
+    if not (same and same_parts and len(parts) >= 4 and not left):
+        raise AssertionError(f"count --disk k={k} is wrong")
+    missed = [n for n in need if launches[n] == 0]
+    if missed:
+        raise AssertionError(f"count --disk k={k} ran without {missed}")
+    for p in parts + [mem, disk, merged]:
+        os.unlink(p)
+    return dict(k=k, size=size, partials=len(parts), wall_s=dt)
 
 
 def main() -> int:
@@ -771,13 +1160,15 @@ def main() -> int:
     log(f"card: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    _build.build(["merge_path", "compact", "bitonic"])
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    t_script = time.perf_counter()
+    _build.build(["merge_path", "compact", "bitonic", "window"])
+    log(f"build: {time.perf_counter() - t_script:.1f} s")
 
     rows = phase_kernels(dev)
     k3_rows, k3_table = phase_k3(dev)
     rows.update(k3_rows)
+    win_rows, win_table = phase_window(dev)
+    rows.update(win_rows)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(tmp, 21, 32_000_000, 4_000_000, seed=21, need=["compact"])
         phase_cli(tmp, 33, 4_000_000, 1_000_000, seed=33,
@@ -786,25 +1177,51 @@ def main() -> int:
                   need=["compact", "block_sort", "merge_pass", "merge_path"])
         phase_cli(tmp, 100, 2_000_000, 1_000_000, seed=100,
                   need=["compact", "block_sort", "merge_pass"])
-    chunks, staged = stage_chunks(dev)
-    # each kernel's launches are read from the full-size run of its path;
-    # exchange_stages and flip lie on no path and report the k = 63 run's
-    path = {"merge_path": 21, "compact": 21, "block_sort": 63,
-            "merge_pass": 63, "exchange_stages": 63, "flip": 63}
-    off_path = {"exchange_stages", "flip"}
-    full, launches = {}, {}
-    for k in K_FULL:
-        need = [n for n in path
-                if n not in off_path and (k == 63 or path[n] == k)]
-        launches[k], full[k] = phase_full(k, chunks, staged, need,
-                                          compare_lsd=k == 63)
-        torch.cuda.empty_cache()
+        merge63 = phase_merge_ops(tmp, os.path.join(tmp, "r63.fq"),
+                                  os.path.join(tmp, "o63.jf"), dev)
+        on_merge = ["window_rows", "roll_lanes", "merge_path", "compact"]
+        disk = [
+            phase_disk(tmp, os.path.join(tmp, "r21.fq"), 21, "1M", "1M",
+                       need=on_merge[:1] + on_merge[2:]),
+            phase_disk(tmp, os.path.join(tmp, "r63.fq"), 63, "512k", "256k",
+                       need=on_merge[:1] + on_merge[2:] + ["block_sort"]),
+        ]
+        chunks, staged = stage_chunks(dev)
+        # each kernel's launches are read from the full-size run of its
+        # path; exchange_stages and flip lie on no path and report the
+        # k = 63 count's, window_rows and roll_lanes the full-size merge's
+        path = {"merge_path": 21, "compact": 21, "block_sort": 63,
+                "merge_pass": 63, "exchange_stages": 63, "flip": 63,
+                "window_rows": "merge", "roll_lanes": "merge",
+                "compact_keep": "merge"}
+        # the keep-mask row counts the launches of the compact wrapper
+        counter = {"compact_keep": "compact"}
+        off_path = {"exchange_stages", "flip"}
+        full, launches = {}, {}
+        for k in K_FULL:
+            need = [n for n, run in path.items()
+                    if n not in off_path and run != "merge"
+                    and (k == 63 or run == k)]
+            out = phase_full(k, chunks, staged, need, compare_lsd=k == 63,
+                             keep=k == 21)
+            launches[k], full[k] = out[:2]
+            if k == 21:
+                table = out[2]
+            torch.cuda.empty_cache()
+        del chunks
+        launches["merge"], merge = phase_merge(tmp, staged, table, on_merge)
+        del table, staged
     for name, row in rows.items():
-        row["launches"] = launches[path[name]][name]
-        row["path"] = f"full size k={path[name]}"
+        row["launches"] = launches[path[name]][counter.get(name, name)]
+        row["path"] = (f"full size k={path[name]}" if path[name] != "merge"
+                       else "full-size merge k=21")
+    log(json.dumps({"merge": {"full_size": merge, "k63": merge63},
+                    "disk": disk}))
+    log(json.dumps({"window_table": win_table}))
     log(json.dumps({"full_size": list(full.values())}))
     log(json.dumps({"k3_table": k3_table}))
     log(json.dumps({"kernels": list(rows.values())}))
+    log(f"script: {time.perf_counter() - t_script:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

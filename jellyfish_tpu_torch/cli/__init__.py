@@ -1,7 +1,10 @@
-"""`jellyfish` CLI of the port: `python -m jellyfish_tpu_torch count ...`.
+"""`jellyfish` CLI of the port: `python -m jellyfish_tpu_torch
+<count|histo|dump|stats|merge|info> ...`.
 
-Only `count` is ported so far; it takes the JAX package's flags, and the
-ones whose paths are not ported raise NotPortedError.
+`count` and `merge` run on the GPU; histo, dump, stats and info read
+databases on the host. `count` takes the JAX package's flags, and the ones
+whose paths are not ported raise NotPortedError. The JAX package's query,
+bc, mem, cite, generate and fastq2sam are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ __all__ = ["build_parser", "main"]
 
 def build_parser() -> argparse.ArgumentParser:
     from jellyfish_tpu_torch import __version__
-    from jellyfish_tpu_torch.cli import count
+    from jellyfish_tpu_torch.cli import count, dbtools
 
     parser = argparse.ArgumentParser(
         prog="jellyfish",
@@ -24,12 +27,17 @@ def build_parser() -> argparse.ArgumentParser:
                         version=f"jellyfish-tpu-torch {__version__}")
     sub = parser.add_subparsers(dest="subcommand", required=True)
     count.add_parser(sub)
+    dbtools.add_histo_parser(sub)
+    dbtools.add_dump_parser(sub)
+    dbtools.add_stats_parser(sub)
+    dbtools.add_merge_parser(sub)
+    dbtools.add_info_parser(sub)
     return parser
 
 
 def main(argv=None, device=None) -> int:
     """Run one subcommand. `device` None means the GPU (and raises when
-    there is none); the tests pass device="cpu"."""
+    there is none) for count and merge; the tests pass device="cpu"."""
     import signal
 
     # behave like a unix tool when piped into head & co.

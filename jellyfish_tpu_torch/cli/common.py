@@ -1,13 +1,13 @@
-"""CLI plumbing (the parts of jellyfish_tpu/cli/common.py that `count`
-uses, copied): ISO suffix sizes (10M, 2G, ...), the shared input flags,
-and fatal errors."""
+"""CLI plumbing (the parts of jellyfish_tpu/cli/common.py that the ported
+subcommands use, copied): ISO suffix sizes (10M, 2G, ...), the shared
+input flags, output files and fatal errors."""
 
 from __future__ import annotations
 
 import argparse
 import sys
 
-__all__ = ["suffix_int", "add_common_input_flags", "die"]
+__all__ = ["suffix_int", "open_output", "add_common_input_flags", "die"]
 
 _SUFFIXES = {
     "k": 10**3, "M": 10**6, "G": 10**9, "T": 10**12, "P": 10**15, "E": 10**18,
@@ -23,6 +23,12 @@ def suffix_int(s: str) -> int:
         key = "k" if s[-1].lower() == "k" else s[-1].upper()
         return int(float(s[:-1]) * _SUFFIXES[key])
     return int(s)
+
+
+def open_output(path: str | None, binary: bool = False):
+    if path is None:
+        return sys.stdout.buffer if binary else sys.stdout
+    return open(path, "wb" if binary else "w")
 
 
 def add_common_input_flags(p: argparse.ArgumentParser):

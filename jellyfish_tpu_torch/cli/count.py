@@ -1,9 +1,16 @@
 """`jellyfish count` on the GPU (the single-device packed path of
-jellyfish_tpu/cli/count.py).
+jellyfish_tpu/cli/count.py, with its --disk spill and merge).
 
 The flag surface is the JAX package's (count_main_cmdline.yaggo:4-112).
 Flags whose paths are not ported yet raise NotPortedError rather than
 doing something else.
+
+--disk writes a partial database `{output}{i}` whenever the store holds
+twice `--size` entries (16 bytes an entry, store.device_bytes), then
+merges the partials on the device (merge.py) and unlinks them. The port's
+spill points may differ from the JAX package's, whose store is laid out
+otherwise; the merged database does not. Unlike the JAX package, a
+--no-write run does not spill: it writes nothing, partials included.
 """
 
 from __future__ import annotations
@@ -91,7 +98,6 @@ def _check_ported(args) -> None:
         ("--bc", args.bc is not None),
         ("--bf-size", args.bf_size is not None),
         ("--if", bool(args.if_files)),
-        ("--disk", args.disk),
         ("--packed-store", args.packed_store),
         ("--sam", bool(args.sam)),
         ("-g/--generator", args.generator is not None),
@@ -167,6 +173,7 @@ def run(args, argv, device=None):
     from jellyfish_tpu_torch.counter import MerCounter
     from jellyfish_tpu_torch.io.dumpers import dump_counter
     from jellyfish_tpu_torch.io.parse import SequenceChunker
+    from jellyfish_tpu_torch.merge import merge_files
 
     t_start = time.perf_counter()
     _check_ported(args)
@@ -182,6 +189,25 @@ def run(args, argv, device=None):
     )
     t_init = time.perf_counter()
 
+    def dump(path, **filters):
+        dump_counter(
+            counter, path, counter_len_bytes=args.out_counter_len,
+            val_len_bits=args.counter_len, max_reprobe=args.reprobes,
+            cmdline=argv, **filters,
+        )
+
+    intermediates = []
+    spill_entries = args.size if args.disk and not args.no_write else None
+
+    def maybe_spill():
+        # entries the store holds, 16 bytes each (jellyfish_tpu count)
+        if (spill_entries is not None
+                and counter.store.device_bytes() // 16 >= 2 * spill_entries):
+            path = f"{args.output}{len(intermediates)}"
+            dump(path)
+            counter.reset()
+            intermediates.append(path)
+
     # B chunks per batch; parse+pack runs on a producer thread so host
     # work overlaps the device's
     B = int(os.environ.get("JF_INGEST_BATCH", 8))
@@ -190,16 +216,28 @@ def run(args, argv, device=None):
             np.stack([b[0] for b in batch]),
             np.stack([b[1] for b in batch]),
         )
+        maybe_spill()
     t_count = time.perf_counter()
 
     if not args.no_write:
-        dump_counter(
-            counter, args.output,
-            counter_len_bytes=args.out_counter_len,
-            val_len_bits=args.counter_len, max_reprobe=args.reprobes,
-            lower_count=args.lower_count or 0,
-            upper_count=args.upper_count, cmdline=argv,
-        )
+        if not intermediates:
+            dump(args.output, lower_count=args.lower_count or 0,
+                 upper_count=args.upper_count)
+        else:
+            path = f"{args.output}{len(intermediates)}"
+            dump(path)
+            intermediates.append(path)
+            if not args.no_merge:
+                merge_files(
+                    intermediates, args.output,
+                    min_count=args.lower_count or 0,
+                    max_count=args.upper_count,
+                    out_header_extra={"cmdline": list(argv)},
+                    device=counter.device,
+                )
+                if not args.no_unlink:
+                    for f in intermediates:
+                        os.unlink(f)
     t_write = time.perf_counter()
     if args.timing:
         with open(args.timing, "w") as f:

@@ -8,8 +8,11 @@
 // tiles; this one scatters each kept row to its exact output position, so
 // the output is the dense live prefix and nothing else.
 //
-// Inputs: keys [M, WK] int64 rows, counts [M] int64. Output: the rows with
-// count != 0, in input order, and their counts.
+// Inputs: keys [M, WK] int64 rows, counts [M] int64, and optionally a keep
+// mask [M] (one byte a row). Output: the rows with count != 0, or with a
+// nonzero keep byte when a mask is given, in input order, and their counts.
+// The merge (merge.py) keeps rows by a mask: a merged record may hold the
+// value 0 (merge -m -L 0).
 //
 // Bound on this card: bytes. Every count is read (8 bytes a row), every
 // key row is read once and every kept row written once, against one
@@ -35,15 +38,19 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 4096;  // rows a block owns
 
+// KEEP: rows are kept by their keep byte, else by a nonzero count; the
+// count-only instances read no mask
+template <bool KEEP>
 __global__ void __launch_bounds__(kThreads)
-compact_count_kernel(const int64_t* __restrict__ cnt, int64_t m,
+compact_count_kernel(const int64_t* __restrict__ cnt,
+                     const uint8_t* __restrict__ keep, int64_t m,
                      int64_t* __restrict__ tile_n) {
   __shared__ int s_warp[kWarps];
   const int64_t row0 = (int64_t)blockIdx.x * kTile;
   int c = 0;
   for (int r = threadIdx.x; r < kTile; r += kThreads) {
     const int64_t i = row0 + r;
-    c += (i < m && cnt[i] != 0) ? 1 : 0;
+    c += (i < m && (KEEP ? keep[i] != 0 : cnt[i] != 0)) ? 1 : 0;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
@@ -57,10 +64,11 @@ compact_count_kernel(const int64_t* __restrict__ cnt, int64_t m,
   }
 }
 
-template <int WK>
+template <int WK, bool KEEP>
 __global__ void __launch_bounds__(kThreads)
 compact_scatter_kernel(const int64_t* __restrict__ keys,
-                       const int64_t* __restrict__ cnt, int64_t m,
+                       const int64_t* __restrict__ cnt,
+                       const uint8_t* __restrict__ keep, int64_t m,
                        const int64_t* __restrict__ tile_off,
                        int64_t* __restrict__ out_keys,
                        int64_t* __restrict__ out_cnt) {
@@ -73,8 +81,8 @@ compact_scatter_kernel(const int64_t* __restrict__ keys,
   for (int r = 0; r < kTile; r += kThreads) {
     const int64_t i = row0 + r + threadIdx.x;
     const int64_t c = i < m ? cnt[i] : 0;
-    const bool keep = c != 0;
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    const bool kept = KEEP ? i < m && keep[i] != 0 : c != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, kept);
     if (lane == 0) s_warp[warp] = __popc(ballot);
     __syncthreads();
     int before = 0, total = 0;
@@ -84,7 +92,7 @@ compact_scatter_kernel(const int64_t* __restrict__ keys,
       before += w < warp ? t : 0;
       total += t;
     }
-    if (keep) {
+    if (kept) {
       const int64_t o = base + before + __popc(ballot & below);
       out_cnt[o] = c;
 #pragma unroll
@@ -96,12 +104,15 @@ compact_scatter_kernel(const int64_t* __restrict__ keys,
 }
 
 template <int WK>
-int scatter(const void* keys, const void* cnt, int64_t m, const void* tile_off,
-            void* out_keys, void* out_cnt, cudaStream_t s) {
+int scatter(const void* keys, const void* cnt, const void* keep, int64_t m,
+            const void* tile_off, void* out_keys, void* out_cnt,
+            cudaStream_t s) {
   const int64_t tiles = (m + kTile - 1) / kTile;
   if (tiles > 0) {
-    compact_scatter_kernel<WK><<<(unsigned)tiles, kThreads, 0, s>>>(
-        (const int64_t*)keys, (const int64_t*)cnt, m,
+    auto kernel = keep != nullptr ? compact_scatter_kernel<WK, true>
+                                  : compact_scatter_kernel<WK, false>;
+    kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
+        (const int64_t*)keys, (const int64_t*)cnt, (const uint8_t*)keep, m,
         (const int64_t*)tile_off, (int64_t*)out_keys, (int64_t*)out_cnt);
   }
   return (int)cudaGetLastError();
@@ -111,31 +122,40 @@ int scatter(const void* keys, const void* cnt, int64_t m, const void* tile_off,
 
 extern "C" int64_t jf_compact_tile() { return kTile; }
 
-// tile_n[ceil(m / kTile)] <- kept rows of each tile
-extern "C" int jf_compact_count(const void* cnt, int64_t m, void* tile_n,
-                                void* stream) {
+// tile_n[ceil(m / kTile)] <- kept rows of each tile; keep may be null
+extern "C" int jf_compact_count(const void* cnt, const void* keep, int64_t m,
+                                void* tile_n, void* stream) {
   const int64_t tiles = (m + kTile - 1) / kTile;
   if (tiles > 0) {
-    compact_count_kernel<<<(unsigned)tiles, kThreads, 0,
-                           (cudaStream_t)stream>>>((const int64_t*)cnt, m,
-                                                   (int64_t*)tile_n);
+    auto kernel = keep != nullptr ? compact_count_kernel<true>
+                                  : compact_count_kernel<false>;
+    kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)cnt, (const uint8_t*)keep, m, (int64_t*)tile_n);
   }
   return (int)cudaGetLastError();
 }
 
 // tile_off: exclusive scan of tile_n; out_* hold exactly the kept rows
-extern "C" int jf_compact_scatter(const void* keys, const void* cnt, int64_t m,
+extern "C" int jf_compact_scatter(const void* keys, const void* cnt,
+                                  const void* keep, int64_t m,
                                   const void* tile_off, void* out_keys,
                                   void* out_cnt, int wk, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (wk) {
-    case 1: return scatter<1>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
-    case 2: return scatter<2>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
-    case 3: return scatter<3>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
-    case 4: return scatter<4>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
-    case 5: return scatter<5>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
-    case 6: return scatter<6>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
-    case 7: return scatter<7>(keys, cnt, m, tile_off, out_keys, out_cnt, s);
+    case 1:
+      return scatter<1>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
+    case 2:
+      return scatter<2>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
+    case 3:
+      return scatter<3>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
+    case 4:
+      return scatter<4>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
+    case 5:
+      return scatter<5>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
+    case 6:
+      return scatter<6>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
+    case 7:
+      return scatter<7>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,19 +1,32 @@
-"""Jellyfish database records and headers (the parts of
-jellyfish_tpu/io/files.py that `count` writes with, copied).
+"""Jellyfish database files: binary/sorted and text/sorted readers and
+writers (the parts of jellyfish_tpu/io/files.py that `count`, `merge` and
+the database tools use, copied).
 
-binary/sorted (binary_dumper.hpp): header, then per record ceil(2k/8) key
-bytes (little-endian) + counter_len bytes of count (little-endian,
-saturated), sorted ascending by (pos, key).
+Formats (binary_dumper.hpp, text_dumper.hpp):
+  binary/sorted: header, then per record ceil(2k/8) key bytes (little-endian)
+                 + counter_len bytes of count (little-endian, saturated).
+  text/sorted:   header, then "MER COUNT\n" lines.
+Both are sorted ascending by (pos, key), pos = matrix.times(key) & (size-1).
 """
 
 from __future__ import annotations
+
+from typing import Iterator, Tuple
 
 import numpy as np
 
 from jellyfish_tpu_torch.gf2 import GF2Matrix
 from jellyfish_tpu_torch.io.header import FileHeader, quadratic_reprobes
+from jellyfish_tpu_torch.mer import MerDNA
 
-__all__ = ["make_count_header", "encode_binary_records_np", "mer_strings_np"]
+__all__ = [
+    "make_count_header",
+    "write_binary_records",
+    "write_text_records",
+    "encode_binary_records_np",
+    "mer_strings_np",
+    "DBReader",
+]
 
 
 def encode_binary_records_np(keys_u32: np.ndarray, counts: np.ndarray,
@@ -80,3 +93,122 @@ def make_count_header(
     if cmdline is not None:
         h.set_cmdline(cmdline)
     return h
+
+
+def write_binary_records(fobj, mers, counts, k: int, counter_len: int) -> None:
+    """Stream (mer int, count) records; counts saturate at the field max
+    (binary_dumper.hpp:36-40)."""
+    key_bytes = (2 * k + 7) // 8
+    max_val = (1 << (8 * counter_len)) - 1
+    recs = bytearray()
+    for m, v in zip(mers, counts):
+        v = int(v)
+        recs += int(m).to_bytes(key_bytes, "little")
+        recs += min(v, max_val).to_bytes(counter_len, "little")
+        if len(recs) >= 1 << 20:
+            fobj.write(recs)
+            recs = bytearray()
+    fobj.write(recs)
+
+
+def write_text_records(fobj, mers, counts, k: int) -> None:
+    lines = []
+    for m, v in zip(mers, counts):
+        lines.append(f"{MerDNA(k, int(m))} {int(v)}\n")
+        if len(lines) >= 65536:
+            fobj.write("".join(lines).encode())
+            lines = []
+    fobj.write("".join(lines).encode())
+
+
+class DBReader:
+    """Sequential reader over binary/sorted or text/sorted databases
+    (binary_reader / text_reader analogue)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.f = open(path, "rb")
+        try:
+            self.header = FileHeader.read(self.f)
+        except BaseException:
+            self.f.close()
+            raise
+        self.k = self.header.key_len // 2
+        self.fmt = self.header.format
+        if self.fmt == FileHeader.FORMAT_BINARY:
+            self._key_bytes = (self.header.key_len + 7) // 8
+            self._counter_len = self.header.counter_len
+            self._rec_len = self._key_bytes + self._counter_len
+        elif self.fmt != FileHeader.FORMAT_TEXT:
+            self.f.close()
+            raise ValueError(f"unknown format {self.fmt!r}")
+        self._matrix = None
+
+    @property
+    def matrix(self) -> GF2Matrix:
+        if self._matrix is None:
+            self._matrix = self.header.matrix()
+        return self._matrix
+
+    def __iter__(self) -> Iterator[Tuple[int, int]]:
+        """Yield (mer_bits, count)."""
+        if self.fmt == FileHeader.FORMAT_BINARY:
+            rec = self._rec_len
+            kb = self._key_bytes
+            while True:
+                buf = self.f.read(rec << 12)
+                if not buf:
+                    return
+                n = len(buf) // rec
+                for i in range(n):
+                    off = i * rec
+                    key = int.from_bytes(buf[off : off + kb], "little")
+                    val = int.from_bytes(buf[off + kb : off + rec], "little")
+                    yield key, val
+        else:
+            import io as _io
+
+            for line in _io.TextIOWrapper(self.f):
+                if not line.strip():
+                    continue
+                mer_s, val_s = line.split()
+                yield MerDNA(mer_s).bits, int(val_s)
+
+    def _decode_records(self, data: bytes):
+        rec = self._rec_len
+        n = len(data) // rec
+        arr = np.frombuffer(data, dtype=np.uint8, count=n * rec).reshape(n, rec)
+        kb = self._key_bytes
+        keys = arr[:, :kb]
+        counts = np.zeros(n, dtype=np.uint64)
+        for b in range(self._counter_len):
+            counts |= arr[:, kb + b].astype(np.uint64) << np.uint64(8 * b)
+        return keys, counts
+
+    def records_np(self):
+        """Bulk-load a binary DB: (keys [n, key_bytes] uint8, counts
+        uint64)."""
+        if self.fmt != FileHeader.FORMAT_BINARY:
+            raise ValueError("records_np requires binary format")
+        return self._decode_records(self.f.read())
+
+    def read_records_np(self, n: int):
+        """Read up to n records: same layout as records_np; empty arrays at
+        EOF."""
+        if self.fmt != FileHeader.FORMAT_BINARY:
+            raise ValueError("read_records_np requires binary format")
+        return self._decode_records(self.f.read(n * self._rec_len))
+
+    def counts_np(self) -> np.ndarray:
+        if self.fmt == FileHeader.FORMAT_BINARY:
+            return self.records_np()[1]
+        return np.array([v for _, v in self], dtype=np.uint64)
+
+    def close(self):
+        self.f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -148,6 +148,15 @@ class SortedCountStore:
 
     # -- inspection -----------------------------------------------------------
 
+    def device_bytes(self) -> int:
+        """Bytes the store holds, in the JAX package's units
+        (jellyfish_tpu/store.py device_bytes): 4 for each 32-bit limb of a
+        raw or compacted row and 8 for a count. `count --disk` spills on
+        it."""
+        limbs = 4 * self.W
+        runs = sum(r[1].shape[0] for level in self.levels for r in level)
+        return self.raw_rows * limbs + runs * (limbs + 8)
+
     def total_pads(self) -> int:
         """Exact count of PAD rows inserted since the last finalize."""
         if not self.valid_scalars:

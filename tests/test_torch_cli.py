@@ -93,7 +93,7 @@ def test_no_write_and_timing(reads, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["-d", "2"], ["-d", "auto"], ["--bc", "x.bc"], ["--bf-size", "1M"],
-    ["--if", "x.fa"], ["--disk"], ["--packed-store"], ["--sam", "x.sam"],
+    ["--if", "x.fa"], ["--packed-store"], ["--sam", "x.sam"],
     ["-g", "cmds.txt"], ["--coordinator", "localhost:1234"], ["--text"],
     ["--chunk-len", "1000"],
 ], ids=lambda f: " ".join(f))

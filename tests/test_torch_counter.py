@@ -190,3 +190,20 @@ def test_flush_mid_stream():
         assert port.store.levels[0]
     port.store.flush()  # an empty backlog: nothing to do
     _same(port, ref)
+
+
+@pytest.mark.parametrize("k", [21, 63])
+def test_device_bytes_in_the_jax_units(k):
+    """store.device_bytes counts 4 bytes a limb of every raw and compacted
+    row and 8 a count, as the JAX package's store does: the raw backlog
+    before a flush, the compacted runs after it."""
+    port = MerCounter(k, 4096, rng=np.random.default_rng(k), device="cpu")
+    W = port.W
+    assert port.store.device_bytes() == 0
+    _feed([port], _chunks(np.random.default_rng(k), 3, k))
+    raw = port.store.raw_rows
+    assert raw > 0 and port.store.device_bytes() == raw * 4 * W
+    port.store.flush()
+    rows = sum(r[1].shape[0] for level in port.store.levels for r in level)
+    assert 0 < rows <= raw
+    assert port.store.device_bytes() == rows * (4 * W + 8)

@@ -156,3 +156,22 @@ def test_wrappers_reject_bad_inputs():
         compact(k, c[:3])
     with pytest.raises(ValueError):
         compact(k.t(), c)
+
+
+@pytest.mark.parametrize("wk", [1, 4])
+def test_compact_keep_mask(wk):
+    """A keep mask picks the rows, whatever their count: rows of value 0
+    are kept where the mask says so (merge -m -L 0)."""
+    rng = np.random.default_rng(8100 + wk)
+    m = 5000
+    keys = torch.from_numpy(rng.integers(0, 1 << 32, (m, wk)))
+    cnt = torch.from_numpy(rng.integers(0, 3, m))
+    keep = torch.from_numpy(rng.random(m) < 0.3)
+    k2, c2, n = compact(keys, cnt, keep)
+    assert n == int(keep.sum()) and (c2 == 0).any()
+    assert torch.equal(k2, keys[keep]) and torch.equal(c2, cnt[keep])
+    assert torch.equal(compact_plain(keys, cnt, keep)[0], k2)
+    with pytest.raises(ValueError, match="keep mask"):
+        compact(keys, cnt, keep.to(torch.int64))
+    with pytest.raises(ValueError, match="keep mask"):
+        compact(keys, cnt, keep[:10])
