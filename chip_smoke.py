@@ -19,8 +19,16 @@ replaced). Both runs: canonical, -s 4M, 256 chunks of 1 MiB of 150-base
 reads at 8x coverage of a seeded random 33.5 Mbase genome, in batches of
 8. Then merges, through the CLI, 4 databases each counted from a quarter
 of those chunks at k = 21 (110M records), and holds the result against the
-k = 21 count, record for record. Exits nonzero, with no result line, when
-there is no GPU or any phase fails.
+k = 21 count, record for record. The Bloom path: at the CLI k = 21 size,
+bc -> count --bc -> query (a .bc and a binary database) against numpy, and
+count --chunk-len 1000 (the ASCII path) against the packed path; at full
+size, bc -s 64M of the 256 chunks (m = 2^30 cells) against a numpy oracle
+after 8 chunks and with no false negative among the k = 21 count's mers,
+then count --bc and count --bf-size 512M of the first 64 chunks against
+their exact count, and the pair sort of kernels/sort.py (kernel-table rows
+6, 8 and 12) held against its plain version and timed beside K1's merge
+passes and torch.sort at the insert's shape. Exits nonzero, with no result
+line, when there is no GPU or any phase fails.
 
 The last lines of standard output are the kernels' JSON line, the
 script's time, the card's name and power limit as nvidia-smi reports
@@ -41,6 +49,8 @@ import numpy as np
 import torch
 
 K_FULL, CHUNKS, CHUNK_LEN, BATCH = (21, 63), 256, 1 << 20, 8
+BC_SIZE, BF_SIZE = "64M", "512M"  # phase_bloom's bc -s and --bf-size
+FILTER_CHUNKS = 64  # phase_bloom's count --bc and --bf-size: a quarter
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 
 
@@ -248,13 +258,18 @@ def _wrappers() -> dict:
 
 
 def kernel_counts() -> dict:
-    """Launch counts of every kernel wrapper of the port."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launch counts of every kernel wrapper of the port, and of
+    exchange_stages' calls whose first step is mirrored."""
+    w = _wrappers()
+    counts = {name: fn.launches for name, fn in w.items()}
+    counts["exchange_stages.mirror"] = w["exchange_stages"].mirror_launches
+    return counts
 
 
 def reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["exchange_stages"].mirror_launches = 0
 
 
 # -- phases --------------------------------------------------------------------
@@ -450,8 +465,9 @@ def phase_k3(dev):
     at the Pallas kernels' own shapes (kernel table rows 6, 7, 8, 11, 12)
     and at a grain's shape (2^26 rows of 4 limbs, keys only; 2^24 rows of
     7 limbs with a row-index payload), plus a ragged row count. Returns
-    the JSON rows of K3's entry points and merge_pass, and the table's
-    per-row numbers."""
+    the JSON rows of block_sort, flip and merge_pass (exchange_stages'
+    rows come from phase_bloom, at the Bloom insert's shape), and the
+    table's per-row numbers."""
     from jellyfish_tpu_torch.kernels.bitonic import (
         block_sort,
         block_sort_plain,
@@ -602,8 +618,6 @@ def phase_k3(dev):
                     replaces=replaces, **row, **extra)
 
     k3_src = "jellyfish_tpu_torch/csrc/bitonic.cu"
-    off_path = ("off the counting path, which runs block_sort only: held "
-                "against its plain version here")
     rows = {
         "block_sort": json_row(
             "bitonic.block_sort", sort_row, k3_src,
@@ -611,12 +625,12 @@ def phase_k3(dev):
             library="sort_rows_plain: a chain of 4 stable sorts and "
                     "gathers over the whole grain (no single PyTorch call "
                     "sorts multi-column rows)"),
-        "exchange_stages": json_row(
-            "bitonic.exchange_stages", table["8 exchange_stages"], k3_src,
-            "experiments/pallas_probe2.py:103", note=off_path),
         "flip": json_row(
             "bitonic.flip", table["12 flip"], k3_src,
-            "experiments/pallas_stage_probe.py:112", note=off_path),
+            "experiments/pallas_stage_probe.py:112",
+            note="on no path (the Bloom path runs row 12's reversal as "
+                 "exchange_stages' mirrored step): held against its plain "
+                 "version here"),
         "merge_pass": json_row(
             "merge_path.merge_pass", pass_row,
             "jellyfish_tpu_torch/csrc/merge_path.cu",
@@ -720,7 +734,8 @@ def phase_window(dev):
 def phase_cli(tmp, k, n_bases, genome_len, seed, need):
     """`count -m k -s 4M -C` through the CLI on a seeded FASTQ; every
     record against the numpy oracle, the dump order checked, and each
-    kernel in `need` launched at least once."""
+    kernel in `need` launched at least once. Returns the input's reads
+    joined by N."""
     from jellyfish_tpu_torch import cli
 
     fq, out = os.path.join(tmp, f"r{k}.fq"), os.path.join(tmp, f"o{k}.jf")
@@ -747,6 +762,7 @@ def phase_cli(tmp, k, n_bases, genome_len, seed, need):
     missed = [n for n in need if launches[n] == 0]
     if missed:
         raise AssertionError(f"count k={k} ran without {missed}")
+    return seq
 
 
 def stage_chunks(dev):
@@ -1140,6 +1156,444 @@ def phase_disk(tmp, fq, k, size, chunk_len, need):
     return dict(k=k, size=size, partials=len(parts), wall_s=dt)
 
 
+# -- the Bloom path ------------------------------------------------------------
+
+
+def gf2_tables(matrix, c):
+    """XOR tables [ceil(c/8), 256] uint64 of an r x c GF(2) matrix: the
+    product of a c-bit key is the XOR of one entry per key byte (column j
+    pairs with key bit c - 1 - j)."""
+    cols = np.asarray(matrix.columns, dtype=np.uint64)
+    v = np.arange(256, dtype=np.uint64)
+    tables = np.zeros(((c + 7) // 8, 256), np.uint64)
+    for b in range(c):
+        hit = (v >> np.uint64(b % 8)) & np.uint64(1) == 1
+        tables[b // 8, hit] ^= cols[c - 1 - b]
+    return tables
+
+
+def gf2_np(keys, tables):
+    h = np.zeros(len(keys), np.uint64)
+    for i, t in enumerate(tables):
+        h ^= t[(keys >> np.uint64(8 * i)) & np.uint64(255)]
+    return h
+
+
+def bloom_positions_np(keys, m, nb, t1, t2):
+    """[nb, n] probe positions of uint64 keys (2k <= 64), m a power of two:
+    (h0 + i*h1) mod m."""
+    h0, h1 = gf2_np(keys, t1), gf2_np(keys, t2)
+    i = np.arange(nb, dtype=np.uint64)[:, None]
+    return (h0[None] + i * h1[None]) & np.uint64(m - 1)
+
+
+def bloom_adds_np(keys, counts, m, nb, t1, t2):
+    """One batch of the JAX package's host insert (bloom.py:239-259): the
+    touched positions and each one's add, min(sum of min(count, 2), 2)."""
+    pos = bloom_positions_np(keys, m, nb, t1, t2)
+    w = np.minimum(counts, 2).astype(np.uint8)
+    wb = np.broadcast_to(w, pos.shape).ravel()
+    order = np.argsort(pos.ravel(), kind="stable")
+    spos, sw = pos.ravel()[order], wb[order]
+    starts = np.ones(len(spos), dtype=bool)
+    starts[1:] = spos[1:] != spos[:-1]
+    idx = np.flatnonzero(starts)
+    return spos[idx], np.minimum(
+        np.add.reduceat(sw.astype(np.int64), idx), 2).astype(np.uint8)
+
+
+def bloom_apply_np(cells, adds):
+    upos, add = adds
+    cells[upos] = np.minimum(cells[upos] + add, 2)
+
+
+def bloom_check_np(cells, keys, m, nb, t1, t2):
+    return cells[bloom_positions_np(keys, m, nb, t1, t2)].min(axis=0)
+
+
+def unpack_cells_np(path):
+    """(header, cells uint8 [m]) of a .bc file, unpacked base 3 in numpy."""
+    from jellyfish_tpu_torch.io.header import FileHeader
+
+    with open(path, "rb") as f:
+        h = FileHeader.read(f)
+        raw = np.frombuffer(f.read(), np.uint8)
+    pow3 = np.array([1, 3, 9, 27, 81], np.uint8)
+    return h, ((raw[:, None] // pow3) % 3).reshape(-1)[:h.size]
+
+
+def u64_keys(limbs):
+    """[n, 2] uint32 limbs -> uint64 keys."""
+    limbs = limbs.astype(np.uint64)
+    return limbs[:, 0] | (limbs[:, 1] << np.uint64(32))
+
+
+def check_in_slices(bc, mers, rows=1 << 22):
+    """bc.check of host limbs [n, 2] uint32, a slice at a time (each is
+    moved to the counter's device by check)."""
+    out = []
+    for i in range(0, len(mers), rows):
+        t = torch.from_numpy(mers[i:i + rows].astype(np.int64))
+        out.append(bc.check(t).cpu().numpy())
+    return np.concatenate(out) if out else np.zeros(0, np.uint8)
+
+
+def phase_bloom(chunks, staged, table, dev):
+    """The Bloom path at the main configuration's size, k = 21, -C: the 256
+    chunks as ASCII on the device.
+
+    1. bc -s 64M -f 0.001 (m = 2^30 cells, 10 hashes) of all 256 chunks
+       through the port's bc code path (cli.tools.insert_chunks): after 8
+       chunks the cells equal the numpy oracle's; after all, every mer of
+       exact count >= 2 in the in-memory count (`table`) checks 2. The .bc
+       is written and read back as `count --bc` reads it.
+    2. count --bc with it (-s 4M) of the first FILTER_CHUNKS chunks: the
+       records of their exact count (from `staged`, the packed path)
+       whose check is 2, record for record.
+    3. count --bf-size 512M --bf-fp 0.01 of the same chunks: each record's
+       count is its exact count or one less, and at most 1% keep the
+       exact count.
+    4. The pair sort at an insert's shape: the route against its plain
+       version and timed beside K1's merge passes and torch.sort + gather;
+       the cross-tile exchange call and the mirrored step held and timed;
+       the route at BitsArray's shape (Wk 2 + payload); one insert
+       profiled. Returns (launches of the bc run, the kernel rows, the
+       numbers)."""
+    from jellyfish_tpu_torch.bloom import (
+        BloomCounter2,
+        load_count_filter,
+        write_bloom_counter,
+    )
+    from jellyfish_tpu_torch.cli.common import suffix_int
+    from jellyfish_tpu_torch.cli.tools import insert_chunks
+    from jellyfish_tpu_torch.counter import MerCounter
+    from jellyfish_tpu_torch.kernels.bitonic import (
+        block_sort,
+        block_sort_plain,
+        exchange_stages,
+        exchange_stages_plain,
+        tile_rows,
+    )
+    from jellyfish_tpu_torch.kernels.sort import (
+        sort_pairs_bitonic,
+        sort_pairs_plain,
+        sort_rows_blocked,
+    )
+
+    k, out = 21, {}
+    dchunks = torch.from_numpy(chunks).to(dev)
+    bc = BloomCounter2.from_fpr(0.001, suffix_int(BC_SIZE), k,
+                                rng=np.random.default_rng(11),
+                                canonical=True, device=dev)
+    m, nb = bc.m, bc.nb_hashes
+    t1, t2 = gf2_tables(bc.m1, 2 * k), gf2_tables(bc.m2, 2 * k)
+    if nb != 10 or m & (m - 1) or (BC_SIZE == "64M" and m != 1 << 30):
+        raise AssertionError(f"bc -s {BC_SIZE} -f 0.001: m {m}, {nb} "
+                             "hashes")
+
+    # 1. bc: 8 chunks, the oracle, then the rest
+    def chunk_adds(chunk):
+        keys, counts = np.unique(canonical_words(chunk, k)[:, 0],
+                                 return_counts=True)
+        return bloom_adds_np(keys, counts, m, nb, t1, t2)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    insert_chunks(bc, dchunks[:8])
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t
+    with ThreadPoolExecutor(8) as pool:
+        adds = list(pool.map(chunk_adds, chunks[:8]))
+    want = np.zeros(m, np.uint8)
+    for a in adds:
+        bloom_apply_np(want, a)
+    same = np.array_equal(bc.cells.cpu().numpy(), want)
+    del want, adds
+    log(f"bc k={k} -s {BC_SIZE} -f 0.001 (m {m}, {nb} hashes), 8 chunks: "
+        f"{t_first:.3f} s; cells == numpy oracle: {same}")
+    if not same:
+        raise AssertionError("the Bloom counter's cells differ from numpy")
+    t = time.perf_counter()
+    insert_chunks(bc, dchunks[8:])
+    torch.cuda.synchronize()
+    t_bc = t_first + time.perf_counter() - t
+    launches = kernel_counts()
+    peak_bc = torch.cuda.max_memory_allocated()
+    mers, counts = table
+    check = check_in_slices(bc, mers)
+    missed = int((check[counts >= 2] != 2).sum())
+    fp_share = float((check[counts == 1] == 2).mean())
+    log(f"bc of {len(chunks)} chunks: {t_bc:.6f} s, peak "
+        f"{peak_bc / 2**30:.3f} GiB; mers of exact count >= 2 that check "
+        f"< 2: {missed}; count-1 mers that check 2: {100 * fp_share:.4f}%; "
+        f"launches {launches}")
+    if missed:
+        raise AssertionError("the Bloom counter has false negatives")
+    for name in ("block_sort", "exchange_stages", "exchange_stages.mirror"):
+        if not launches[name]:
+            raise AssertionError(f"bc ran without {name}")
+    # the exact count of the chunks that steps 2 and 3 filter
+    exact = MerCounter(k, 4 << 20, canonical=True,
+                       rng=np.random.default_rng(42), device=dev)
+    for pw, vb in staged[:FILTER_CHUNKS // BATCH]:
+        exact.add_chunks_packed_batch(pw, vb)
+    mers, counts = exact.finalize_np()
+    del exact
+    check = check_in_slices(bc, mers)
+    fchunks = dchunks[:FILTER_CHUNKS]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "full.bc")
+        t = time.perf_counter()
+        write_bloom_counter(bc, path)
+        t_write = time.perf_counter() - t
+
+        # 2. count --bc
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        counter = MerCounter(k, 4 << 20, canonical=True,
+                             rng=np.random.default_rng(42), device=dev,
+                             mer_filter=load_count_filter(
+                                 bc_path=path, k=k, canonical=True,
+                                 device=dev))
+        for chunk in fchunks:
+            counter.add_chunk(chunk)
+        got_m, got_c = counter.finalize_np()
+        t_count_bc = time.perf_counter() - t
+    peak_count_bc = torch.cuda.max_memory_allocated()
+    del counter
+    keep = check == 2
+    same = (np.array_equal(got_m, mers[keep])
+            and np.array_equal(got_c, counts[keep]))
+    log(f"count --bc of {FILTER_CHUNKS} chunks: {t_count_bc:.6f} s (read "
+        f"and unpack the .bc "
+        f"included; the write took {t_write:.3f} s), peak "
+        f"{peak_count_bc / 2**30:.3f} GiB; {len(got_c)} records == the "
+        f"exact count's records that check 2: {same}")
+    if not same:
+        raise AssertionError("count --bc differs from the filtered count")
+
+    # 3. count --bf-size 512M --bf-fp 0.01
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    counter = MerCounter(k, 4 << 20, canonical=True,
+                         rng=np.random.default_rng(42), device=dev,
+                         mer_filter=load_count_filter(
+                             bf_size=suffix_int(BF_SIZE), bf_fp=0.01, k=k,
+                             canonical=True, rng=np.random.default_rng(12),
+                             device=dev))
+    for chunk in fchunks:
+        counter.add_chunk(chunk)
+    bf_m, bf_c = counter.finalize_np()
+    t_bf = time.perf_counter() - t
+    peak_bf = torch.cuda.max_memory_allocated()
+    del counter
+    keys = u64_keys(mers)
+    order = np.argsort(keys)
+    at = order[np.minimum(np.searchsorted(keys, u64_keys(bf_m),
+                                          sorter=order), len(keys) - 1)]
+    exact = counts[at]
+    found = np.array_equal(keys[at], u64_keys(bf_m))
+    whole = float((bf_c == exact).mean()) if len(bf_c) else 0.0
+    ok = found and bool(((bf_c == exact) | (bf_c + 1 == exact)).all())
+    log(f"count --bf-size {BF_SIZE} --bf-fp 0.01 of {FILTER_CHUNKS} "
+        f"chunks: {t_bf:.6f} s, peak "
+        f"{peak_bf / 2**30:.3f} GiB; {len(bf_c)} records, each its exact "
+        f"count or one less: {ok}; exact-count share {100 * whole:.4f}% "
+        f"(count-1 mers kept by a false positive: "
+        f"{int((exact == 1).sum())})")
+    if not ok or whole > 0.01:
+        raise AssertionError("count --bf-size is wrong")
+
+    # 4. the pair sort at one insert's shape: chunk 0's probe pairs
+    _, cm, cc = MerCounter(k, 1 << 16, canonical=True,
+                           device=dev).chunk_counts(dchunks[0])
+    live = cc > 0
+    cm, w = cm[live], cc[live].clamp(max=2)
+    pos = bc.probe_positions(cm).reshape(-1, 1)
+    wb = w.expand(nb, w.shape[0]).reshape(-1).contiguous()
+    n = pos.shape[0]
+    size = 1 << (n - 1).bit_length()
+    label = f"{n} probe pairs (padded to {size}), Wk 1 + payload"
+
+    def library():
+        s, perm = torch.sort(pos[:, 0])
+        return s, wb[perm]
+
+    route = hold(f"sort_pairs_bitonic {label}",
+                 lambda: sort_pairs_bitonic(pos, wb),
+                 lambda: sort_pairs_plain(pos, wb), 2 * n * 16,
+                 library=library)
+    if not torch.equal(sort_pairs_bitonic(pos, wb)[0], library()[0][:, None]):
+        raise AssertionError("sort_pairs_bitonic: keys out of order")
+    routes = {"sort_pairs_bitonic": route["ms"],
+              "sort_rows_blocked": cuda_ms(lambda: sort_rows_blocked(pos, wb)),
+              "torch_sort_gather": route["library_ms"]}
+    routes["sort_rows_blocked_again"] = cuda_ms(
+        lambda: sort_rows_blocked(pos, wb))
+    routes["sort_pairs_bitonic_again"] = cuda_ms(
+        lambda: sort_pairs_bitonic(pos, wb))
+    log(f"sort routes at the insert's shape ({label}), ms: {routes}")
+    padded = torch.cat([pos, pos.new_full((size - n, 1), (1 << 63) - 1)])
+    pw = torch.cat([wb, wb.new_zeros(size - n)])
+    tile = tile_rows(1, True)
+    srow = hold(f"K3 block_sort {size} rows, Wk 1 + payload, tile {tile} "
+                "(one of the route's tile sorts)",
+                lambda: block_sort(padded, pw, tile),
+                lambda: block_sort_plain(padded, pw, tile), 2 * size * 16,
+                library=lambda: torch.sort(padded.view(-1, tile), dim=1))
+    dist = [size // 2]  # the last phase: the mirrored step, then to a tile
+    while dist[-1] > tile:
+        dist.append(dist[-1] // 2)
+    xrow = hold(f"K3 exchange_stages {size} rows, Wk 1 + payload, mirrored "
+                f"step at {dist[0]} + {len(dist) - 1} steps (the last phase)",
+                lambda: exchange_stages(padded, pw, dist, mirror=True),
+                lambda: exchange_stages_plain(padded, pw, dist, mirror=True),
+                2 * size * 16)
+    mrow = hold(f"K3 exchange_stages {size} rows, Wk 1 + payload, one "
+                f"mirrored step at {dist[0]}",
+                lambda: exchange_stages(padded, pw, dist[:1], mirror=True),
+                lambda: exchange_stages_plain(padded, pw, dist[:1],
+                                              mirror=True),
+                2 * size * 16)
+    g = torch.Generator(device=dev).manual_seed(21)
+    nb_rows = 1 << 22
+    ids = torch.randint(0, 1 << 32, (nb_rows,), device=dev, generator=g)
+    ids[: nb_rows // 2] %= 1 << 16  # repeated ids
+    bkeys = torch.stack([torch.arange(nb_rows, device=dev), ids], 1)
+    bvals = torch.randint(0, 1 << 32, (nb_rows,), device=dev, generator=g)
+    brow = hold(f"sort_pairs_bitonic {nb_rows} (seq, id) rows, Wk 2 + "
+                "payload (BitsArray's sort)",
+                lambda: sort_pairs_bitonic(bkeys, bvals),
+                lambda: sort_pairs_plain(bkeys, bvals), 2 * nb_rows * 24)
+    del bkeys, bvals, ids, padded, pw
+    _, busy, prof_rows = profiled(lambda: bc.insert_counts(cm, w))
+    log(f"one profiled insert ({w.shape[0]} mers, {n} pairs): device "
+        f"kernels {busy * 1e3:.3f} ms; device kernels by time:")
+    for key, us, calls in prof_rows[:12]:
+        log(f"  {us / 1e3:10.3f} ms {100 * us / 1e6 / busy:5.1f}% "
+            f"{calls:6d}x  {key[:100]}")
+    torch.cuda.empty_cache()
+    out = dict(k=k, bc_m=m, bc_hashes=nb, bc_s=t_bc,
+               bc_peak_gib=peak_bc / 2**30, bc_write_s=t_write,
+               filter_chunks=FILTER_CHUNKS, count_bc_s=t_count_bc,
+               count_bc_peak_gib=peak_count_bc / 2**30,
+               count_bc_records=len(got_c), bf_s=t_bf,
+               bf_peak_gib=peak_bf / 2**30, bf_records=len(bf_c),
+               bf_exact_share=whole, fp_share_bc=fp_share,
+               insert_pairs=n, sort_routes_ms=routes,
+               insert_device_ms=busy * 1e3, pair_sort=route,
+               block_sort=srow, bitsarray_pair_sort=brow)
+    k3_src = "jellyfish_tpu_torch/csrc/bitonic.cu"
+    rows = {
+        "exchange_stages": dict(
+            name="bitonic.exchange_stages", route="cuda", source=k3_src,
+            replaces="experiments/pallas_probe2.py:103", **xrow),
+        "exchange_stages_mirror": dict(
+            name="bitonic.exchange_stages(mirror)", route="cuda",
+            source=k3_src, replaces="experiments/pallas_stage_probe.py:112",
+            **mrow),
+    }
+    return launches, rows, out
+
+
+def phase_bloom_cli(tmp, fq, seq, mem_db):
+    """bc -> count --bc -> query (bloom and binary) through the CLI at the
+    CLI phase's k = 21 size, against numpy: the cells from the .bc's
+    matrices and the input's exact counts, count --bc as the in-memory
+    count's records that check 2, each query line. And count --chunk-len
+    1000 (the ASCII path, no filter) of the first 0.5 Mbases writes the
+    packed path's records."""
+    from jellyfish_tpu_torch import cli
+
+    k = 21
+    bcp, out = os.path.join(tmp, "r21.bc"), os.path.join(tmp, "bc21.jf")
+    t = time.perf_counter()
+    if cli.main(["bc", "-m", str(k), "-s", "4M", "-C", "-o", bcp, fq]) != 0:
+        raise AssertionError("bc failed")
+    t_bc = time.perf_counter() - t
+    h, cells = unpack_cells_np(bcp)
+    m, nb = h.size, h.nb_hashes
+    t1, t2 = gf2_tables(h.matrix(1), 2 * k), gf2_tables(h.matrix(2), 2 * k)
+    keys, counts = np.unique(canonical_words(seq, k)[:, 0],
+                             return_counts=True)
+    want = np.zeros(m, np.uint8)
+    bloom_apply_np(want, bloom_adds_np(keys, counts, m, nb, t1, t2))
+    same_bc = np.array_equal(cells, want)
+    t = time.perf_counter()
+    if cli.main(["count", "-m", str(k), "-s", "4M", "-C", "--matrix-seed",
+                 "1", "--bc", bcp, "-o", out, fq]) != 0:
+        raise AssertionError("count --bc failed")
+    t_count = time.perf_counter() - t
+    _, mw_, mc = read_db(mem_db)
+    _, bw, bcnt = read_db(out)
+    keep = bloom_check_np(cells, mw_[:, 0], m, nb, t1, t2) == 2
+    same_count = np.array_equal(bw, mw_[keep]) and np.array_equal(bcnt,
+                                                                  mc[keep])
+
+    # query: the mers of 300 reads, and 3 on the command line
+    reads = seq[:300 * 151].reshape(300, 151)[:, :150]
+    qfa = os.path.join(tmp, "q.fa")
+    with open(qfa, "wb") as f:
+        f.write(b"".join(b">q%d\n%s\n" % (i, r.tobytes())
+                         for i, r in enumerate(reads)))
+    given = [reads[0, :k].tobytes().decode(), reads[1, 5:5 + k].tobytes()
+             .decode(), "ACGT" * 5 + "A"]
+    order = np.argsort(mw_[:, 0])
+    sorted_keys = mw_[order, 0]
+    ok_query = {}
+    for fmt, db in (("bloom", bcp), ("binary", mem_db)):
+        qout = os.path.join(tmp, f"q_{fmt}.txt")
+        if cli.main(["query", "-s", qfa, "-o", qout, db, *given]) != 0:
+            raise AssertionError(f"query of the {fmt} file failed")
+        with open(qout) as f:
+            lines = f.read().splitlines()
+        strs = [line.split()[0] for line in lines]
+        vals = np.array([int(line.split()[1]) for line in lines], np.uint64)
+        canon = canonical_words(np.frombuffer(
+            "N".join(strs).encode(), np.uint8), k)[:, 0]
+        if fmt == "bloom":
+            want_v = bloom_check_np(cells, canon, m, nb, t1, t2)
+        else:
+            i = np.minimum(np.searchsorted(sorted_keys, canon),
+                           len(sorted_keys) - 1)
+            hit = sorted_keys[i] == canon
+            want_v = np.where(hit, mc[order[i]], 0)
+        n_want = sum(len(canonical_words(r, k)) for r in reads) + 3
+        ok_query[fmt] = (len(lines) == n_want
+                         and np.array_equal(vals, want_v.astype(np.uint64)))
+    # the ASCII path on the first 0.5 Mbases (a chunk of 1000 bases is
+    # about a hundred small launches), against the packed path on them
+    sub, ascii_db, packed_db = (os.path.join(tmp, n) for n in (
+        "sub21.fq", "ascii21.jf", "packed21.jf"))
+    with open(fq, "rb") as f:
+        lines = f.read().split(b"\n")
+    head = lines[:4 * min(3_333, len(lines) // 4)]
+    with open(sub, "wb") as f:
+        f.write(b"\n".join(head) + b"\n")
+    common = ["count", "-m", str(k), "-s", "4M", "-C", "--matrix-seed", "1"]
+    t = time.perf_counter()
+    if cli.main([*common, "--chunk-len", "1000", "-o", ascii_db, sub]) != 0:
+        raise AssertionError("count --chunk-len 1000 failed")
+    t_ascii = time.perf_counter() - t
+    if cli.main([*common, "-o", packed_db, sub]) != 0:
+        raise AssertionError("count of the first 0.5 Mbases failed")
+    same_ascii = records_of(ascii_db) == records_of(packed_db)
+    log(f"CLI bloom k={k}: bc -s 4M (m {m}, {nb} hashes) {t_bc:.2f} s, "
+        f"cells == numpy: {same_bc}; count --bc {t_count:.2f} s, "
+        f"{len(bcnt)} of {len(mc)} records == numpy: {same_count}; query "
+        f"== numpy: {ok_query}; count --chunk-len 1000 of 0.5 Mbases "
+        f"{t_ascii:.2f} s, records == the packed path's: {same_ascii}")
+    if not (same_bc and same_count and all(ok_query.values())
+            and same_ascii):
+        raise AssertionError("the CLI Bloom path is wrong")
+    for p in (bcp, out, ascii_db, packed_db, sub, qfa):
+        os.unlink(p)
+    return dict(bc_s=t_bc, count_bc_s=t_count, ascii_count_s=t_ascii,
+                records=len(bcnt))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1170,7 +1624,8 @@ def main() -> int:
     win_rows, win_table = phase_window(dev)
     rows.update(win_rows)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_cli(tmp, 21, 32_000_000, 4_000_000, seed=21, need=["compact"])
+        seq21 = phase_cli(tmp, 21, 32_000_000, 4_000_000, seed=21,
+                          need=["compact"])
         phase_cli(tmp, 33, 4_000_000, 1_000_000, seed=33,
                   need=["compact", "block_sort", "merge_pass"])
         phase_cli(tmp, 63, 12_000_000, 3_000_000, seed=63,
@@ -1186,37 +1641,48 @@ def main() -> int:
             phase_disk(tmp, os.path.join(tmp, "r63.fq"), 63, "512k", "256k",
                        need=on_merge[:1] + on_merge[2:] + ["block_sort"]),
         ]
+        bloom_cli = phase_bloom_cli(tmp, os.path.join(tmp, "r21.fq"), seq21,
+                                    os.path.join(tmp, "o21.jf"))
+        del seq21
         chunks, staged = stage_chunks(dev)
         # each kernel's launches are read from the full-size run of its
-        # path; exchange_stages and flip lie on no path and report the
-        # k = 63 count's, window_rows and roll_lanes the full-size merge's
+        # path: K1 and K2 the k = 21 count's, K3's block sort and
+        # merge_pass the k = 63 count's, exchange_stages (row 8) and its
+        # mirrored step (row 12's role) the full-size bc's, window_rows
+        # and roll_lanes the full-size merge's. flip lies on no path and
+        # reports the bc's 0
         path = {"merge_path": 21, "compact": 21, "block_sort": 63,
-                "merge_pass": 63, "exchange_stages": 63, "flip": 63,
+                "merge_pass": 63, "exchange_stages": "bloom",
+                "exchange_stages_mirror": "bloom", "flip": "bloom",
                 "window_rows": "merge", "roll_lanes": "merge",
                 "compact_keep": "merge"}
         # the keep-mask row counts the launches of the compact wrapper
-        counter = {"compact_keep": "compact"}
-        off_path = {"exchange_stages", "flip"}
+        counter = {"compact_keep": "compact",
+                   "exchange_stages_mirror": "exchange_stages.mirror"}
         full, launches = {}, {}
         for k in K_FULL:
             need = [n for n, run in path.items()
-                    if n not in off_path and run != "merge"
-                    and (k == 63 or run == k)]
+                    if run in (21, 63) and (k == 63 or run == k)]
             out = phase_full(k, chunks, staged, need, compare_lsd=k == 63,
                              keep=k == 21)
             launches[k], full[k] = out[:2]
             if k == 21:
                 table = out[2]
             torch.cuda.empty_cache()
+        launches["bloom"], bloom_rows, bloom = phase_bloom(chunks, staged,
+                                                           table, dev)
+        rows.update(bloom_rows)
+        torch.cuda.empty_cache()
         del chunks
         launches["merge"], merge = phase_merge(tmp, staged, table, on_merge)
         del table, staged
+    where = {"merge": "full-size merge k=21", "bloom": "full-size bc k=21"}
     for name, row in rows.items():
         row["launches"] = launches[path[name]][counter.get(name, name)]
-        row["path"] = (f"full size k={path[name]}" if path[name] != "merge"
-                       else "full-size merge k=21")
+        row["path"] = where.get(path[name], f"full size k={path[name]}")
     log(json.dumps({"merge": {"full_size": merge, "k63": merge63},
                     "disk": disk}))
+    log(json.dumps({"bloom": {"full_size": bloom, "cli": bloom_cli}}))
     log(json.dumps({"window_table": win_table}))
     log(json.dumps({"full_size": list(full.values())}))
     log(json.dumps({"k3_table": k3_table}))

@@ -1,10 +1,12 @@
 """`jellyfish` CLI of the port: `python -m jellyfish_tpu_torch
-<count|histo|dump|stats|merge|info> ...`.
+<count|bc|query|histo|dump|stats|merge|info> ...`.
 
-`count` and `merge` run on the GPU; histo, dump, stats and info read
-databases on the host. `count` takes the JAX package's flags, and the ones
-whose paths are not ported raise NotPortedError. The JAX package's query,
-bc, mem, cite, generate and fastq2sam are not ported yet.
+`count`, `bc` and `merge` run on the GPU, and so does `query` of a Bloom
+counter (a binary database is searched on the host); histo, dump, stats
+and info read databases on the host. `count` and `bc` take the JAX
+package's flags, and the ones whose paths are not ported raise
+NotPortedError. The JAX package's mem, cite, generate and fastq2sam are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ __all__ = ["build_parser", "main"]
 
 def build_parser() -> argparse.ArgumentParser:
     from jellyfish_tpu_torch import __version__
-    from jellyfish_tpu_torch.cli import count, dbtools
+    from jellyfish_tpu_torch.cli import count, dbtools, tools
 
     parser = argparse.ArgumentParser(
         prog="jellyfish",
@@ -27,6 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
                         version=f"jellyfish-tpu-torch {__version__}")
     sub = parser.add_subparsers(dest="subcommand", required=True)
     count.add_parser(sub)
+    tools.add_bc_parser(sub)
+    dbtools.add_query_parser(sub)
     dbtools.add_histo_parser(sub)
     dbtools.add_dump_parser(sub)
     dbtools.add_stats_parser(sub)
@@ -37,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, device=None) -> int:
     """Run one subcommand. `device` None means the GPU (and raises when
-    there is none) for count and merge; the tests pass device="cpu"."""
+    there is none) for count, bc, merge and query of a Bloom counter; the
+    tests pass device="cpu"."""
     import signal
 
     # behave like a unix tool when piped into head & co.

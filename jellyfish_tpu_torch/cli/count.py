@@ -1,9 +1,16 @@
-"""`jellyfish count` on the GPU (the single-device packed path of
-jellyfish_tpu/cli/count.py, with its --disk spill and merge).
+"""`jellyfish count` on the GPU (the single-device paths of
+jellyfish_tpu/cli/count.py, with its --disk spill and merge and its Bloom
+filters).
 
 The flag surface is the JAX package's (count_main_cmdline.yaggo:4-112).
 Flags whose paths are not ported yet raise NotPortedError rather than
 doing something else.
+
+Ingest: host-packed batches when no filter is given and --chunk-len is a
+multiple of 32; otherwise ASCII chunks one at a time, as the JAX package
+does, so that `--bf-size` decides on exactly the JAX package's chunks.
+--bc keeps a chunk's mers whose Bloom-counter check is 2; --bf-size drops
+each mer's first occurrence (bloom.load_count_filter).
 
 --disk writes a partial database `{output}{i}` whenever the store holds
 twice `--size` entries (16 bytes an entry, store.device_bytes), then
@@ -95,15 +102,12 @@ def add_parser(sub):
 def _check_ported(args) -> None:
     unported = [
         ("-d/--devices", args.devices != "1"),
-        ("--bc", args.bc is not None),
-        ("--bf-size", args.bf_size is not None),
         ("--if", bool(args.if_files)),
         ("--packed-store", args.packed_store),
         ("--sam", bool(args.sam)),
         ("-g/--generator", args.generator is not None),
         ("--coordinator", args.coordinator is not None),
         ("--text", args.text),
-        ("--chunk-len not a multiple of 32", args.chunk_len % 32 != 0),
     ]
     for flag, used in unported:
         if used:
@@ -180,9 +184,18 @@ def run(args, argv, device=None):
     k = args.mer_len
     if not args.file:
         die("count: no input files given")
+    filt = None
+    if args.bc or args.bf_size is not None:
+        from jellyfish_tpu_torch.bloom import load_count_filter
+
+        filt = load_count_filter(
+            bc_path=args.bc, bf_size=args.bf_size, bf_fp=args.bf_fp, k=k,
+            canonical=args.canonical, device=device,
+        )
     counter = MerCounter(
         k, size=args.size, canonical=args.canonical,
         rng=np.random.default_rng(args.matrix_seed), device=device,
+        mer_filter=filt,
     )
     chunker = SequenceChunker(
         list(args.file), k, chunk_len=args.chunk_len, min_qual=_min_qual(args),
@@ -208,15 +221,21 @@ def run(args, argv, device=None):
             counter.reset()
             intermediates.append(path)
 
-    # B chunks per batch; parse+pack runs on a producer thread so host
-    # work overlaps the device's
-    B = int(os.environ.get("JF_INGEST_BATCH", 8))
-    for batch in _prefetch(_batched(chunker.chunks_packed(), B)):
-        counter.add_chunks_packed_batch(
-            np.stack([b[0] for b in batch]),
-            np.stack([b[1] for b in batch]),
-        )
-        maybe_spill()
+    # parsing (and packing) runs on a producer thread so host work
+    # overlaps the device's
+    if filt is None and args.chunk_len % 32 == 0:
+        # B chunks per batch
+        B = int(os.environ.get("JF_INGEST_BATCH", 8))
+        for batch in _prefetch(_batched(chunker.chunks_packed(), B)):
+            counter.add_chunks_packed_batch(
+                np.stack([b[0] for b in batch]),
+                np.stack([b[1] for b in batch]),
+            )
+            maybe_spill()
+    else:
+        for chunk in _prefetch(chunker.chunks()):
+            counter.add_chunk(chunk)
+            maybe_spill()
     t_count = time.perf_counter()
 
     if not args.no_write:

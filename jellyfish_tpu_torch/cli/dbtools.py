@@ -1,7 +1,8 @@
-"""Database subcommands of the port: merge on the device, and the
-host-only readers histo, dump, stats and info (the counterparts of
-jellyfish_tpu/cli/dbtools.py, sub_commands/{histo,dump,stats,merge,info}
-_main.cc; the readers are copies)."""
+"""Database subcommands of the port: merge on the device, query (a Bloom
+counter's check on the device, a binary database's lookup on the host),
+and the host-only readers histo, dump, stats and info (the counterparts of
+jellyfish_tpu/cli/dbtools.py, sub_commands/{histo,dump,stats,merge,info,
+query}_main.cc; the readers are copies)."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import numpy as np
 from jellyfish_tpu_torch.cli.common import suffix_int
 
 __all__ = ["add_histo_parser", "add_dump_parser", "add_stats_parser",
-           "add_merge_parser", "add_info_parser"]
+           "add_merge_parser", "add_info_parser", "add_query_parser"]
 
 U64MAX = (1 << 64) - 1
 
@@ -308,4 +309,137 @@ def run_info(args, argv, device=None):
         print(f"where: {where}")
         print(f"when: {root.get('time', '')}")
         print(f"canonical: {'yes' if header.canonical else 'no'}")
+    return 0
+
+
+# -- query (query_main.cc:44-123) ---------------------------------------------
+
+
+def add_query_parser(sub):
+    p = sub.add_parser("query", help="Query the count of k-mers in a database")
+    p.add_argument("-s", "--sequence", action="append", default=[],
+                   help="Query all mers of sequence files")
+    p.add_argument("-i", "--interactive", action="store_true",
+                   help="Read mers from stdin")
+    p.add_argument("-l", "--load", action="store_true",
+                   help="Force pre-loading the database in memory")
+    p.add_argument("-L", "--no-load", action="store_true",
+                   help="Disable pre-loading")
+    p.add_argument("-o", "--output", help="Output file")
+    p.add_argument("file", help="Jellyfish database")
+    p.add_argument("mers", nargs="*", help="Mers to query")
+    p.set_defaults(func=run_query)
+    return p
+
+
+def _limbs(mers: np.ndarray, W: int) -> np.ndarray:
+    """Mers (uint64, or python ints in an object array) -> [n, W] uint32
+    limbs."""
+    if mers.dtype == np.uint64:
+        return np.stack([(mers >> np.uint64(32 * w)).astype(np.uint32)
+                         for w in range(W)], axis=1).reshape(-1, W)
+    return np.array([[(int(v) >> (32 * w)) & 0xFFFFFFFF for w in range(W)]
+                     for v in mers], dtype=np.uint32).reshape(-1, W)
+
+
+def run_query(args, argv, device=None):
+    """The JAX package's query, batched: the mers of each sequence file,
+    and the mers given on the command line, are looked up at once (a
+    Bloom counter's check is one device call; a binary database is
+    searched on the host, vectorized for 2k <= 64)."""
+    import torch
+
+    from jellyfish_tpu_torch.cli.common import die, open_output
+    from jellyfish_tpu_torch.io.files import BinaryQuery, mer_strings_np
+    from jellyfish_tpu_torch.io.header import FileHeader
+    from jellyfish_tpu_torch.io.parse import iter_reads, open_stream
+    from jellyfish_tpu_torch.mer import (
+        MerDNA,
+        revcomp_np,
+        seq_mers_np,
+        string_mers,
+    )
+
+    with open(args.file, "rb") as f:
+        header = FileHeader.read(f)
+    k = header.key_len // 2
+    W = (2 * k + 31) // 32
+    small = 2 * k <= 64
+
+    if header.format == FileHeader.FORMAT_BLOOM:
+        from jellyfish_tpu_torch.bloom import read_bloom_counter
+
+        db = read_bloom_counter(args.file, device)
+
+        def lookup(mers):
+            limbs = torch.from_numpy(_limbs(mers, W).astype(np.int64))
+            return db.check(limbs).cpu().numpy().astype(np.uint64)
+    elif header.format == FileHeader.FORMAT_BINARY:
+        db = BinaryQuery(args.file)
+        # preload on -l, and automatically for bulk queries (sequence
+        # files or >100 mers) unless -L, like query_main.cc:109-111
+        if not args.no_load and (
+            args.load or args.sequence or len(args.mers) > 100
+        ):
+            db.preload()
+
+        def lookup(mers):
+            if small:
+                return db.check_batch(mers)
+            return np.array([db.check(int(m)) for m in mers],
+                            dtype=np.uint64)
+    else:
+        die(f"Unsupported format '{header.format}'. "
+            "Must be a bloom counter or binary list.")
+
+    def canon(mers):
+        if not header.canonical:
+            return mers
+        if small:
+            return np.minimum(mers, revcomp_np(mers, k))
+        return np.array([MerDNA(k, int(m)).get_canonical().bits
+                         for m in mers], dtype=object)
+
+    def as_array(bits):
+        return np.array(bits, dtype=np.uint64 if small else object)
+
+    def write(mers):
+        if not len(mers):
+            return
+        vals = lookup(canon(mers))
+        chars = mer_strings_np(_limbs(mers, W), k)
+        out.write("".join(f"{row.tobytes().decode()} {v}\n"
+                          for row, v in zip(chars, vals)))
+
+    out = open_output(args.output)
+    for path in args.sequence:
+        with open_stream(path) as stream:
+            if small:
+                reads = [seq_mers_np(seq, k) for seq in iter_reads(stream)]
+            else:
+                reads = [as_array([m.bits for m in string_mers(
+                    seq.decode(), k)]) for seq in iter_reads(stream)]
+        write(np.concatenate(reads) if reads else as_array([]))
+
+    def parse(s):
+        """A mer's bits, or None (reported) when s is no k-mer."""
+        try:
+            m = MerDNA(s)
+            if m.k == k:
+                return m.bits
+        except ValueError:
+            pass
+        print(f"Invalid mer '{s}'", file=sys.stderr)
+        return None
+
+    given = [parse(s) for s in args.mers]
+    write(as_array([b for b in given if b is not None]))
+    if args.interactive:
+        for line in sys.stdin:
+            bits = parse(line.strip())
+            if bits is not None:
+                out.write(f"{lookup(canon(as_array([bits])))[0]}\n")
+                out.flush()
+    if args.output:
+        out.close()
     return 0

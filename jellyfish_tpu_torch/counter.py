@@ -1,16 +1,20 @@
 """The k-mer counting engine on the GPU (the counterpart of
 jellyfish_tpu/counter.py).
 
-Per batch of host-packed chunks, plain PyTorch on the device:
+Per batch of host-packed chunks, or per ASCII chunk, plain PyTorch on the
+device:
 
-    2-bit codes + validity bitstream -> phase-major window extraction ->
-    canonical fold -> GF(2) hash (AND + XOR-fold parity) -> hash-order
-    sortkeys as store key columns, premasked to PAD
+    2-bit codes + validity bitstream (or ASCII -> codes) -> phase-major
+    window extraction -> canonical fold -> GF(2) hash (AND + XOR-fold
+    parity) -> hash-order sortkeys as store key columns, premasked to PAD
 
 No per-batch sort: raw runs accumulate in SortedCountStore, whose grain
-consolidations and merges run the hand-written kernels. finalize_np()
-yields the whole table in the reference's dump order (ascending
-(pos, key)).
+consolidations and merges run the hand-written kernels. With a mer filter
+(`count --bc`, `--bf-size`) each ASCII chunk is counted on its own
+(`_chunk_pipeline_dedup`), its distinct mers recovered and filtered, and
+the filtered run goes to the store as a counted run (`insert_run`).
+finalize_np() yields the whole table in the reference's dump order
+(ascending (pos, key)).
 """
 
 from __future__ import annotations
@@ -29,7 +33,12 @@ from jellyfish_tpu_torch.ops.hashing import (
     mers_of_sortkeys,
     sortkey_of_mers,
 )
-from jellyfish_tpu_torch.ops.mers import extract_mers_packed
+from jellyfish_tpu_torch.ops.count import consolidate_premasked
+from jellyfish_tpu_torch.ops.mers import (
+    encode_codes,
+    extract_mers_packed,
+    extract_mers_phased,
+)
 from jellyfish_tpu_torch.store import SortedCountStore
 
 __all__ = ["MerCounter", "ceil_log2"]
@@ -37,6 +46,42 @@ __all__ = ["MerCounter", "ceil_log2"]
 
 def ceil_log2(x: int) -> int:
     return max(0, (int(x) - 1).bit_length())
+
+
+def _premasked(mers, valid, masks, k, lsize):
+    """Mers [N, W] -> (sortkey columns [N, Wk], invalid windows carrying
+    the PAD key; the valid count, a device scalar)."""
+    sk = sortkey_of_mers(mers, masks, k, lsize)
+    cols = torch.where(valid[:, None], mw.key_columns(sk),
+                       mw.pad_key(sk.shape[-1]))
+    return cols.contiguous(), valid.sum()
+
+
+def _chunk_pipeline(chunk_u8, masks, k, lsize, canonical):
+    """ASCII chunk [L] uint8 -> (premasked sortkey columns [16*Mp, Wk],
+    n_valid scalar)."""
+    mers, valid = extract_mers_phased(encode_codes(chunk_u8), k, canonical)
+    return _premasked(mers, valid, masks, k, lsize)
+
+
+def _chunk_pipeline_dedup(chunk_u8, masks, k, lsize, canonical):
+    """The chunk's distinct sortkeys with their counts, as a masked run
+    (sorted; each count on its segment's last row, 0 on the others). The
+    PAD segment's count is corrected by the pad rows, so it holds 0, or
+    the true count when a real mer's sortkey is the PAD key."""
+    sk, n_valid = _chunk_pipeline(chunk_u8, masks, k, lsize, canonical)
+    keys, counts = consolidate_premasked(sk)
+    # remove the PAD inflation: the last sorted row always ends the final
+    # (PAD or maximal) segment, and pads = N - n_valid
+    pads = sk.shape[0] - n_valid
+    counts[-1] -= pads
+    return keys, counts
+
+
+def _recover_mers(keys, inv_masks, k, lsize, W):
+    """Store key columns [n, Wk] -> mer limbs [n, W]."""
+    return mers_of_sortkeys(mw.limbs_of_key_columns(keys, W), inv_masks, k,
+                            lsize)
 
 
 class MerCounter:
@@ -47,6 +92,9 @@ class MerCounter:
     If size >= 4^k the identity matrix is used
     (large_hash_array.hpp:997-1001). `device` None means the GPU, and
     raises when there is none; pass device="cpu" to run on the CPU.
+    `mer_filter` (bloom.load_count_filter) maps each ASCII chunk's
+    (distinct mers [n, W], counts [n]) to new counts, the batch
+    equivalent of the reference's filter chain (count_main.cc:99-131).
     k above 16 * MAX_KEY_COLS = 112 raises NotPortedError: the kernels
     take keys of at most MAX_KEY_COLS 32-bit limbs.
     """
@@ -59,6 +107,7 @@ class MerCounter:
         matrix: GF2Matrix | None = None,
         rng: np.random.Generator | None = None,
         device=None,
+        mer_filter=None,
     ):
         self.k = int(k)
         c = 2 * self.k
@@ -102,6 +151,7 @@ class MerCounter:
             self._Ainv = inverse_masks_of_matrix(self.matrix, self.W)
         self._pad = mw.pad_key(self.W)
         self.store = SortedCountStore(self.W, self.device)
+        self.mer_filter = mer_filter
 
     # -- ingestion ------------------------------------------------------------
 
@@ -125,16 +175,45 @@ class MerCounter:
         if L < self.k:
             return
         mers, valid = extract_mers_packed(pw, vb, self.k, L, self.canonical)
-        mers = mers.reshape(-1, self.W)
-        valid = valid.reshape(-1)
-        sk = sortkey_of_mers(mers, self._A, self.k, self.lsize)
-        cols = torch.where(valid[:, None], mw.key_columns(sk), self._pad)
-        self.store.insert_raw(cols.contiguous(), valid.sum())
+        self.store.insert_raw(*_premasked(
+            mers.reshape(-1, self.W), valid.reshape(-1), self._A, self.k,
+            self.lsize))
 
     def add_chunk_packed(self, pwords, validbits) -> None:
         """One host-packed chunk: pwords [L/16], validbits [ceil(L/32)]."""
         self.add_chunks_packed_batch(self._words(pwords)[None],
                                      self._words(validbits)[None])
+
+    def _chunk(self, chunk_u8) -> torch.Tensor:
+        if isinstance(chunk_u8, torch.Tensor):
+            return chunk_u8.to(device=self.device, dtype=torch.uint8)
+        return torch.from_numpy(
+            np.ascontiguousarray(chunk_u8, dtype=np.uint8)).to(self.device)
+
+    def chunk_counts(self, chunk_u8):
+        """An ASCII chunk's distinct mers: (sortkey columns [n, Wk] as a
+        masked run, mer limbs [n, W], counts [n]); rows of count 0 are no
+        mer (bc inserts them with weight 0, the filters skip them)."""
+        keys, counts = _chunk_pipeline_dedup(
+            self._chunk(chunk_u8), self._A, self.k, self.lsize,
+            self.canonical)
+        mers = _recover_mers(keys, self._Ainv, self.k, self.lsize, self.W)
+        return keys, mers, counts
+
+    def add_chunk(self, chunk_u8) -> None:
+        """Count the k-mers of a chunk of ASCII sequence (uint8, host or
+        device). Reads are separated by non-ACGT bytes; chunks of one
+        stream overlap by k-1 bytes (the parser guarantees both)."""
+        if len(chunk_u8) < self.k:
+            return
+        if self.mer_filter is not None:
+            keys, mers, counts = self.chunk_counts(chunk_u8)
+            self.store.insert_run(keys, self.mer_filter(mers, counts))
+        else:
+            keys, n_valid = _chunk_pipeline(
+                self._chunk(chunk_u8), self._A, self.k, self.lsize,
+                self.canonical)
+            self.store.insert_raw(keys, n_valid)
 
     # -- extraction -----------------------------------------------------------
 
@@ -162,8 +241,7 @@ class MerCounter:
                 keys, counts = keys[:n], counts[:n]
         if n == 0:
             return empty
-        limbs = mw.limbs_of_key_columns(keys, self.W)
-        mers = mers_of_sortkeys(limbs, self._Ainv, self.k, self.lsize)
+        mers = _recover_mers(keys, self._Ainv, self.k, self.lsize, self.W)
         return mers.cpu().numpy().astype(np.uint32), counts
 
     def finalize(self):

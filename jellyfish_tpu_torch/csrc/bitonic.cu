@@ -23,19 +23,23 @@
 //     which sort last, and only its real rows are written.
 //   jf_exchange runs one step over the whole array in device memory, one
 //     thread a pair of rows: a plain step at distance d (row i meets
-//     i + d inside each 2d-row block), or a flip (row j of each 2d-row
-//     block swapped with row 2d - 1 - j). A payload is carried, not
-//     compared. `transpose` reads the input through the transpose of each
-//     128 x 128 block of positions, an index map rather than a data pass.
+//     i + d inside each 2d-row block), a flip (row j of each 2d-row
+//     block swapped with row 2d - 1 - j), or a mirrored step (the flip's
+//     partner with the plain step's compare: the Pallas flip and the
+//     exchange after it in one pass, as block_sort's first step of a
+//     phase, over the whole array). A payload is carried, not compared.
+//     `transpose` reads the input through the transpose of each 128 x 128
+//     block of positions, an index map rather than a data pass.
 //
 // Bound on this card. jf_block_sort reads and writes each row of device
 // memory once, and does its log_t (log_t + 1) / 2 steps in shared memory:
 // it is bound by shared-memory traffic and compares, not by device memory.
 // Two blocks of at most 96 KiB fit on an SM, so one block's steps overlap
 // another's loads. jf_exchange is bound by bytes: each step reads and
-// writes every row once, which is why the sort keeps its steps in shared
-// memory and the store merges sorted tiles with K1 passes instead of
-// running further bitonic phases in device memory.
+// writes every row once, which is why block_sort keeps its steps in
+// shared memory. The counting store merges sorted tiles with K1 passes;
+// the pair sort of kernels/sort.py (the Bloom insert) runs only its
+// cross-tile steps here and sorts each tile again with jf_block_sort.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,7 +52,7 @@ constexpr int kSortThreads = 512;
 constexpr int kStepThreads = 256;
 constexpr int64_t kPad = INT64_MAX;  // pad rows sort last
 
-enum Mode { kExchange = 0, kFlip = 1 };
+enum Mode { kExchange = 0, kFlip = 1, kMirror = 2 };
 
 // A row as the kernels hold it: [payload,] key column 0 .. WK - 1, so that
 // row_le over columns [kLo, kCols) compares the key first and the payload
@@ -172,6 +176,7 @@ exchange_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok,
   const int64_t blk = (p >> log_d) << (log_d + 1);
   const int64_t j = p & (d - 1);
   const int64_t a = blk + j;
+  // kFlip and kMirror meet the mirrored partner
   const int64_t b = mode == kExchange ? a + d : blk + 2 * d - 1 - j;
   int64_t ra[R::kCols], rb[R::kCols];
   load_row<R, WK>(ra, ik, ip, transpose ? transposed(a) : a);
@@ -261,13 +266,13 @@ extern "C" int jf_block_sort(const void* keys, const void* pay,
 }
 
 // One step at distance 2^log_d over m rows (m a multiple of 2^(log_d + 1)).
-// mode: 0 plain, 1 flip. A payload is carried. transpose: read through the
-// 128 x 128 block transpose (m a multiple of 16384; out must not be the
-// input).
+// mode: 0 plain, 1 flip, 2 mirrored. A payload is carried. transpose: read
+// through the 128 x 128 block transpose (m a multiple of 16384; out must
+// not be the input).
 extern "C" int jf_exchange(const void* keys, const void* pay, void* out_keys,
                            void* out_pay, int64_t m, int wk, int log_d,
                            int mode, int transpose, void* stream) {
-  if (wk < 1 || wk > 7 || log_d < 0 || log_d > 62 || mode < 0 || mode > 1) {
+  if (wk < 1 || wk > 7 || log_d < 0 || log_d > 62 || mode < 0 || mode > 2) {
     return (int)cudaErrorInvalidValue;
   }
   return kStep[wk](keys, pay, out_keys, out_pay, m, log_d, mode, transpose,

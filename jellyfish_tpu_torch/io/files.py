@@ -1,6 +1,7 @@
 """Jellyfish database files: binary/sorted and text/sorted readers and
-writers (the parts of jellyfish_tpu/io/files.py that `count`, `merge` and
-the database tools use, copied).
+writers, and random access into a binary database (the parts of
+jellyfish_tpu/io/files.py that `count`, `merge`, `query` and the database
+tools use, copied).
 
 Formats (binary_dumper.hpp, text_dumper.hpp):
   binary/sorted: header, then per record ceil(2k/8) key bytes (little-endian)
@@ -11,6 +12,8 @@ Both are sorted ascending by (pos, key), pos = matrix.times(key) & (size-1).
 
 from __future__ import annotations
 
+import mmap
+import os
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -26,6 +29,7 @@ __all__ = [
     "encode_binary_records_np",
     "mer_strings_np",
     "DBReader",
+    "BinaryQuery",
 ]
 
 
@@ -212,3 +216,175 @@ class DBReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _np_positions(key_limbs: np.ndarray, matrix, lsize: int) -> np.ndarray:
+    """Hash positions of keys [n, W] uint32 limbs on the host: the parity
+    of (key & mask) per output bit (the host twin of
+    ops/hashing.gf2_apply_masks)."""
+    from jellyfish_tpu_torch.ops.hashing import masks_of_matrix
+
+    n, W = key_limbs.shape
+    if matrix.is_low_identity():
+        pos = key_limbs[:, 0].astype(np.uint64)
+        if W > 1 and lsize > 32:
+            pos |= key_limbs[:, 1].astype(np.uint64) << np.uint64(32)
+        return pos & np.uint64((1 << lsize) - 1)
+    masks = masks_of_matrix(matrix, W)
+    pos = np.zeros(n, dtype=np.uint64)
+    for j in range(matrix.r):
+        t = key_limbs[:, 0] & masks[j, 0]
+        for w in range(1, W):
+            t = t ^ (key_limbs[:, w] & masks[j, w])
+        for s in (16, 8, 4, 2, 1):
+            t = t ^ (t >> np.uint32(s))
+        pos |= (t & np.uint32(1)).astype(np.uint64) << np.uint64(j)
+    return pos & np.uint64((1 << lsize) - 1)
+
+
+class BinaryQuery:
+    """Random access into a binary/sorted DB by guided binary search on hash
+    position (binary_dumper.hpp:112-213)."""
+
+    def __init__(self, path: str):
+        self.f = open(path, "rb")
+        self.header = FileHeader.read(self.f)
+        if self.header.format != FileHeader.FORMAT_BINARY:
+            raise ValueError("query requires a binary/sorted database")
+        self.k = self.header.key_len // 2
+        self.matrix = self.header.matrix()
+        self.mask = self.header.size - 1
+        self._key_bytes = (self.header.key_len + 7) // 8
+        self._counter_len = self.header.counter_len
+        self._rec = self._key_bytes + self._counter_len
+        self.offset = self.header.offset
+        size = os.fstat(self.f.fileno()).st_size - self.offset
+        if size % self._rec != 0:
+            raise ValueError(
+                f"database size {size} is not a multiple of record length "
+                f"{self._rec}"
+            )
+        self.n = size // self._rec
+        self.mm = mmap.mmap(self.f.fileno(), 0, access=mmap.ACCESS_READ)
+        if self.n:
+            self._first_key = self._key_at(0)
+            self._last_key = self._key_at(self.n - 1)
+            self._first_pos = self._pos(self._first_key)
+            self._last_pos = self._pos(self._last_key)
+
+    def preload(self) -> None:
+        """Pre-fault the whole mapping (query -l/--load; the reference's
+        mapped_file::load + sequential madvise, mapped_file.hpp:24-150,
+        query_main.cc:109-114)."""
+        try:
+            self.mm.madvise(mmap.MADV_WILLNEED)
+        except (AttributeError, ValueError, OSError):
+            pass
+        step = mmap.PAGESIZE * 1024
+        for off in range(0, len(self.mm), step):
+            self.mm[off]
+
+    def _records_view(self) -> np.ndarray:
+        """[n, rec] uint8 zero-copy view over the mmap."""
+        return np.frombuffer(
+            self.mm, dtype=np.uint8, count=self.n * self._rec,
+            offset=self.offset,
+        ).reshape(self.n, self._rec)
+
+    def check_batch(self, mer_bits: np.ndarray) -> np.ndarray:
+        """Counts for a uint64 array of (already canonicalized) mers,
+        2k <= 64: one vectorized binary search over (pos, key) order (the
+        batch counterpart of binary_query_base::val_id)."""
+        q = np.ascontiguousarray(mer_bits, dtype=np.uint64)
+        out = np.zeros(len(q), dtype=np.uint64)
+        if self.n == 0 or len(q) == 0:
+            return out
+        if self._key_bytes > 8:
+            raise ValueError("check_batch requires 2k <= 64")
+        recs = self._records_view()
+        kb = self._key_bytes
+        nw = (kb + 3) // 4
+
+        def key_of(idx: np.ndarray) -> np.ndarray:
+            b = recs[idx, :kb].astype(np.uint64)
+            k = np.zeros(len(idx), dtype=np.uint64)
+            for j in range(kb):
+                k |= b[:, j] << np.uint64(8 * j)
+            return k
+
+        def limbs_of(v: np.ndarray) -> np.ndarray:
+            return np.ascontiguousarray(np.stack(
+                [(v >> np.uint64(32 * w)).astype(np.uint32)
+                 for w in range(nw)], axis=1))
+
+        lsize = max(0, (self.header.size - 1).bit_length())
+        qpos = _np_positions(limbs_of(q), self.matrix, lsize)
+        lo = np.zeros(len(q), dtype=np.int64)
+        hi = np.full(len(q), self.n, dtype=np.int64)
+        # records are sorted by (pos, key): plain vectorized binary search
+        for _ in range(int(self.n).bit_length() + 1):
+            mid = (lo + hi) >> 1
+            live = lo < hi
+            mk = key_of(np.where(live, mid, 0))
+            mp = _np_positions(limbs_of(mk), self.matrix, lsize)
+            less = (mp < qpos) | ((mp == qpos) & (mk < q))
+            lo = np.where(live & less, mid + 1, lo)
+            hi = np.where(live & ~less, mid, hi)
+        found = lo < self.n
+        found &= key_of(np.where(found, lo, 0)) == q
+        idx = np.where(found, lo, 0)
+        cb = recs[idx, kb : kb + self._counter_len].astype(np.uint64)
+        vals = np.zeros(len(q), dtype=np.uint64)
+        for j in range(self._counter_len):
+            vals |= cb[:, j] << np.uint64(8 * j)
+        out[found] = vals[found]
+        return out
+
+    def _key_at(self, i: int) -> int:
+        off = self.offset + i * self._rec
+        return int.from_bytes(self.mm[off : off + self._key_bytes], "little")
+
+    def _val_at(self, i: int) -> int:
+        off = self.offset + i * self._rec + self._key_bytes
+        return int.from_bytes(self.mm[off : off + self._counter_len], "little")
+
+    def _pos(self, key: int) -> int:
+        return self.matrix.times(key) & self.mask
+
+    def check(self, mer_bits: int) -> int:
+        """Count of a mer (0 if absent). Guided binary search then linear
+        scan, mirroring binary_query_base::val_id."""
+        if self.n == 0:
+            return 0
+        key = int(mer_bits)
+        if key == self._first_key:
+            return self._val_at(0)
+        if key == self._last_key:
+            return self._val_at(self.n - 1)
+        pos = self._pos(key)
+        if pos < self._first_pos or pos > self._last_pos:
+            return 0
+        first, last = 0, self.n
+        first_pos, last_pos = self._first_pos, self._last_pos
+        while last - first >= 8:
+            denom = last_pos - first_pos
+            if denom <= 0:
+                break
+            cid = first + round((last - first) * (pos - first_pos) / denom)
+            cid = max(first + 1, min(cid, last - 1))
+            mid_key = self._key_at(cid)
+            if mid_key == key:
+                return self._val_at(cid)
+            mid_pos = self._pos(mid_key)
+            if mid_pos > pos or (mid_pos == pos and mid_key > key):
+                last, last_pos = cid, mid_pos
+            else:
+                first, first_pos = cid, mid_pos
+        for cid in range(first + 1, last):
+            if self._key_at(cid) == key:
+                return self._val_at(cid)
+        return 0
+
+    def close(self):
+        self.mm.close()
+        self.f.close()

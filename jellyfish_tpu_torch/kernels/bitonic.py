@@ -15,8 +15,11 @@ step between tile rows r and r + m is a step at distance 128 m.
 `block_sort.launches`, `exchange_stages.launches` and `flip.launches`
 count the calls that launched each entry point on the card: a
 `block_sort` call is one kernel launch, an `exchange_stages` call one a
-step. The counting path runs `block_sort` only (kernels/sort.py);
-`exchange_stages` and `flip` hold rows 7, 8, 11 and 12 on their own.
+step; `exchange_stages.mirror_launches` counts the calls whose first step
+is mirrored. The counting path runs `block_sort` only; the pair sort of
+kernels/sort.py (the Bloom insert, BitsArray) runs `block_sort` and
+`exchange_stages` with a mirrored first step (rows 8 and 12). `flip` and
+the transposes (row 11) lie on no path.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ SHARED_TILE_BYTES = 96 * 1024  # two sorting blocks fit in an SM's 228 KB
 PAD = (1 << 63) - 1            # INT64_MAX: pad rows sort last
 _SQUARE = 128                  # side of the transposed square blocks
 
-_EXCHANGE, _FLIP = range(2)  # jf_exchange modes
+_EXCHANGE, _FLIP, _MIRROR = range(3)  # jf_exchange modes
 
 _P, _N, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
@@ -103,27 +106,34 @@ def _transposed_plain(x):
             .reshape(x.shape))
 
 
-def exchange_stages_plain(keys, payload=None, distances=(), transposes=0):
+def exchange_stages_plain(keys, payload=None, distances=(), transposes=0,
+                          mirror=False):
     """`transposes` transposes of each 128 x 128 square of rows, then one
     ascending compare-exchange step per distance d in `distances`: row i
     meets row i + d inside each 2d-row block, and the smaller key goes
-    first (equal keys stay). The payload is carried, not compared."""
+    first (equal keys stay). With `mirror`, the first step is mirrored:
+    row j of each 2d-row block meets row 2d - 1 - j. The payload is
+    carried, not compared."""
     k, p = keys, payload
     if transposes % 2:
         k = _transposed_plain(k)
         p = None if p is None else _transposed_plain(p)
     wk = k.shape[1]
-    for d in distances:
+    for i, d in enumerate(distances):
+        # a mirrored step is a plain step with each block's upper half
+        # read, and written back, in reverse
+        turn = (lambda x: x.flip(1)) if mirror and i == 0 else (lambda x: x)
         y = k.reshape(-1, 2, d, wk)
-        lo, hi = y[:, 0], y[:, 1]
+        lo, hi = y[:, 0], turn(y[:, 1])
         swap = mw.mw_less(hi, lo)
         k = torch.stack([mw.mw_select(swap, hi, lo),
-                         mw.mw_select(swap, lo, hi)], 1).reshape(-1, wk)
+                         turn(mw.mw_select(swap, lo, hi))], 1).reshape(-1, wk)
         if p is not None:
             yp = p.reshape(-1, 2, d)
-            plo, phi = yp[:, 0], yp[:, 1]
+            plo, phi = yp[:, 0], turn(yp[:, 1])
             p = torch.stack([torch.where(swap, phi, plo),
-                             torch.where(swap, plo, phi)], 1).reshape(-1)
+                             turn(torch.where(swap, plo, phi))],
+                            1).reshape(-1)
     return k.contiguous(), None if p is None else p.contiguous()
 
 
@@ -198,16 +208,19 @@ def block_sort(keys, payload=None, tile=None):
 block_sort.launches = 0
 
 
-def exchange_stages(keys, payload=None, distances=(), transposes=0):
+def exchange_stages(keys, payload=None, distances=(), transposes=0,
+                    mirror=False):
     """exchange_stages_plain on the card (rows 7, 8 and 11 of the kernel
-    table): at least one distance, each a power of two, M a multiple of
-    twice each (and of 128 * 128 for an odd number of transposes). Returns
-    (keys, payload or None)."""
+    table; a mirrored first step takes row 12's place): at least one
+    distance, each a power of two, M a multiple of twice each (and of
+    128 * 128 for an odd number of transposes). Returns (keys, payload or
+    None)."""
     _check(keys, payload)
     m, wk = keys.shape
     if not distances:
         raise ValueError("exchange_stages: no distance")
-    steps = [(_log2(d, "distance"), _EXCHANGE) for d in distances]
+    steps = [(_log2(d, "distance"), _MIRROR if mirror and i == 0 else
+              _EXCHANGE) for i, d in enumerate(distances)]
     if any(m % (2 << ld) for ld, _ in steps):
         raise ValueError("exchange_stages: M must be whole blocks of 2d rows")
     transpose = transposes % 2 == 1
@@ -215,15 +228,18 @@ def exchange_stages(keys, payload=None, distances=(), transposes=0):
         raise ValueError("exchange_stages: transposes need whole 128 x 128 "
                          "squares of rows")
     if keys.device.type == "cpu":
-        return exchange_stages_plain(keys, payload, distances, transposes)
+        return exchange_stages_plain(keys, payload, distances, transposes,
+                                     mirror)
     out = _empty_like(keys, payload)
     _Launcher(keys.device).steps((keys, payload), out, m, wk, steps,
                                  transpose)
     exchange_stages.launches += 1
+    exchange_stages.mirror_launches += int(mirror)
     return out
 
 
 exchange_stages.launches = 0
+exchange_stages.mirror_launches = 0
 
 
 def flip(keys, tile):

@@ -1,17 +1,34 @@
-"""Merge sort of key rows on the kernels: K3 block sort, then K1 passes.
+"""Sorts of key rows on the kernels.
 
-The counterpart of the `lax.sort` of multi-limb keys in
-jellyfish_tpu/ops/count.py. ops/count.sort_rows takes this route for
-every key width above one column, on every device: on the CPU the
-kernels' plain versions run the same pass loop.
+`sort_rows_blocked`: K3 block sort, then K1 passes. The counterpart of the
+`lax.sort` of multi-limb keys in jellyfish_tpu/ops/count.py.
+ops/count.sort_rows takes this route for every key width above one
+column, on every device: on the CPU the kernels' plain versions run the
+same pass loop.
+
+`sort_pairs_bitonic`: K3 only, key rows with a carried payload. The
+counterpart of `lax.sort([pos, wb], num_keys=1)` in jellyfish_tpu/bloom.py
+(the Bloom-counter insert) and of the (id, seq) sort with the values
+carried in jellyfish_tpu/ops/bitsarray.py. Its cross-tile steps are
+kernel-table row 8 (compare the key, carry the payload) with row 12's
+flip fused into the first step of each phase.
 """
 
 from __future__ import annotations
 
-from jellyfish_tpu_torch.kernels.bitonic import block_sort, tile_rows
+import torch
+
+from jellyfish_tpu_torch.kernels.bitonic import (
+    PAD,
+    block_sort,
+    block_sort_plain,
+    exchange_stages,
+    exchange_stages_plain,
+    tile_rows,
+)
 from jellyfish_tpu_torch.kernels.merge_path import merge_pass
 
-__all__ = ["sort_rows_blocked"]
+__all__ = ["sort_rows_blocked", "sort_pairs_bitonic", "sort_pairs_plain"]
 
 
 def sort_rows_blocked(keys, payload=None, tile=None):
@@ -32,3 +49,52 @@ def sort_rows_blocked(keys, payload=None, tile=None):
         keys, payload = merge_pass(keys, run, payload)
         run *= 2
     return keys, payload
+
+
+def _sort_pairs(keys, payload, tile, sort, steps):
+    m, wk = keys.shape
+    tile = tile or tile_rows(wk, True)
+    size = max(tile, 1 << max(m - 1, 0).bit_length())
+    pad = size - m
+    if pad:
+        keys = torch.cat([keys, keys.new_full((pad, wk), PAD)])
+        payload = torch.cat([payload, payload.new_zeros(pad)])
+    keys, payload = sort(keys, payload, tile)
+    run = tile
+    while run < size:
+        # the mirrored step at distance run places the two sorted runs of
+        # each 2 run block against each other; plain steps down to one
+        # tile leave each tile a bitonic sequence among its neighbours,
+        # which a tile sort finishes
+        dist = [run]
+        while dist[-1] > tile:
+            dist.append(dist[-1] // 2)
+        keys, payload = steps(keys, payload, dist, mirror=True)
+        keys, payload = sort(keys, payload, tile)
+        run *= 2
+    return keys[:m], payload[:m]
+
+
+def sort_pairs_bitonic(keys, payload, tile=None):
+    """Ascending sort of key rows [M, Wk] with an int64 payload [M] carried
+    -> (keys, payload).
+
+    M is padded with PAD rows of payload 0 to a power of two of at least
+    one tile (`tile`, default tile_rows(Wk, True): 4096 rows at Wk 1).
+    block_sort sorts each tile; then for each run length L = tile, 2 tile,
+    ..., one exchange_stages call (the mirrored step at L, plain steps at
+    L/2, ..., tile) and a block_sort of every tile double the sorted runs.
+    The padding is cut off. Keys must sort below the PAD row (INT64_MAX in
+    every column). Equal keys come out in no particular order (block_sort
+    compares the payload after the key, the exchange steps do not), like
+    `lax.sort(..., is_stable=False)`: every consumer folds over equal
+    keys. On CPU tensors the wrappers run their plain versions, so this
+    is sort_pairs_plain."""
+    return _sort_pairs(keys, payload, tile, block_sort, exchange_stages)
+
+
+def sort_pairs_plain(keys, payload, tile=None):
+    """sort_pairs_bitonic's loop on the plain versions of the kernels, on
+    any device: the reference the card's route is held against."""
+    return _sort_pairs(keys, payload, tile, block_sort_plain,
+                       exchange_stages_plain)

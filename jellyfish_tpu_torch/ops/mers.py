@@ -1,12 +1,15 @@
-"""Vectorized mer extraction from host-packed chunks -> [N, W] 2-bit mers.
+"""Vectorized mer extraction from chunks -> [N, W] 2-bit mers.
 
-The counterpart of jellyfish_tpu/ops/mers.py (packed path). The host ships
-2-bit codes (16 per 32-bit word, big-endian within the word) and a
-per-base validity bitstream; every window of the chunk is materialized at
-once by funnel reads of the packed stream at static shifts, one strided
-subproblem per phase (window start mod 16). Output order is PHASE-MAJOR
-(windows of phase 0, then phase 1, ...), exactly as in the JAX package:
-only order-free consumers may use it (the counter sorts right after).
+The counterpart of jellyfish_tpu/ops/mers.py. Two inputs: host-packed
+chunks (2-bit codes, 16 per 32-bit word, big-endian within the word, and a
+per-base validity bitstream; the count path for chunk lengths that are
+multiples of 32), and ASCII chunks encoded on the device (`encode_codes`,
+`extract_mers_phased`; the filter modes and other chunk lengths). Every
+window of the chunk is materialized at once by funnel reads of the packed
+stream at static shifts, one strided subproblem per phase (window start
+mod 16). Output order is PHASE-MAJOR (windows of phase 0, then phase 1,
+...), exactly as in the JAX package: only order-free consumers may use it
+(the counter sorts right after).
 
 Conventions (mer_dna.hpp): A=0 C=1 G=2 T=3; a mer is the 2k-bit
 big-endian base-4 integer of its window, held as little-endian limbs;
@@ -18,17 +21,48 @@ last axis (a batch of equal-length chunks is one call).
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from jellyfish_tpu_torch.ops import multiword as mw
 
 __all__ = [
+    "code_table",
+    "encode_codes",
+    "extract_mers_phased",
     "extract_mers_packed",
     "reverse_complement",
     "canonicalize",
 ]
 
 M32 = mw.M32
+INVALID = 0xFF  # the code of anything but ACGTacgt
+
+
+@functools.cache
+def code_table() -> np.ndarray:
+    """256-entry byte -> code table; invalid bases map to 0xFF."""
+    t = np.full(256, INVALID, dtype=np.uint8)
+    for i, b in enumerate(b"ACGT"):
+        t[b] = i
+    for i, b in enumerate(b"acgt"):
+        t[b] = i
+    return t
+
+
+def encode_codes(chunk_u8):
+    """[..., L] uint8 ASCII -> [..., L] uint8 codes (0..3 valid, 0xFF
+    invalid), by arithmetic as in the JAX package: t = (ch >> 1) & 3 maps
+    A0 C1 G3 T2, t ^ (t >> 1) swaps 2 and 3; validity is case-folded
+    membership in {ACGT}."""
+    t = (chunk_u8 >> 1) & 3
+    code = t ^ (t >> 1)
+    lower = chunk_u8 | 0x20
+    valid = ((lower == ord("a")) | (lower == ord("c"))
+             | (lower == ord("g")) | (lower == ord("t")))
+    return torch.where(valid, code, INVALID)
 
 
 def _rc_word(w):
@@ -107,6 +141,37 @@ def _window_invalid_stream(validbits, k: int):
         A = A | a
         cov += d
     return A  # bit i set => window i invalid (meaningful for i < N)
+
+
+def extract_mers_phased(codes, k: int, canonical: bool):
+    """Phase-major window extraction from codes [L] uint8 (an ASCII chunk
+    through encode_codes): the 16 codes of each word are packed big-endian
+    and read as in extract_mers_packed. Validity is positional (no invalid
+    code in [i, i + k)), by a cumulative sum, then put in phase-major
+    order. Returns (mers [16*Mp, W], valid [16*Mp] bool), Mp = (L-k)//16
+    + 1."""
+    L = codes.shape[0]
+    if L < k:
+        raise ValueError("chunk shorter than k")
+    N = L - k + 1
+    Mp = (L - k) // 16 + 1
+
+    bad = (codes > 3).to(torch.int64)
+    csum = torch.cat([bad.new_zeros(1), torch.cumsum(bad, 0)])
+    valid = csum[k:] - csum[:N] == 0
+    # positional -> phase-major: index (phi, m) = 16m + phi
+    valid_pm = torch.cat([valid, valid.new_zeros(16 * Mp - N)])
+    valid_pm = valid_pm.view(Mp, 16).t().reshape(-1)
+
+    Lp = (L + 15) // 16 * 16
+    c2 = torch.cat([codes, codes.new_zeros(Lp - L)]).to(torch.int64) & 3
+    shifts = 2 * (15 - torch.arange(16, device=codes.device))
+    pw = (c2.view(-1, 16) << shifts).sum(dim=1)
+    pw = _pad_last(pw, 1, 2 + (2 * k + 30) // 32)
+    mers = _phased_windows_from_pwords(pw, k, Mp)
+    if canonical:
+        mers = canonicalize(mers, k)
+    return mers, valid_pm
 
 
 def extract_mers_packed(pwords, validbits, k: int, L: int, canonical: bool):

@@ -6,7 +6,9 @@ preslice, pad trim, rowsort compaction plans, u16 counts, narrowed top
 limbs, pow2 sort groups and the asynchronous resolve):
 
   - the counter appends RAW runs of PREMASKED sortkeys (invalid windows
-    already carry the PAD key), keys only;
+    already carry the PAD key), keys only; or, in the filter modes,
+    COUNTED runs (`insert_run`: a chunk's sorted keys with their filtered
+    counts, masked), which K2 compacts straight into level 0;
   - raw rows accumulate to a grain (`consolidate_rows`, 2^27 rows for
     W <= 3 limbs; the first grain runs at 1/8 of it). The grain is sorted
     (ops/count.sort_rows: torch.sort for a packed key column, the K3 block
@@ -89,6 +91,19 @@ class SortedCountStore:
         grain = self._grain()
         if self.raw_rows >= grain or self.raw_rows + keys.shape[0] > grain:
             self.flush()
+
+    def insert_run(self, keys, counts) -> None:
+        """Append a counted run: sorted keys [M, Wk] with each key's count
+        on one row and 0 on every other row (a masked run; the filters set
+        counts to 0 too). K2 drops the rows of count 0, so the run enters
+        level 0 exact, and a key that every filter zeroed never reaches
+        the output (the JAX package drops them at its compacting merges).
+        It adds no pad rows, so the pad total stays exact. (The JAX
+        package's total_weight, which decides whether counts need a second
+        uint32 limb, has no role here: counts are int64.)"""
+        k2, c2, _ = compact(keys.contiguous(), counts.contiguous())
+        self.levels[0].append((k2, c2))
+        self._maybe_merge()
 
     def _grain(self) -> int:
         if self._cold:

@@ -1,7 +1,10 @@
-"""`python -m jellyfish_tpu_torch count` against `python -m jellyfish_tpu
-count`: with SOURCE_DATE_EPOCH and --matrix-seed, the databases hold the
-same records byte for byte, and the same header apart from exe_path, pwd
-and cmdline. Flags whose paths are not ported raise NotPortedError."""
+"""`python -m jellyfish_tpu_torch count`, `bc` and `query` against the
+same subcommands of `python -m jellyfish_tpu`: with SOURCE_DATE_EPOCH and
+--matrix-seed, the databases and .bc files hold the same records byte for
+byte, and the same header apart from exe_path, pwd and cmdline; query
+prints the same text. The Bloom hash matrices come from an unseeded
+numpy generator in both packages, so these tests seed it in both. Flags
+whose paths are not ported raise NotPortedError."""
 
 import gzip
 import io
@@ -92,10 +95,9 @@ def test_no_write_and_timing(reads, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-d", "2"], ["-d", "auto"], ["--bc", "x.bc"], ["--bf-size", "1M"],
+    ["-d", "2"], ["-d", "auto"],
     ["--if", "x.fa"], ["--packed-store"], ["--sam", "x.sam"],
     ["-g", "cmds.txt"], ["--coordinator", "localhost:1234"], ["--text"],
-    ["--chunk-len", "1000"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(reads, tmp_path, flags):
     _, fq, _ = reads
@@ -112,3 +114,165 @@ def test_key_width_above_the_kernels_raises(tmp_path, k):
     with pytest.raises(NotPortedError, match="k <= 112"):
         torch_main(["count", "-m", str(k), "-s", "1M", "-o",
                     str(tmp_path / "x.jf"), missing], device="cpu")
+
+
+def test_bc_generator_raises(tmp_path):
+    with pytest.raises(NotPortedError, match="not yet ported"):
+        torch_main(["bc", "-m", "21", "-s", "1M", "-g", "cmds.txt",
+                    "-o", str(tmp_path / "x.bc")], device="cpu")
+
+
+@pytest.fixture
+def seeded(monkeypatch):
+    """numpy.random.default_rng() without a seed gives a seeded generator,
+    in both packages: bc's and --bf-size's hash matrices match."""
+    real = np.random.default_rng
+    monkeypatch.setattr(np.random, "default_rng",
+                        lambda seed=None: real(777 if seed is None else seed))
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", "1700000000")
+
+
+def _same_files(out_t, out_j):
+    ht, rec_t = _split(out_t)
+    hj, rec_j = _split(out_j)
+    assert rec_t == rec_j
+    for h in (ht, hj):
+        for key in ("exe_path", "pwd", "cmdline"):
+            h.pop(key, None)
+    assert ht == hj
+    return rec_t
+
+
+def _both(d, name, argv, inputs):
+    """Run argv in both packages with -o d/t<name> and d/j<name>."""
+    out_t, out_j = str(d / f"t{name}"), str(d / f"j{name}")
+    assert torch_main([*argv, "-o", out_t, *inputs], device="cpu") == 0
+    assert _jax_main([*argv, "-o", out_j, *inputs]) == 0
+    return out_t, out_j
+
+
+@pytest.fixture(scope="module")
+def bc_files(reads, tmp_path_factory):
+    """A .bc of the reads at k = 21 (canonical) and at k = 33, written by
+    the JAX package with seeded matrices."""
+    _, fq, fa = reads
+    d = tmp_path_factory.mktemp("bcfiles")
+    mp = pytest.MonkeyPatch()
+    real = np.random.default_rng
+    mp.setattr(np.random, "default_rng",
+               lambda seed=None: real(555 if seed is None else seed))
+    try:
+        paths = {}
+        for k, extra in ((21, ["-C"]), (33, [])):
+            paths[k] = str(d / f"r{k}.bc")
+            assert _jax_main(["bc", "-m", str(k), "-s", "20k", *extra,
+                              "-o", paths[k], fq, fa]) == 0
+    finally:
+        mp.undo()
+    return paths
+
+
+@pytest.mark.parametrize("k,extra", [
+    (21, ["-C"]), (33, []), (15, ["-f", "0.02", "--chunk-len", "777"]),
+])
+def test_bc_matches_jax(reads, seeded, tmp_path, k, extra):
+    """The .bc file: header (m, hashes, both matrices) and packed cells."""
+    _, fq, fa = reads
+    out_t, out_j = _both(tmp_path, f"{k}.bc",
+                         ["bc", "-m", str(k), "-s", "10k", *extra], [fq, fa])
+    cells = _same_files(out_t, out_j)
+    assert len(cells) > 1000 and any(cells)
+
+
+@pytest.mark.parametrize("k,extra", [
+    (21, ["-C"]), (21, ["-C", "-L", "3", "--chunk-len", "3000"]),
+    (33, ["--out-counter-len", "1"]),
+])
+def test_count_bc_matches_jax(reads, bc_files, tmp_path, monkeypatch, k,
+                              extra):
+    """count --bc with the same .bc and --matrix-seed: the same records."""
+    _, fq, fa = reads
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", "1700000000")
+    argv = ["count", "-m", str(k), "-s", "10k", "--matrix-seed", "99",
+            "--bc", bc_files[k], "--chunk-len", "8192", *extra]
+    rec = _same_files(*_both(tmp_path, f"{k}.jf", argv, [fq, fa]))
+    assert len(rec) > 100
+
+
+@pytest.mark.parametrize("k,extra", [
+    (21, ["-C"]), (21, ["--bf-fp", "0.2", "-U", "5", "--chunk-len", "3001"]),
+    (33, ["-C", "--bf-size", "5000"]),
+])
+def test_count_bf_size_matches_jax(reads, seeded, tmp_path, k, extra):
+    """count --bf-size, seeded: every chunk's first occurrences dropped on
+    the same chunks, with the same false positives."""
+    _, fq, fa = reads
+    argv = ["count", "-m", str(k), "-s", "10k", "--matrix-seed", "5",
+            "--bf-size", "200k", "--chunk-len", "8192", *extra]
+    rec = _same_files(*_both(tmp_path, f"{k}.jf", argv, [fq, fa]))
+    assert len(rec) > 100
+
+
+@pytest.mark.parametrize("k", [21, 33])
+def test_count_bc_disk_matches_jax(reads, bc_files, tmp_path, monkeypatch,
+                                   k):
+    """count --bc --disk: spilled partials of filtered counts, merged."""
+    _, fq, fa = reads
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", "1700000000")
+    argv = ["count", "-m", str(k), "-s", "1000", "--matrix-seed", "3",
+            "--bc", bc_files[k], "--chunk-len", "4000", "--disk", "-C"]
+    rec = _same_files(*_both(tmp_path, f"{k}.jf", argv, [fq, fa]))
+    assert len(rec) > 100
+    assert not list(tmp_path.glob("*.jf[0-9]*"))
+
+
+@pytest.mark.parametrize("k,extra", [
+    (21, ["-C"]), (33, ["-L", "2"]), (63, ["-C"]),
+])
+def test_count_ascii_chunks_match_jax(reads, tmp_path, monkeypatch, k,
+                                      extra):
+    """--chunk-len 1000 (not a multiple of 32): the ASCII path, in both
+    packages; the database equals the packed path's too."""
+    _, fq, fa = reads
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", "1700000000")
+    argv = ["count", "-m", str(k), "-s", "10k", "--matrix-seed", "8",
+            *extra]
+    rec = _same_files(*_both(tmp_path, f"{k}.jf",
+                             [*argv, "--chunk-len", "1000"], [fq, fa]))
+    packed = str(tmp_path / "packed.jf")
+    assert torch_main([*argv, "--chunk-len", "1024", "-o", packed, fq, fa],
+                      device="cpu") == 0
+    assert _split(packed)[1] == rec
+
+
+def _query_both(tmp_path, argv):
+    out_t, out_j = str(tmp_path / "qt.txt"), str(tmp_path / "qj.txt")
+    assert torch_main(["query", "-o", out_t, *argv], device="cpu") == 0
+    assert _jax_main(["query", "-o", out_j, *argv]) == 0
+    with open(out_t) as ft, open(out_j) as fj:
+        return ft.read(), fj.read()
+
+
+@pytest.mark.parametrize("fmt,k", [
+    ("bloom", 21), ("bloom", 33), ("binary", 21), ("binary", 33),
+])
+def test_query_matches_jax(reads, bc_files, tmp_path, monkeypatch, fmt, k):
+    """query -s (every mer of a sequence file) and mers on the command
+    line (one of the wrong length), on a .bc and on a binary database."""
+    _, fq, fa = reads
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", "1700000000")
+    db = bc_files[k]
+    if fmt == "binary":
+        db = str(tmp_path / "db.jf")
+        assert _jax_main(["count", "-m", str(k), "-s", "10k", "-C",
+                          "--matrix-seed", "4", "-o", db, fq, fa]) == 0
+    seqs = tmp_path / "q.fa"
+    with open(fq) as f:
+        lines = f.read().splitlines()
+    seqs.write_text(">a\n" + lines[1] + "\n>b\nACGTNNACGT\n>c\n"
+                    + lines[5][:80] + "\n")
+    mers = [lines[9][i:i + k] for i in (0, 7, 40)] + ["ACGT", "A" * k]
+    got, want = _query_both(tmp_path, ["-s", str(seqs), db, *mers])
+    assert got == want
+    assert len(want.splitlines()) > 100
+    assert any(not line.endswith(" 0") for line in want.splitlines())

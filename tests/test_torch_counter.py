@@ -207,3 +207,114 @@ def test_device_bytes_in_the_jax_units(k):
     rows = sum(r[1].shape[0] for level in port.store.levels for r in level)
     assert 0 < rows <= raw
     assert port.store.device_bytes() == rows * (4 * W + 8)
+
+
+# -- the ASCII path (count --chunk-len not a multiple of 32, the filters) ----
+
+
+def _ascii_chunk(rng, n):
+    """n bytes of reads: ACGT in both cases, N runs, other bytes."""
+    alphabet = np.frombuffer(b"ACGTacgtNx\xff", dtype=np.uint8)
+    p = np.array([0.22, 0.22, 0.22, 0.22, 0.025, 0.025, 0.025, 0.025, 0.02,
+                  0.01, 0.01])
+    return rng.choice(alphabet, n, p=p / p.sum())
+
+
+@pytest.mark.parametrize("L", [1000, 4097, 1 << 16])
+@pytest.mark.parametrize("k", [1, 21, 32, 33, 63])
+def test_ascii_extraction_matches_jax(L, k):
+    """encode_codes and extract_mers_phased (canonical and not): the same
+    codes, mers and validity, in the same phase-major order."""
+    import jax.numpy as jnp
+
+    from jellyfish_tpu.ops import mers as jmers
+    from jellyfish_tpu_torch.ops import mers as tmers
+
+    chunk = _ascii_chunk(np.random.default_rng(L + k), L)
+    want = np.asarray(jmers.encode_codes(jnp.asarray(chunk)))
+    codes = tmers.encode_codes(torch.from_numpy(chunk))
+    np.testing.assert_array_equal(codes.numpy(), want)
+    np.testing.assert_array_equal(tmers.code_table(), jmers.code_table())
+    for canonical in (False, True):
+        jm, jv = jmers.extract_mers_phased(jnp.asarray(want), k, canonical)
+        tm, tv = tmers.extract_mers_phased(codes, k, canonical)
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(tm.numpy(),
+                                      np.asarray(jm).astype(np.int64))
+
+
+@pytest.mark.parametrize("L", [1000, 4097, 1 << 16])
+@pytest.mark.parametrize("k", [1, 21, 32, 33, 63])
+def test_chunk_pipelines_match_jax(L, k):
+    """_chunk_pipeline (premasked sortkeys, valid count) and
+    _chunk_pipeline_dedup (the chunk's masked counted run, PAD segment
+    corrected), and the mers recovered from it."""
+    import jax.numpy as jnp
+
+    from jellyfish_tpu import counter as jc
+    from jellyfish_tpu_torch import counter as tc
+
+    seed = 9400 + k
+    port = MerCounter(k, 1 << 12, canonical=k % 2 == 1,
+                      rng=np.random.default_rng(seed), device="cpu")
+    ref = JaxCounter(k, 1 << 12, canonical=k % 2 == 1,
+                     rng=np.random.default_rng(seed))
+    chunk = _ascii_chunk(np.random.default_rng(seed + L), L)
+    args = (port.k, port.lsize, port.canonical)
+    sk, nv = tc._chunk_pipeline(torch.from_numpy(chunk), port._A, *args)
+    jsk, jnv = jc._chunk_pipeline(jnp.asarray(chunk), ref._A, k=k,
+                                  lsize=ref.lsize, canonical=ref.canonical)
+    assert int(nv) == int(jnv)
+    np.testing.assert_array_equal(mw.limbs_of_key_columns(sk, port.W).numpy(),
+                                  np.asarray(jsk).astype(np.int64))
+    keys, mers, counts = port.chunk_counts(chunk)
+    jkeys, jcounts = jc._chunk_pipeline_dedup(
+        jnp.asarray(chunk), ref._A, k=k, lsize=ref.lsize,
+        canonical=ref.canonical)
+    # the counts sit on the same rows; a row of count 0 keeps its key here
+    # and holds the PAD key in the JAX package, and no consumer reads it
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.asarray(jcounts).astype(np.int64))
+    live = counts.numpy() > 0
+    np.testing.assert_array_equal(
+        mw.limbs_of_key_columns(keys, port.W).numpy()[live],
+        np.asarray(jkeys).astype(np.int64)[live])
+    jm = jc._recover_mers(jkeys, ref._Ainv, k=k, lsize=ref.lsize)
+    np.testing.assert_array_equal(mers.numpy()[live],
+                                  np.asarray(jm).astype(np.int64)[live])
+    assert int(counts.sum()) == int(nv)
+
+
+@pytest.mark.parametrize("k,motif", [(21, None), (32, "ones"), (33, None)])
+def test_filtered_counts_match_jax(k, motif):
+    """MerCounter(mer_filter=f).add_chunk: each chunk's distinct mers go
+    through the same filter in both packages (here: keep a count when the
+    mer's low limb is odd, else 0; drop the all-ones mer, whose sortkey is
+    the PAD pattern at k = 32, only in odd chunks), and the filtered runs
+    through insert_run and the level merges. Rows the filter zeroed end as
+    in the JAX package: not in the table."""
+    seed = 9500 + k
+    calls = []
+
+    def jfilt(mers, counts):
+        keep = (mers[:, 0] & 1) == 1
+        calls.append(len(calls))
+        return np.where(keep | (len(calls) % 2 == 0), counts, 0)
+
+    def tfilt(mers, counts):
+        keep = (mers[:, 0] & 1) == 1
+        return torch.where(keep | (len(calls) % 2 == 0), counts, 0)
+
+    port = MerCounter(k, 4096, rng=np.random.default_rng(seed),
+                      device="cpu", mer_filter=tfilt)
+    ref = JaxCounter(k, 4096, rng=np.random.default_rng(seed),
+                     mer_filter=jfilt)
+    if motif == "ones":
+        motif = _all_ones_mer(port)
+    for chunk in _chunks(np.random.default_rng(seed), 24, k, motif):
+        chunk = chunk[:L - 7]  # not a multiple of 16
+        ref.add_chunk(chunk)
+        port.add_chunk(chunk)
+    assert port.store.levels[1] and port.store.total_pads() == 0
+    m, c = _same(port, ref)
+    assert (c > 0).all() and len(c) > 100

@@ -69,6 +69,43 @@ def test_disk_merge_and_readers_run_without_jax(tmp_path):
     assert os.path.getsize(out) > 0
 
 
+def test_bloom_path_runs_without_jax(tmp_path):
+    """bc, count --bc, count --bf-size, count --chunk-len 1000 and query of
+    both formats in a fresh interpreter leave jax and jellyfish_tpu out of
+    sys.modules."""
+    fa = tmp_path / "r.fa"
+    rng = __import__("random").Random(7)
+    fa.write_text("".join(
+        f">r{i}\n{''.join(rng.choice('ACGT') for _ in range(200))}\n"
+        for i in range(30)))
+    d, f = str(tmp_path), str(fa)
+    code = (
+        "import sys, contextlib, io\n"
+        "from jellyfish_tpu_torch.cli import main\n"
+        "def run(*a):\n"
+        "    assert main(list(a), device='cpu') == 0, a\n"
+        f"run('bc', '-m', '15', '-s', '10k', '-o', {d!r} + '/r.bc', {f!r})\n"
+        f"run('count', '-m', '15', '-s', '1k', '--bc', {d!r} + '/r.bc',"
+        f" '-o', {d!r} + '/a.jf', {f!r})\n"
+        f"run('count', '-m', '15', '-s', '1k', '--bf-size', '10k',"
+        f" '-o', {d!r} + '/b.jf', {f!r})\n"
+        f"run('count', '-m', '15', '-s', '1k', '--chunk-len', '1000',"
+        f" '-o', {d!r} + '/c.jf', {f!r})\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    for db in ('/r.bc', '/c.jf'):\n"
+        f"        run('query', '-s', {f!r}, {d!r} + db)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'jellyfish_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    for name in ("r.bc", "a.jf", "b.jf", "c.jf"):
+        assert (tmp_path / name).stat().st_size > 0
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -84,7 +121,11 @@ def test_no_jax_imports_in_sources():
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"jellyfish_tpu_torch/merge.py", "jellyfish_tpu_torch/mer.py",
             "jellyfish_tpu_torch/kernels/window.py",
-            "jellyfish_tpu_torch/cli/dbtools.py"} <= names
+            "jellyfish_tpu_torch/cli/dbtools.py",
+            "jellyfish_tpu_torch/bloom.py",
+            "jellyfish_tpu_torch/ops/bitsarray.py",
+            "jellyfish_tpu_torch/cli/tools.py",
+            "jellyfish_tpu_torch/kernels/sort.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -99,3 +140,15 @@ def test_counter_without_card_raises(monkeypatch):
         MerCounter(21, 1 << 20)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MerCounter(21, 1 << 20, device="cuda")
+
+
+def test_bloom_structures_without_card_raise(monkeypatch):
+    from jellyfish_tpu_torch.bloom import BloomCounter2, BloomFilter
+    from jellyfish_tpu_torch.ops.bitsarray import BitsArray
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: BloomCounter2.from_fpr(0.01, 1000, 21),
+                 lambda: BloomFilter.from_size(1000, 0.01, 21),
+                 lambda: BitsArray(3, 100)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -66,6 +66,28 @@ def test_extract_mers_packed(k, canonical):
     assert got_v.any() and not got_v.all()
 
 
+@pytest.mark.parametrize("k", range(1, 113))
+def test_extract_mers_phased_every_k(k):
+    """The ASCII path at every k the port takes: encode_codes and
+    extract_mers_phased (canonical and not) on a chunk of 2k + 37 bytes,
+    never a multiple of 16, with lowercase, N and other bytes."""
+    rng = np.random.default_rng(3000 + k)
+    alphabet = np.frombuffer(b"ACGTacgtNx", dtype=np.uint8)
+    p = np.r_[[0.24] * 4, [0.01] * 4, 0.6 / k, 0.2 / k]
+    chunk = rng.choice(alphabet, 2 * k + 37, p=p / p.sum())
+    chunk[:k] = rng.choice(alphabet[:8], k)  # window 0 is valid
+    codes = tmers.encode_codes(torch.from_numpy(chunk))
+    want = jmers.encode_codes(jnp.asarray(chunk))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(want))
+    for canonical in (False, True):
+        want_m, want_v = jmers.extract_mers_phased(want, k, canonical)
+        got_m, got_v = tmers.extract_mers_phased(codes, k, canonical)
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+        np.testing.assert_array_equal(got_m.numpy(),
+                                      np.asarray(want_m).astype(np.int64))
+        assert got_v.any()
+
+
 @pytest.mark.parametrize("k", [1, 16, 21, 32, 33, 100])
 def test_reverse_complement_and_canonicalize(k):
     rng = np.random.default_rng(2000 + k)

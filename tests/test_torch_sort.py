@@ -280,3 +280,82 @@ def test_wrappers_reject_bad_inputs():
         merge_pass(k.t(), 4)
     with pytest.raises(ValueError):
         merge_pass(k, 0)
+
+
+# -- the pair sort (Bloom insert, BitsArray): rows 6, 8 and 12 ------------
+
+
+@pytest.mark.parametrize("wk,d", [(1, 1), (2, 64), (7, 512)])
+def test_mirrored_step_is_flip_then_exchange(wk, d):
+    """The mirrored step at distance d (row j of each 2d-row block meets
+    row 2d - 1 - j, the smaller key first, the payload carried) equals the
+    Pallas design's flip of each block's upper half, a plain step at d,
+    and the flip undone."""
+    rng = np.random.default_rng(5000 + wk)
+    m = 8 * d
+    keys = _rows(rng, m, wk)
+    pay = torch.from_numpy(rng.integers(0, 1 << 40, m))
+
+    def flip_upper(k, p):
+        k = k.view(-1, 2, d, wk).clone()
+        p = p.view(-1, 2, d).clone()
+        k[:, 1], p[:, 1] = k[:, 1].flip(1), p[:, 1].flip(1)
+        return k.reshape(m, wk), p.reshape(m)
+
+    want = flip_upper(*exchange_stages_plain(*flip_upper(keys, pay), [d]))
+    got = exchange_stages_plain(keys, pay, [d], mirror=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    more = exchange_stages_plain(keys, pay, [d, d // 2 or 1], mirror=True)
+    then = exchange_stages_plain(*got, [d // 2 or 1])
+    assert all(torch.equal(a, b) for a, b in zip(more, then))
+    got = exchange_stages(keys, pay, [d], mirror=True)  # CPU: the plain one
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert exchange_stages.launches == exchange_stages.mirror_launches == 0
+
+
+@pytest.mark.parametrize("m", [1 << 13, 5000, 1, 0])
+@pytest.mark.parametrize("wk", [1, 2, 7])
+def test_pair_sort_matches_plain_sort(wk, m):
+    """sort_pairs_bitonic against the LSD chain: the same keys in order,
+    and the same multiset of (key, payload) rows; at small tiles (several
+    phases of mirrored and plain steps) and at the default tile."""
+    rng = np.random.default_rng(6000 + wk + m)
+    keys = _rows(rng, m, wk) if m else torch.zeros((0, wk), dtype=torch.int64)
+    if wk == 1:
+        keys[keys[:, 0] == mw.PAD_PACKED] = 0  # keys sort below the PAD row
+    pay = torch.from_numpy(rng.integers(0, 1 << 40, m))
+    want = sort_rows_plain(keys)[0]
+
+    def rows(k, p):
+        return sorted(zip(map(tuple, k.tolist()), p.tolist()))
+
+    for tile in (16, 256, None):
+        got, gp = ksort.sort_pairs_bitonic(keys, pay, tile)
+        assert torch.equal(got, want)
+        assert rows(got, gp) == rows(keys, pay)
+        plain = ksort.sort_pairs_plain(keys, pay, tile)
+        assert torch.equal(plain[0], got) and torch.equal(plain[1], gp)
+    assert block_sort.launches == exchange_stages.launches == 0
+
+
+def test_pair_sort_phases(monkeypatch):
+    """The route's calls: one block_sort, then per doubling one
+    exchange_stages call (the mirrored step at the run length, plain steps
+    down to one tile) and one block_sort."""
+    calls = []
+    monkeypatch.setattr(ksort, "block_sort",
+                        lambda k, p, t: calls.append(("sort", t))
+                        or block_sort(k, p, t))
+    monkeypatch.setattr(ksort, "exchange_stages",
+                        lambda k, p, d, mirror: calls.append(
+                            ("steps", tuple(d), mirror))
+                        or exchange_stages(k, p, d, mirror=mirror))
+    keys = torch.arange(1000, 0, -1)[:, None].contiguous()
+    got, _ = ksort.sort_pairs_bitonic(keys, torch.zeros(1000,
+                                                        dtype=torch.int64),
+                                      tile=128)
+    assert torch.equal(got[:, 0], torch.arange(1, 1001))
+    assert calls == [("sort", 128),
+                     ("steps", (128,), True), ("sort", 128),
+                     ("steps", (256, 128), True), ("sort", 128),
+                     ("steps", (512, 256, 128), True), ("sort", 128)]
