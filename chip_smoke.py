@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -243,6 +245,7 @@ def _wrappers() -> dict:
     """Every kernel wrapper of the port, by name; each counts its calls
     that launched on the card in its `launches` attribute."""
     from jellyfish_tpu_torch.kernels.bitonic import (
+        block_merge,
         block_sort,
         exchange_stages,
         flip,
@@ -253,6 +256,7 @@ def _wrappers() -> dict:
 
     return {"merge_path": merge_path, "merge_pass": merge_pass,
             "compact": compact, "block_sort": block_sort,
+            "block_merge": block_merge,
             "exchange_stages": exchange_stages, "flip": flip,
             "window_rows": window_rows, "roll_lanes": roll_lanes}
 
@@ -460,15 +464,66 @@ def _cycle(r, n, lanes=128):
     return out
 
 
+def bitonic_tiles(keys, payload, tile):
+    """Tiles as the pair sort hands them to block_merge: tiles sorted,
+    then the mirrored step at distance `tile`, which leaves each tile a
+    bitonic sequence in order among its neighbours (plain versions)."""
+    from jellyfish_tpu_torch.kernels.bitonic import (
+        block_sort_plain,
+        exchange_stages_plain,
+    )
+
+    k, p = block_sort_plain(keys, payload, tile)
+    return exchange_stages_plain(k, p, [tile], mirror=True)
+
+
+def ptxas_report(name):
+    """Each kernel's registers and spilled bytes (stores + loads) from
+    csrc/<name>.cu's ptxas report, the build's lib<name>.log, logged.
+    Fails on a spill."""
+    from jellyfish_tpu_torch.kernels import _build
+
+    path = _build.BUILD_DIR / f"lib{name}.log"
+    if not path.exists():
+        log(f"ptxas report of {name}.cu: none (built by an earlier run)")
+        return
+    kernels, kernel = {}, None
+    for line in path.read_text().splitlines():
+        if "Function properties for" in line:
+            kernel = line.split("Function properties for")[1].strip()
+            kernels[kernel] = [None, 0]
+        elif kernel and "spill" in line:
+            kernels[kernel][1] = sum(map(int, re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line)))
+        elif kernel and (used := re.search(r"Used (\d+) registers", line)):
+            kernels[kernel][0] = int(used.group(1))
+    names = list(kernels)
+    if shutil.which("c++filt") and names:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    for n, (regs, spill) in zip(names, kernels.values()):
+        log(f"  ptxas {name}.cu: {regs} registers, {spill} bytes spilled: "
+            f"{n}")
+    spills = [n for n, (_, spill) in zip(names, kernels.values()) if spill]
+    if not kernels or spills:
+        raise AssertionError(f"{name}.cu: no ptxas report, or spills in "
+                             f"{spills}")
+
+
 def phase_k3(dev):
     """K3's entry points and K1's merge_pass against their plain versions:
     at the Pallas kernels' own shapes (kernel table rows 6, 7, 8, 11, 12)
     and at a grain's shape (2^26 rows of 4 limbs, keys only; 2^24 rows of
-    7 limbs with a row-index payload), plus a ragged row count. Returns
+    7 limbs with a row-index payload), plus a ragged row count;
+    block_merge on bitonic tiles at Wk 2 (with and without a payload) and
+    Wk 7 + payload, and on unsorted small tiles. Returns
     the JSON rows of block_sort, flip and merge_pass (exchange_stages'
     rows come from phase_bloom, at the Bloom insert's shape), and the
     table's per-row numbers."""
     from jellyfish_tpu_torch.kernels.bitonic import (
+        block_merge,
+        block_merge_plain,
         block_sort,
         block_sort_plain,
         exchange_stages,
@@ -592,6 +647,11 @@ def phase_k3(dev):
          lambda: exchange_stages_plain(x, idx, [1 << 23, 64, 1], 1))
     hold(f"K3 flip {m} rows, Wk 7, tile 1024",
          lambda: flip(x, 1024), lambda: flip_plain(x, 1024))
+    bk, bi = bitonic_tiles(x, idx, 1024)
+    hold(f"K3 block_merge {m} rows, Wk 7 + payload, bitonic tiles of 1024",
+         lambda: block_merge(bk, bi, 1024),
+         lambda: block_merge_plain(bk, bi, 1024))
+    del bk, bi
     runs, ridx = block_sort_plain(x, idx, tile=1 << 16)
     hold(f"K1 merge_pass {m} rows, Wk 7 + payload, runs of 2^16",
          lambda: merge_pass(runs, 1 << 16, ridx),
@@ -611,6 +671,23 @@ def phase_k3(dev):
          lambda: merge_pass(runs, 1 << 17),
          lambda: merge_pass_plain(runs, 1 << 17))
     del x, idx, runs
+    # block_merge at Wk 2 (BitsArray's (seq, id) rows): bitonic tiles of
+    # the largest tile and of a small one (several tiles a block), and
+    # unsorted tiles
+    m = 1 << 22
+    x = grain(m, 2, 1 << 20)
+    idx = torch.arange(m, device=dev)
+    for t in (tile_rows(2, True), 64):
+        bk, bi = bitonic_tiles(x, idx, t)
+        hold(f"K3 block_merge {m} rows, Wk 2 (+ payload), bitonic tiles "
+             f"of {t}",
+             lambda: block_merge(bk, None, t) + block_merge(bk, bi, t),
+             lambda: block_merge_plain(bk, None, t)
+             + block_merge_plain(bk, bi, t))
+    hold(f"K3 block_merge {m} rows, Wk 2 + payload, unsorted tiles of 128",
+         lambda: block_merge(x, idx, 128),
+         lambda: block_merge_plain(x, idx, 128))
+    del x, idx, bk, bi
     torch.cuda.empty_cache()
 
     def json_row(name, row, source, replaces, **extra):
@@ -1268,6 +1345,8 @@ def phase_bloom(chunks, staged, table, dev):
     from jellyfish_tpu_torch.cli.tools import insert_chunks
     from jellyfish_tpu_torch.counter import MerCounter
     from jellyfish_tpu_torch.kernels.bitonic import (
+        block_merge,
+        block_merge_plain,
         block_sort,
         block_sort_plain,
         exchange_stages,
@@ -1331,7 +1410,8 @@ def phase_bloom(chunks, staged, table, dev):
         f"launches {launches}")
     if missed:
         raise AssertionError("the Bloom counter has false negatives")
-    for name in ("block_sort", "exchange_stages", "exchange_stages.mirror"):
+    for name in ("block_sort", "block_merge", "exchange_stages",
+                 "exchange_stages.mirror"):
         if not launches[name]:
             raise AssertionError(f"bc ran without {name}")
     # the exact count of the chunks that steps 2 and 3 filter
@@ -1451,6 +1531,14 @@ def phase_bloom(chunks, staged, table, dev):
                 lambda: exchange_stages(padded, pw, dist, mirror=True),
                 lambda: exchange_stages_plain(padded, pw, dist, mirror=True),
                 2 * size * 16)
+    bk, bw = bitonic_tiles(padded, pw, tile)
+    merge_row = hold(
+        f"K3 block_merge {size} rows, Wk 1 + payload, bitonic tiles of "
+        f"{tile} (one of the route's in-tile merges)",
+        lambda: block_merge(bk, bw, tile),
+        lambda: block_merge_plain(bk, bw, tile), 2 * size * 16,
+        library=lambda: torch.sort(bk.view(-1, tile), dim=1))
+    del bk, bw
     mrow = hold(f"K3 exchange_stages {size} rows, Wk 1 + payload, one "
                 f"mirrored step at {dist[0]}",
                 lambda: exchange_stages(padded, pw, dist[:1], mirror=True),
@@ -1484,9 +1572,16 @@ def phase_bloom(chunks, staged, table, dev):
                bf_exact_share=whole, fp_share_bc=fp_share,
                insert_pairs=n, sort_routes_ms=routes,
                insert_device_ms=busy * 1e3, pair_sort=route,
-               block_sort=srow, bitsarray_pair_sort=brow)
+               block_sort=srow, block_merge=merge_row,
+               bitsarray_pair_sort=brow)
     k3_src = "jellyfish_tpu_torch/csrc/bitonic.cu"
     rows = {
+        "block_sort_bloom": dict(
+            name="bitonic.block_sort(bloom)", route="cuda", source=k3_src,
+            replaces="experiments/pallas_sort_proto.py:65", **srow),
+        "block_merge": dict(
+            name="bitonic.block_merge", route="cuda", source=k3_src,
+            replaces="experiments/pallas_probe2.py:103", **merge_row),
         "exchange_stages": dict(
             name="bitonic.exchange_stages", route="cuda", source=k3_src,
             replaces="experiments/pallas_probe2.py:103", **xrow),
@@ -1617,6 +1712,7 @@ def main() -> int:
     t_script = time.perf_counter()
     _build.build(["merge_path", "compact", "bitonic", "window"])
     log(f"build: {time.perf_counter() - t_script:.1f} s")
+    ptxas_report("bitonic")
 
     rows = phase_kernels(dev)
     k3_rows, k3_table = phase_k3(dev)
@@ -1647,17 +1743,20 @@ def main() -> int:
         chunks, staged = stage_chunks(dev)
         # each kernel's launches are read from the full-size run of its
         # path: K1 and K2 the k = 21 count's, K3's block sort and
-        # merge_pass the k = 63 count's, exchange_stages (row 8) and its
-        # mirrored step (row 12's role) the full-size bc's, window_rows
-        # and roll_lanes the full-size merge's. flip lies on no path and
-        # reports the bc's 0
+        # merge_pass the k = 63 count's, block_merge, exchange_stages (row
+        # 8), its mirrored step (row 12's role) and block_sort at the
+        # insert's shape the full-size bc's, window_rows and roll_lanes
+        # the full-size merge's. flip lies on no path and reports the
+        # bc's 0
         path = {"merge_path": 21, "compact": 21, "block_sort": 63,
-                "merge_pass": 63, "exchange_stages": "bloom",
+                "merge_pass": 63, "block_sort_bloom": "bloom",
+                "block_merge": "bloom", "exchange_stages": "bloom",
                 "exchange_stages_mirror": "bloom", "flip": "bloom",
                 "window_rows": "merge", "roll_lanes": "merge",
                 "compact_keep": "merge"}
         # the keep-mask row counts the launches of the compact wrapper
         counter = {"compact_keep": "compact",
+                   "block_sort_bloom": "block_sort",
                    "exchange_stages_mirror": "exchange_stages.mirror"}
         full, launches = {}, {}
         for k in K_FULL:

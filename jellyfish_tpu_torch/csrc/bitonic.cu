@@ -9,18 +9,20 @@
 //     [128, 128] transposes) and :112 flip (a tile reversed).
 //
 // Keys are [M, WK] int64 rows compared as csrc/rows.cuh says; an optional
-// int64 payload [M] travels with its row. Every step is ascending: of the
-// two rows it meets, the lower position gets the smaller. Two entry points:
+// int64 payload [M] travels with its row. A step is ascending (of the
+// two rows it meets, the lower position gets the smaller) unless said
+// otherwise. Three entry points:
 //
-//   jf_block_sort sorts each tile of T = 2^log_t rows, one block a tile.
-//     The tile sits in dynamic shared memory column by column, so that
-//     neighbouring threads touch neighbouring words. Phase k = 2, 4, ..., T
-//     starts with the mirrored step, where row j of each k-row block meets
-//     row k - 1 - j (the Pallas flip, fused), then runs plain steps at
-//     distances k/4, ..., 1, with __syncthreads() between steps. A payload
-//     is compared after the key, so a row-index payload makes the order
-//     stable. The last tile is padded in shared memory with INT64_MAX rows,
-//     which sort last, and only its real rows are written.
+//   jf_block_sort sorts each tile of T = 2^log_t rows by the bitonic
+//     network: phase k = 2, 4, ..., T runs steps at distances k/2, ...,
+//     1. A payload is compared after the key, so a row-index payload
+//     makes the order stable. The last tile is padded with INT64_MAX
+//     rows, which sort last, and only its real rows are written.
+//   jf_block_merge runs only the plain steps at distances T/2, ..., 1 on
+//     each tile, comparing the key and carrying the payload (row 8's
+//     rule): it sorts a tile that is a bitonic sequence, as the pair sort
+//     of kernels/sort.py leaves each tile after its cross-tile steps. M is
+//     whole tiles.
 //   jf_exchange runs one step over the whole array in device memory, one
 //     thread a pair of rows: a plain step at distance d (row i meets
 //     i + d inside each 2d-row block), a flip (row j of each 2d-row
@@ -31,15 +33,40 @@
 //     `transpose` reads the input through the transpose of each 128 x 128
 //     block of positions, an index map rather than a data pass.
 //
-// Bound on this card. jf_block_sort reads and writes each row of device
-// memory once, and does its log_t (log_t + 1) / 2 steps in shared memory:
-// it is bound by shared-memory traffic and compares, not by device memory.
-// Two blocks of at most 96 KiB fit on an SM, so one block's steps overlap
-// another's loads. jf_exchange is bound by bytes: each step reads and
-// writes every row once, which is why block_sort keeps its steps in
-// shared memory. The counting store merges sorted tiles with K1 passes;
-// the pair sort of kernels/sort.py (the Bloom insert) runs only its
-// cross-tile steps here and sorts each tile again with jf_block_sort.
+// The tile entries (one kernel, tile_kernel). A block takes B = max(T,
+// 32 E) rows (several tiles when T is small); each thread holds E rows
+// in registers (E = 16 in the sort of rows of up to four columns, 8 in
+// their merge, else 4). Every step
+// pairs row i with row i ^ 2^b, so the sort's phases run the bitonic
+// network with alternating directions (phase 2^k descending in the
+// blocks whose bit k is set) instead of the mirrored step. A layout
+// decides which rows a thread holds: in layout j, a thread's E registers
+// hold E rows 2^j apart, so the steps at distances 2^j, ..., 2^(j +
+// log E - 1) pair registers of one thread and run with no traffic and no
+// barrier. Between groups of log E distances the registers move to the
+// next layout through shared memory (write, a barrier, read): at the
+// insert's shape (T = 4096, two columns) the full sort's 78 steps need
+// 20 such moves (E = 16), where a design with every step in shared
+// memory makes 78 passes, and the merge's 12 steps need 3 (E = 8).
+// Shared memory holds the block's rows row-major, row r at
+// r ^ ((r >> log E) & 15), so that the rows a warp touches in one access,
+// in every layout, fall on distinct banks (a row of two columns moves as
+// one 16-byte access). The device is read and written once, through
+// shared memory, coalesced.
+//
+// Bound on this card. The tile entries read and write each row of device
+// memory once (the bytes bound), but the full sort is bound by its
+// instructions: at T = 4096 each row meets another 78 times, and each
+// meeting is a compare of two 64-bit columns and the selects of two rows
+// on 32-bit units. Hence the design: no pair is compared twice (as it is
+// when two threads trade rows by shuffles), compares carry no branches,
+// and the layout moves, which cost shared-memory traffic and barriers,
+// are few. The merge, with 12 steps, is closer to the bytes bound.
+// jf_exchange is bound by bytes: each step reads and writes every row
+// once, which is why the tile entries keep their steps on chip. The
+// counting store merges sorted tiles with K1 passes; the pair sort of
+// kernels/sort.py (the Bloom insert) runs its cross-tile steps here and
+// finishes each tile with jf_block_merge.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,14 +75,14 @@
 
 namespace {
 
-constexpr int kSortThreads = 512;
 constexpr int kStepThreads = 256;
 constexpr int64_t kPad = INT64_MAX;  // pad rows sort last
+constexpr int kTileBytes = 96 * 1024;  // kernels/bitonic.py SHARED_TILE_BYTES
 
 enum Mode { kExchange = 0, kFlip = 1, kMirror = 2 };
 
 // A row as the kernels hold it: [payload,] key column 0 .. WK - 1, so that
-// row_le over columns [kLo, kCols) compares the key first and the payload
+// row_lt over columns [kLo, kCols) compares the key first and the payload
 // (when CMP) last.
 template <int WK, bool PAY, bool CMP>
 struct Row {
@@ -64,79 +91,241 @@ struct Row {
   // b strictly before a
   __device__ static __forceinline__ bool before(const int64_t* b,
                                                 const int64_t* a) {
-    return !row_le<kCols - kLo>(a + kLo, b + kLo);
+    return row_lt<kCols - kLo>(b + kLo, a + kLo);
   }
 };
 
-// -- block sort in shared memory --------------------------------------------
+// -- tiles in registers -------------------------------------------------------
 
-template <class R>
-__device__ __forceinline__ void cmp_swap_shared(int64_t* s, int t, int a,
-                                                int b) {
-  int64_t ra[R::kCols], rb[R::kCols];
+constexpr int log2_floor(int x) { return x < 2 ? 0 : 1 + log2_floor(x / 2); }
+
+// The tile kernel's shape for rows of C int64 columns: E = 2^kLogE rows
+// a thread (16 in the sort of rows of up to four columns; in their merge,
+// whose 12 steps at T = 4096 run faster at twice the threads, 8).
+template <int C, bool MERGE>
+struct Shape {
+  static constexpr int kLogE = C <= 4 ? (MERGE ? 3 : 4) : 2;
+  static constexpr int kE = 1 << kLogE;
+  static constexpr int kLogWarp = kLogE + 5;    // rows a warp
+  // the largest tile: T rows of C columns in kTileBytes
+  static constexpr int kLogMaxT = log2_floor(kTileBytes / (8 * C));
+  static constexpr int kMaxThreads =
+      1 << ((kLogMaxT > kLogWarp ? kLogMaxT : kLogWarp) - kLogE);
+};
+
+// Where row r of a block sits in shared memory: r with bits LOGE to
+// LOGE + 3 folded into bits 0-3, so that the rows one access of a warp
+// touches in any layout fall on distinct banks (distinct r mod 16 for
+// 8-byte rows, r mod 8 for 16-byte rows).
+template <int LOGE>
+__device__ __forceinline__ int swizzled(int r) {
+  return r ^ ((r >> LOGE) & 15);
+}
+
+// Layout j: register e of thread t holds row t's bits below j, then e's
+// LOGE bits at j, then t's other bits: steps at distances 2^j ..
+// 2^(j + LOGE - 1) pair registers of one thread.
+template <int LOGE>
+__device__ __forceinline__ int layout_base(int j) {
+  const int t = threadIdx.x;
+  return ((t >> j) << (j + LOGE)) | (t & ((1 << j) - 1));
+}
+
+template <int C, int LOGE>
+__device__ __forceinline__ void put_row(int64_t* s, int r,
+                                        const int64_t* x) {
+  int64_t* p = s + swizzled<LOGE>(r) * C;
+  if constexpr (C % 2 == 0) {
 #pragma unroll
-  for (int c = 0; c < R::kCols; ++c) {
-    ra[c] = s[c * t + a];
-    rb[c] = s[c * t + b];
+    for (int h = 0; h < C / 2; ++h) {
+      reinterpret_cast<longlong2*>(p)[h] = make_longlong2(x[2 * h],
+                                                          x[2 * h + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) p[c] = x[c];
   }
-  if (R::before(rb, ra)) {
+}
+
+template <int C, int LOGE>
+__device__ __forceinline__ void get_row(int64_t* x, const int64_t* s,
+                                        int r) {
+  const int64_t* p = s + swizzled<LOGE>(r) * C;
+  if constexpr (C % 2 == 0) {
+#pragma unroll
+    for (int h = 0; h < C / 2; ++h) {
+      const longlong2 y = reinterpret_cast<const longlong2*>(p)[h];
+      x[2 * h] = y.x;
+      x[2 * h + 1] = y.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) x[c] = p[c];
+  }
+}
+
+// Registers from layout `from` to layout `to`, through shared memory.
+template <int C, int E, int LOGE>
+__device__ __forceinline__ void relayout(int64_t (&v)[E][C], int64_t* s,
+                                         int from, int to) {
+  __syncthreads();  // every thread has read the rows it last fetched
+  int base = layout_base<LOGE>(from);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    put_row<C, LOGE>(s, base | (e << from), v[e]);
+  }
+  __syncthreads();
+  base = layout_base<LOGE>(to);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    get_row<C, LOGE>(v[e], s, base | (e << to));
+  }
+}
+
+// Rows a (the lower position) and b meet: ascending, the smaller goes to
+// a; descending (desc), the larger. Rows that compare equal are equal in
+// every column compared, so swapping them or not is the same.
+template <class R>
+__device__ __forceinline__ void cmp_swap(int64_t* a, int64_t* b, bool desc) {
+  if (R::before(b, a) != desc) {
 #pragma unroll
     for (int c = 0; c < R::kCols; ++c) {
-      s[c * t + a] = rb[c];
-      s[c * t + b] = ra[c];
+      const int64_t x = a[c];
+      a[c] = b[c];
+      b[c] = x;
     }
   }
 }
 
-// one plain step at distance 2^ld over the tile
-template <class R>
-__device__ __forceinline__ void step_shared(int64_t* s, int t, int ld) {
-  for (int p = threadIdx.x; p < (t >> 1); p += kSortThreads) {
-    const int a = ((p >> ld) << (ld + 1)) | (p & ((1 << ld) - 1));
-    cmp_swap_shared<R>(s, t, a, a + (1 << ld));
+// In layout j, the steps at distances 2^top, ..., 2^j (top - j < LOGE):
+// registers e and e + 2^i meet. dir >= 0: a step of the sort's phase that
+// builds sorted runs of 2^dir rows, descending where the row's bit dir is
+// set; else ascending.
+template <class R, int E, int LOGE>
+__device__ __forceinline__ void register_steps(int64_t (&v)[E][R::kCols],
+                                               int j, int top, int dir) {
+  // bit e of `down`: register e's row descends (its bit dir is set)
+  int down = 0;
+  if (dir >= 0) {
+    const int base = layout_base<LOGE>(j);
+    if (dir >= j + LOGE) {
+      down = ((base >> dir) & 1) ? (1 << E) - 1 : 0;
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) down |= ((e >> (dir - j)) & 1) << e;
+    }
   }
-  __syncthreads();
+#pragma unroll
+  for (int i = LOGE - 1; i >= 0; --i) {
+    if (i <= top - j) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (!(e & (1 << i))) {
+          cmp_swap<R>(v[e], v[e | (1 << i)], (down >> e) & 1);
+        }
+      }
+    }
+  }
 }
 
-template <int WK, bool PAY>
-__global__ void __launch_bounds__(kSortThreads)
-block_sort_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok,
-                  int64_t* op, int64_t m, int log_t) {
-  using R = Row<WK, PAY, true>;
-  extern __shared__ int64_t s[];  // [R::kCols][t]
-  const int t = 1 << log_t;
-  const int64_t base = (int64_t)blockIdx.x << log_t;
-  const int n = (int)(m - base < t ? m - base : t);
+// The steps at distances 2^top, 2^(top - 1), ... of one group (at most
+// LOGE of them, down to 2^to) in layout `to`, the registers moved there
+// from layout j first; j becomes `to` and top the group's next distance.
+template <class R, int E, int LOGE>
+__device__ __forceinline__ void step_group(int64_t (&v)[E][R::kCols],
+                                           int64_t* s, int& j, int& top,
+                                           int dir) {
+  const int to = top >= LOGE ? top - LOGE + 1 : 0;
+  if (to != j) {
+    relayout<R::kCols, E, LOGE>(v, s, j, to);
+    j = to;
+  }
+  register_steps<R, E, LOGE>(v, j, top, dir);
+  top = j - 1;
+}
 
-  for (int e = threadIdx.x; e < t * WK; e += kSortThreads) {
-    const int r = e / WK;
-    s[(e - r * WK + PAY) * t + r] = r < n ? ik[base * WK + e] : kPad;
+// Plain steps at distances 2^top, ..., 1, a group at a time; j is the
+// layout the registers are in, and is left at the last one (0).
+template <class R, int E, int LOGE>
+__device__ __forceinline__ void steps_down(int64_t (&v)[E][R::kCols],
+                                           int64_t* s, int& j, int top,
+                                           int dir) {
+  while (top >= 0) step_group<R, E, LOGE>(v, s, j, top, dir);
+}
+
+// MERGE: jf_block_merge (plain ascending steps at distances T/2, ..., 1,
+// the key compared, the payload carried); else jf_block_sort (the
+// bitonic sort of each tile, phase 2^lk's steps descending in the
+// 2^lk-row blocks whose bit lk is set, the last phase ascending; the
+// payload compared after the key). One block a run of 2^log_b rows,
+// 2^(log_b - LOGE) threads. LT >= 0: the merge at tiles of 2^LT rows, its
+// steps unrolled at compile time (log_t is LT).
+template <int WK, bool PAY, bool MERGE, int LT>
+__global__ void __launch_bounds__((Shape<WK + PAY, MERGE>::kMaxThreads), 1)
+tile_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok, int64_t* op,
+            int64_t m, int log_t_arg, int log_b) {
+  const int log_t = LT >= 0 ? LT : log_t_arg;
+  using R = Row<WK, PAY, !MERGE>;
+  using S = Shape<WK + PAY, MERGE>;
+  constexpr int C = R::kCols, E = S::kE, LOGE = S::kLogE;
+  extern __shared__ __align__(16) int64_t s[];  // the block's rows
+  const int rows = 1 << log_b;
+  const int threads = rows >> LOGE;
+  const int64_t base = (int64_t)blockIdx.x << log_b;
+  const int n = (int)(m - base < rows ? m - base : rows);
+
+  // device memory -> shared memory, coalesced; rows from n on are pad
+  // rows
+  for (int g = threadIdx.x; g < rows * WK; g += threads) {
+    const int r = g / WK;
+    s[swizzled<LOGE>(r) * C + PAY + (g - r * WK)] =
+        r < n ? ik[base * WK + g] : kPad;
   }
   if constexpr (PAY) {
-    for (int r = threadIdx.x; r < t; r += kSortThreads) {
-      s[r] = r < n ? ip[base + r] : kPad;
+    for (int r = threadIdx.x; r < rows; r += threads) {
+      s[swizzled<LOGE>(r) * C] = r < n ? ip[base + r] : kPad;
     }
+  }
+  // the layout of the first steps: the merge's first group of distances,
+  // the sort's first phase (distance 1)
+  int j = MERGE && log_t > LOGE ? log_t - LOGE : 0;
+  __syncthreads();
+  int64_t v[E][C];
+  {
+    const int b = layout_base<LOGE>(j);
+#pragma unroll
+    for (int e = 0; e < E; ++e) get_row<C, LOGE>(v[e], s, b | (e << j));
+  }
+
+  if constexpr (MERGE && LT >= 0) {
+    int top = LT - 1;
+#pragma unroll
+    for (int g = 0; g < (LT + LOGE - 1) / LOGE; ++g) {
+      step_group<R, E, LOGE>(v, s, j, top, -1);
+    }
+  } else if constexpr (MERGE) {
+    steps_down<R, E, LOGE>(v, s, j, log_t - 1, -1);
+  } else {
+    for (int lk = 1; lk <= log_t; ++lk) {
+      steps_down<R, E, LOGE>(v, s, j, lk - 1, lk < log_t ? lk : -1);
+    }
+  }
+
+  __syncthreads();
+  {
+    const int b = layout_base<LOGE>(j);
+#pragma unroll
+    for (int e = 0; e < E; ++e) put_row<C, LOGE>(s, b | (e << j), v[e]);
   }
   __syncthreads();
-
-  for (int lk = 1; lk <= log_t; ++lk) {
-    // mirrored step: row j of each 2^lk block meets row 2^lk - 1 - j
-    const int lh = lk - 1;
-    for (int p = threadIdx.x; p < (t >> 1); p += kSortThreads) {
-      const int blk = (p >> lh) << lk;
-      const int j = p & ((1 << lh) - 1);
-      cmp_swap_shared<R>(s, t, blk + j, blk + (1 << lk) - 1 - j);
-    }
-    __syncthreads();
-    for (int ld = lk - 2; ld >= 0; --ld) step_shared<R>(s, t, ld);
-  }
-
-  for (int e = threadIdx.x; e < n * WK; e += kSortThreads) {
-    const int r = e / WK;
-    ok[base * WK + e] = s[(e - r * WK + PAY) * t + r];
+  for (int g = threadIdx.x; g < n * WK; g += threads) {
+    const int r = g / WK;
+    ok[base * WK + g] = s[swizzled<LOGE>(r) * C + PAY + (g - r * WK)];
   }
   if constexpr (PAY) {
-    for (int r = threadIdx.x; r < n; r += kSortThreads) op[base + r] = s[r];
+    for (int r = threadIdx.x; r < n; r += threads) {
+      op[base + r] = s[swizzled<LOGE>(r) * C];
+    }
   }
 }
 
@@ -192,30 +381,38 @@ exchange_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok,
 
 // -- launchers ----------------------------------------------------------------
 
-template <int WK, bool PAY>
-int launch_sort(const void* keys, const void* pay, void* out_keys,
-                void* out_pay, int64_t m, int log_t, cudaStream_t s) {
-  const size_t bytes = ((size_t)WK + PAY) * sizeof(int64_t) << log_t;
+template <int WK, bool PAY, bool MERGE>
+int launch_tiles(const void* keys, const void* pay, void* out_keys,
+                 void* out_pay, int64_t m, int log_t, cudaStream_t s) {
+  using S = Shape<WK + PAY, MERGE>;
+  if (log_t > S::kLogMaxT) return (int)cudaErrorInvalidValue;
+  if (MERGE && (m & ((1 << log_t) - 1))) return (int)cudaErrorInvalidValue;
+  const int log_b = log_t > S::kLogWarp ? log_t : S::kLogWarp;
+  const size_t bytes = (((size_t)WK + PAY) << log_b) * sizeof(int64_t);
+  // the merge at the largest tile (the pair sort's) has its own instance
+  auto kernel = MERGE && log_t == S::kLogMaxT
+                    ? tile_kernel<WK, PAY, MERGE, MERGE ? S::kLogMaxT : -1>
+                    : tile_kernel<WK, PAY, MERGE, -1>;
   cudaError_t e = cudaFuncSetAttribute(
-      block_sort_kernel<WK, PAY>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  const int64_t tiles = (m + ((int64_t)1 << log_t) - 1) >> log_t;
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  if (tiles > 0) {
-    block_sort_kernel<WK, PAY><<<(unsigned)tiles, kSortThreads, bytes, s>>>(
+  const int64_t blocks = (m + ((int64_t)1 << log_b) - 1) >> log_b;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (blocks > 0) {
+    kernel<<<(unsigned)blocks, 1u << (log_b - S::kLogE), bytes, s>>>(
         (const int64_t*)keys, (const int64_t*)pay, (int64_t*)out_keys,
-        (int64_t*)out_pay, m, log_t);
+        (int64_t*)out_pay, m, log_t, log_b);
   }
   return (int)cudaGetLastError();
 }
 
-template <int WK>
-int sort_wk(const void* keys, const void* pay, void* out_keys, void* out_pay,
-            int64_t m, int log_t, cudaStream_t s) {
-  return pay ? launch_sort<WK, true>(keys, pay, out_keys, out_pay, m, log_t, s)
-             : launch_sort<WK, false>(keys, pay, out_keys, out_pay, m, log_t,
-                                      s);
+template <int WK, bool MERGE>
+int tiles_wk(const void* keys, const void* pay, void* out_keys,
+             void* out_pay, int64_t m, int log_t, cudaStream_t s) {
+  return pay ? launch_tiles<WK, true, MERGE>(keys, pay, out_keys, out_pay, m,
+                                             log_t, s)
+             : launch_tiles<WK, false, MERGE>(keys, pay, out_keys, out_pay,
+                                              m, log_t, s);
 }
 
 template <int WK, bool PAY>
@@ -241,20 +438,26 @@ int step_wk(const void* keys, const void* pay, void* out_keys, void* out_pay,
                                       mode, transpose, s);
 }
 
-using SortFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
+using TileFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
                        cudaStream_t);
 using StepFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
                        int, int, cudaStream_t);
-constexpr SortFn kSort[] = {nullptr,    sort_wk<1>, sort_wk<2>, sort_wk<3>,
-                            sort_wk<4>, sort_wk<5>, sort_wk<6>, sort_wk<7>};
+constexpr TileFn kSort[] = {
+    nullptr,           tiles_wk<1, false>, tiles_wk<2, false>,
+    tiles_wk<3, false>, tiles_wk<4, false>, tiles_wk<5, false>,
+    tiles_wk<6, false>, tiles_wk<7, false>};
+constexpr TileFn kMerge[] = {
+    nullptr,          tiles_wk<1, true>, tiles_wk<2, true>,
+    tiles_wk<3, true>, tiles_wk<4, true>, tiles_wk<5, true>,
+    tiles_wk<6, true>, tiles_wk<7, true>};
 constexpr StepFn kStep[] = {nullptr,    step_wk<1>, step_wk<2>, step_wk<3>,
                             step_wk<4>, step_wk<5>, step_wk<6>, step_wk<7>};
 
 }  // namespace
 
 // Sort each tile of 2^log_t rows; the tile, (wk + payload) * 8 bytes a
-// row, must fit in an SM's shared memory. pay and out_pay NULL: keys only;
-// a payload is compared after the key.
+// row, must fit in 96 KiB. pay and out_pay NULL: keys only; a payload is
+// compared after the key.
 extern "C" int jf_block_sort(const void* keys, const void* pay,
                              void* out_keys, void* out_pay, int64_t m, int wk,
                              int log_t, void* stream) {
@@ -263,6 +466,19 @@ extern "C" int jf_block_sort(const void* keys, const void* pay,
   }
   return kSort[wk](keys, pay, out_keys, out_pay, m, log_t,
                    (cudaStream_t)stream);
+}
+
+// The plain steps at distances 2^(log_t - 1), ..., 1 on each tile of
+// 2^log_t rows (m a multiple of it; the tile as for jf_block_sort); the
+// key is compared and a payload carried.
+extern "C" int jf_block_merge(const void* keys, const void* pay,
+                              void* out_keys, void* out_pay, int64_t m,
+                              int wk, int log_t, void* stream) {
+  if (wk < 1 || wk > 7 || log_t < 0 || log_t > 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return kMerge[wk](keys, pay, out_keys, out_pay, m, log_t,
+                    (cudaStream_t)stream);
 }
 
 // One step at distance 2^log_d over m rows (m a multiple of 2^(log_d + 1)).

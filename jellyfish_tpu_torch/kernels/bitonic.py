@@ -1,25 +1,26 @@
 """K3: the bitonic sorting network on tiles of key rows.
 
-`block_sort`, `exchange_stages` and `flip` launch csrc/bitonic.cu on CUDA
-tensors and run their plain versions (`block_sort_plain`,
-`exchange_stages_plain`, `flip_plain`) on CPU tensors; any other device
-raises. Keys are store key columns [M, Wk] int64 (ops/multiword.py),
-compared from the last column; a payload is an optional int64 [M] column
-that travels with its row.
+`block_sort`, `block_merge`, `exchange_stages` and `flip` launch
+csrc/bitonic.cu on CUDA tensors and run their plain versions
+(`block_sort_plain`, `block_merge_plain`, `exchange_stages_plain`,
+`flip_plain`) on CPU tensors; any other device raises. Keys are store key
+columns [M, Wk] int64 (ops/multiword.py), compared from the last column; a
+payload is an optional int64 [M] column that travels with its row.
 
 They port the Pallas bitonic kernels of experiments/ (PERF.md, kernel table
 rows 6, 7, 8, 11 and 12). A Pallas u32 tile [R, 128] is a run of key rows
 here in row-major order: tile row r, lane c is position 128 r + c, so a
 step between tile rows r and r + m is a step at distance 128 m.
 
-`block_sort.launches`, `exchange_stages.launches` and `flip.launches`
-count the calls that launched each entry point on the card: a
-`block_sort` call is one kernel launch, an `exchange_stages` call one a
-step; `exchange_stages.mirror_launches` counts the calls whose first step
-is mirrored. The counting path runs `block_sort` only; the pair sort of
-kernels/sort.py (the Bloom insert, BitsArray) runs `block_sort` and
-`exchange_stages` with a mirrored first step (rows 8 and 12). `flip` and
-the transposes (row 11) lie on no path.
+`block_sort.launches`, `block_merge.launches`, `exchange_stages.launches`
+and `flip.launches` count the calls that launched each entry point on the
+card: a `block_sort` or `block_merge` call is one kernel launch, an
+`exchange_stages` call one a step; `exchange_stages.mirror_launches` counts
+the calls whose first step is mirrored. The counting path runs
+`block_sort` only; the pair sort of kernels/sort.py (the Bloom insert,
+BitsArray) runs `block_sort` once, then `exchange_stages` with a mirrored
+first step (rows 8 and 12) and `block_merge` (row 8's in-tile steps). `flip`
+and the transposes (row 11) lie on no path.
 """
 
 from __future__ import annotations
@@ -34,11 +35,12 @@ from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.count import row_order
 
 __all__ = [
-    "block_sort", "block_sort_plain", "exchange_stages",
-    "exchange_stages_plain", "flip", "flip_plain", "tile_rows",
+    "block_merge", "block_merge_plain", "block_sort", "block_sort_plain",
+    "exchange_stages", "exchange_stages_plain", "flip", "flip_plain",
+    "tile_rows",
 ]
 
-SHARED_TILE_BYTES = 96 * 1024  # two sorting blocks fit in an SM's 228 KB
+SHARED_TILE_BYTES = 96 * 1024  # a tile's rows; csrc/bitonic.cu kTileBytes
 PAD = (1 << 63) - 1            # INT64_MAX: pad rows sort last
 _SQUARE = 128                  # side of the transposed square blocks
 
@@ -47,13 +49,14 @@ _EXCHANGE, _FLIP, _MIRROR = range(3)  # jf_exchange modes
 _P, _N, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "jf_block_sort": (_I, [_P, _P, _P, _P, _N, _I, _I, _P]),
+    "jf_block_merge": (_I, [_P, _P, _P, _P, _N, _I, _I, _P]),
     "jf_exchange": (_I, [_P, _P, _P, _P, _N, _I, _I, _I, _I, _P]),
 }
 
 
 def tile_rows(wk: int, payload: bool) -> int:
-    """The block sort's tile: the largest power of two T with T rows of
-    (wk + payload) int64 columns in SHARED_TILE_BYTES."""
+    """The tile entries' largest tile: the largest power of two T with T
+    rows of (wk + payload) int64 columns in SHARED_TILE_BYTES."""
     cols = wk + int(payload)
     return 1 << ((SHARED_TILE_BYTES // (8 * cols)).bit_length() - 1)
 
@@ -98,6 +101,14 @@ def block_sort_plain(keys, payload=None, tile=None):
     if p is not None:
         p = torch.gather(p, 1, order).reshape(-1)[:m]
     return k, p
+
+
+def block_merge_plain(keys, payload, tile):
+    """The plain steps at distances tile/2, ..., 1 on each tile, the key
+    compared and the payload carried: exchange_stages_plain's rule. It
+    sorts the keys of a tile that is a bitonic sequence."""
+    return exchange_stages_plain(
+        keys, payload, [tile >> i for i in range(1, tile.bit_length())])
 
 
 def _transposed_plain(x):
@@ -159,12 +170,13 @@ class _Launcher:
         with torch.cuda.device(dev):
             self.stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def sort(self, src, dst, m, wk, log_t):
+    def tiles(self, entry, src, dst, m, wk, log_t):
+        """jf_block_sort or jf_block_merge on tiles of 2^log_t rows."""
         with torch.cuda.device(self.dev):
-            rc = self.lib.jf_block_sort(
+            rc = getattr(self.lib, f"jf_{entry}")(
                 _ptr(src[0]), _ptr(src[1]), _ptr(dst[0]), _ptr(dst[1]), m,
                 wk, log_t, self.stream)
-        _build.check(rc, "bitonic block_sort")
+        _build.check(rc, f"bitonic {entry}")
 
     def steps(self, src, dst, m, wk, steps, transpose=False):
         """(log_d, mode) steps: the first reads `src` (through the
@@ -183,29 +195,57 @@ def _empty_like(keys, payload):
             None if payload is None else torch.empty_like(payload))
 
 
-def block_sort(keys, payload=None, tile=None):
-    """Sort each tile of `tile` rows (a power of two, at most and by
-    default tile_rows(Wk, payload): one tile in shared memory), comparing
-    the key first and then the payload, so that a row-index payload gives
-    a stable order. Returns (keys, payload or None). Longer runs are
-    kernels/sort.sort_rows_blocked's work."""
+def _tile_log(what, keys, payload, tile):
+    """log2 of a tile entry's tile (default and at most tile_rows(Wk,
+    payload): one tile on chip)."""
     _check(keys, payload)
-    m, wk = keys.shape
-    cap = tile_rows(wk, payload is not None)
+    cap = tile_rows(keys.shape[1], payload is not None)
     tile = tile or cap
     log_t = _log2(tile, "tile")
     if tile > cap:
-        raise ValueError(f"block_sort: a tile of {tile} rows exceeds shared "
+        raise ValueError(f"{what}: a tile of {tile} rows exceeds shared "
                          f"memory ({cap} rows)")
+    return log_t
+
+
+def block_sort(keys, payload=None, tile=None):
+    """Sort each tile of `tile` rows (a power of two, at most and by
+    default tile_rows(Wk, payload)), comparing the key first and then the
+    payload, so that a row-index payload gives a stable order. Returns
+    (keys, payload or None). Longer runs are
+    kernels/sort.sort_rows_blocked's work."""
+    log_t = _tile_log("block_sort", keys, payload, tile)
     if keys.device.type == "cpu":
-        return block_sort_plain(keys, payload, tile)
+        return block_sort_plain(keys, payload, 1 << log_t)
     out = _empty_like(keys, payload)
-    _Launcher(keys.device).sort((keys, payload), out, m, wk, log_t)
+    _Launcher(keys.device).tiles("block_sort", (keys, payload), out,
+                                 *keys.shape, log_t)
     block_sort.launches += 1
     return out
 
 
 block_sort.launches = 0
+
+
+def block_merge(keys, payload, tile):
+    """block_merge_plain on the card: the plain steps at distances
+    tile/2, ..., 1 on each tile of `tile` rows (a power of two, at most
+    tile_rows(Wk, payload); M whole tiles), the key compared and the
+    payload (or None) carried. Returns (keys, payload or None)."""
+    log_t = _tile_log("block_merge", keys, payload, tile)
+    if keys.shape[0] % (1 << log_t):
+        raise ValueError(f"block_merge: {keys.shape[0]} rows are not whole "
+                         f"tiles of {1 << log_t}")
+    if keys.device.type == "cpu":
+        return block_merge_plain(keys, payload, 1 << log_t)
+    out = _empty_like(keys, payload)
+    _Launcher(keys.device).tiles("block_merge", (keys, payload), out,
+                                 *keys.shape, log_t)
+    block_merge.launches += 1
+    return out
+
+
+block_merge.launches = 0
 
 
 def exchange_stages(keys, payload=None, distances=(), transposes=0,

@@ -9,9 +9,10 @@ same pass loop.
 `sort_pairs_bitonic`: K3 only, key rows with a carried payload. The
 counterpart of `lax.sort([pos, wb], num_keys=1)` in jellyfish_tpu/bloom.py
 (the Bloom-counter insert) and of the (id, seq) sort with the values
-carried in jellyfish_tpu/ops/bitsarray.py. Its cross-tile steps are
-kernel-table row 8 (compare the key, carry the payload) with row 12's
-flip fused into the first step of each phase.
+carried in jellyfish_tpu/ops/bitsarray.py. One block sort (row 6), then
+per doubling the cross-tile steps (kernel-table row 8: compare the key,
+carry the payload, with row 12's flip fused into the first step) and the
+in-tile steps by block_merge (row 8's rule on chip).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch
 
 from jellyfish_tpu_torch.kernels.bitonic import (
     PAD,
+    block_merge,
+    block_merge_plain,
     block_sort,
     block_sort_plain,
     exchange_stages,
@@ -51,7 +54,7 @@ def sort_rows_blocked(keys, payload=None, tile=None):
     return keys, payload
 
 
-def _sort_pairs(keys, payload, tile, sort, steps):
+def _sort_pairs(keys, payload, tile, sort, steps, merge):
     m, wk = keys.shape
     tile = tile or tile_rows(wk, True)
     size = max(tile, 1 << max(m - 1, 0).bit_length())
@@ -65,12 +68,12 @@ def _sort_pairs(keys, payload, tile, sort, steps):
         # the mirrored step at distance run places the two sorted runs of
         # each 2 run block against each other; plain steps down to one
         # tile leave each tile a bitonic sequence among its neighbours,
-        # which a tile sort finishes
+        # which the in-tile steps at tile/2, ..., 1 finish
         dist = [run]
         while dist[-1] > tile:
             dist.append(dist[-1] // 2)
         keys, payload = steps(keys, payload, dist, mirror=True)
-        keys, payload = sort(keys, payload, tile)
+        keys, payload = merge(keys, payload, tile)
         run *= 2
     return keys[:m], payload[:m]
 
@@ -81,20 +84,22 @@ def sort_pairs_bitonic(keys, payload, tile=None):
 
     M is padded with PAD rows of payload 0 to a power of two of at least
     one tile (`tile`, default tile_rows(Wk, True): 4096 rows at Wk 1).
-    block_sort sorts each tile; then for each run length L = tile, 2 tile,
-    ..., one exchange_stages call (the mirrored step at L, plain steps at
-    L/2, ..., tile) and a block_sort of every tile double the sorted runs.
-    The padding is cut off. Keys must sort below the PAD row (INT64_MAX in
-    every column). Equal keys come out in no particular order (block_sort
-    compares the payload after the key, the exchange steps do not), like
-    `lax.sort(..., is_stable=False)`: every consumer folds over equal
-    keys. On CPU tensors the wrappers run their plain versions, so this
-    is sort_pairs_plain."""
-    return _sort_pairs(keys, payload, tile, block_sort, exchange_stages)
+    block_sort (row 6) sorts each tile; then for each run length L = tile,
+    2 tile, ..., one exchange_stages call (row 8's steps: the mirrored
+    step at L, plain steps at L/2, ..., tile) and one block_merge (the
+    plain steps at tile/2, ..., 1 inside each tile) double the sorted
+    runs. The padding is cut off. Keys must sort below the PAD row
+    (INT64_MAX in every column). Equal keys come out in no particular
+    order (block_sort compares the payload after the key, the exchange
+    and merge steps do not), like `lax.sort(..., is_stable=False)`: every
+    consumer folds over equal keys. On CPU tensors the wrappers run their
+    plain versions, so this is sort_pairs_plain."""
+    return _sort_pairs(keys, payload, tile, block_sort, exchange_stages,
+                       block_merge)
 
 
 def sort_pairs_plain(keys, payload, tile=None):
     """sort_pairs_bitonic's loop on the plain versions of the kernels, on
     any device: the reference the card's route is held against."""
     return _sort_pairs(keys, payload, tile, block_sort_plain,
-                       exchange_stages_plain)
+                       exchange_stages_plain, block_merge_plain)

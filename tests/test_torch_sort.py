@@ -22,6 +22,8 @@ from jax.experimental import pallas as pl
 
 from jellyfish_tpu_torch.kernels import sort as ksort
 from jellyfish_tpu_torch.kernels.bitonic import (
+    block_merge,
+    block_merge_plain,
     block_sort,
     block_sort_plain,
     exchange_stages,
@@ -277,6 +279,8 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         flip(k, 48)
     with pytest.raises(ValueError):
+        block_merge(k, None, tile=1 << 14)           # above shared memory
+    with pytest.raises(ValueError):
         merge_pass(k.t(), 4)
     with pytest.raises(ValueError):
         merge_pass(k, 0)
@@ -341,11 +345,14 @@ def test_pair_sort_matches_plain_sort(wk, m):
 def test_pair_sort_phases(monkeypatch):
     """The route's calls: one block_sort, then per doubling one
     exchange_stages call (the mirrored step at the run length, plain steps
-    down to one tile) and one block_sort."""
+    down to one tile) and one block_merge (the steps inside each tile)."""
     calls = []
     monkeypatch.setattr(ksort, "block_sort",
                         lambda k, p, t: calls.append(("sort", t))
                         or block_sort(k, p, t))
+    monkeypatch.setattr(ksort, "block_merge",
+                        lambda k, p, t: calls.append(("merge", t))
+                        or block_merge(k, p, t))
     monkeypatch.setattr(ksort, "exchange_stages",
                         lambda k, p, d, mirror: calls.append(
                             ("steps", tuple(d), mirror))
@@ -356,6 +363,117 @@ def test_pair_sort_phases(monkeypatch):
                                       tile=128)
     assert torch.equal(got[:, 0], torch.arange(1, 1001))
     assert calls == [("sort", 128),
-                     ("steps", (128,), True), ("sort", 128),
-                     ("steps", (256, 128), True), ("sort", 128),
-                     ("steps", (512, 256, 128), True), ("sort", 128)]
+                     ("steps", (128,), True), ("merge", 128),
+                     ("steps", (256, 128), True), ("merge", 128),
+                     ("steps", (512, 256, 128), True), ("merge", 128)]
+
+
+# -- block_merge: the in-tile steps of the pair sort (row 8's rule) -------
+
+
+def _pairs(rng, m, wk, payload):
+    keys = _rows(rng, m, wk)
+    pay = torch.from_numpy(rng.integers(0, 1 << 40, m)) if payload else None
+    return keys, pay
+
+
+@pytest.mark.parametrize("payload", [True, False])
+@pytest.mark.parametrize("wk", [1, 2, 7])
+def test_block_merge_plain_is_the_in_tile_steps(wk, payload):
+    """block_merge_plain is exchange_stages_plain at distances tile/2,
+    ..., 1 (the key compared, the payload carried), on any rows; a tile of
+    one row is left as it is."""
+    rng = np.random.default_rng(7000 + wk + payload)
+    keys, pay = _pairs(rng, 1 << 12, wk, payload)
+    for tile in (2, 64, 1024):
+        dist = []
+        d = tile // 2
+        while d:
+            dist.append(d)
+            d //= 2
+        got = block_merge_plain(keys, pay, tile)
+        want = exchange_stages_plain(keys, pay, dist)
+        assert torch.equal(got[0], want[0])
+        assert (got[1] is None) == (not payload)
+        assert not payload or torch.equal(got[1], want[1])
+    got = block_merge_plain(keys, pay, 1)
+    assert torch.equal(got[0], keys)
+
+
+@pytest.mark.parametrize("payload", [True, False])
+@pytest.mark.parametrize("wk", [1, 2, 7])
+def test_block_merge_plain_sorts_bitonic_tiles(wk, payload):
+    """Tiles left bitonic by a mirrored step (two sorted halves of each
+    2T block met by the mirrored step at T) come out with their keys
+    sorted, each tile in order among its neighbours, and the (key,
+    payload) rows kept."""
+    rng = np.random.default_rng(7100 + wk + payload)
+    tile = 256
+    keys, pay = _pairs(rng, 8 * tile, wk, payload)
+    if pay is None:
+        pay = torch.zeros(keys.shape[0], dtype=torch.int64)
+    k, p = block_sort_plain(keys, pay, tile)           # sorted tiles
+    k, p = exchange_stages_plain(k, p, [tile], mirror=True)
+    got, gp = block_merge_plain(k, p if payload else None, tile)
+    want = torch.cat([sort_rows_plain(k[s:s + 2 * tile])[0]
+                      for s in range(0, k.shape[0], 2 * tile)])
+    assert torch.equal(got, want)
+    if payload:
+        def rows(a, b):
+            return sorted(zip(map(tuple, a.tolist()), b.tolist()))
+        assert rows(got, gp) == rows(k, p)
+
+
+def test_block_merge_on_cpu_tensors_is_the_plain_version():
+    rng = np.random.default_rng(7200)
+    keys, pay = _pairs(rng, 1 << 13, 2, True)
+    for tile in (16, 512, tile_rows(2, True)):
+        a = block_merge(keys, pay, tile)
+        b = block_merge_plain(keys, pay, tile)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        a = block_merge(keys, None, tile)
+        assert a[1] is None and torch.equal(a[0], b[0])
+    assert block_merge.launches == 0
+
+
+def test_block_merge_rejects_bad_inputs():
+    k = torch.zeros((64, 2), dtype=torch.int64)
+    p = torch.zeros(64, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        block_merge(k, p, 24)                         # not a power of two
+    with pytest.raises(ValueError):
+        block_merge(k[:48].contiguous(), p[:48], 32)  # not whole tiles
+    with pytest.raises(ValueError):
+        block_merge(k.int(), p, 16)                   # keys not int64
+    with pytest.raises(ValueError):
+        block_merge(k, p.int(), 16)                   # payload not int64
+    with pytest.raises(ValueError):
+        block_merge(k, p[:63], 16)                    # payload of another M
+    assert block_merge.launches == 0
+
+
+@pytest.mark.parametrize("m", [1 << 13, 9999, 1])
+def test_pair_sort_matches_lax_sort(m):
+    """sort_pairs_bitonic on the Bloom insert's pairs (uint32 positions,
+    weights 0-2) against the JAX package's own call,
+    jax.lax.sort([pos, wb], num_keys=1, is_stable=False)
+    (jellyfish_tpu/bloom.py:137): the same positions in order and, per
+    position, the same sum of weights (equal keys may come out in another
+    order)."""
+    rng = np.random.default_rng(7300 + m)
+    pos = rng.integers(0, 1 << 32, m, dtype=np.uint64).astype(np.uint32)
+    pos[: m // 3] = pos[m // 3: 2 * (m // 3)]     # repeated positions
+    wb = rng.integers(0, 3, m).astype(np.uint32)
+    spos, sw = jax.lax.sort([jnp.asarray(pos), jnp.asarray(wb)], num_keys=1,
+                            is_stable=False)
+    spos, sw = np.asarray(spos).astype(np.int64), np.asarray(sw)
+    for tile in (16, 256, None):
+        got, gw = ksort.sort_pairs_bitonic(
+            torch.from_numpy(pos.astype(np.int64))[:, None].contiguous(),
+            torch.from_numpy(wb.astype(np.int64)), tile)
+        np.testing.assert_array_equal(got[:, 0].numpy(), spos)
+        starts = np.unique(spos, return_index=True)[1]
+        np.testing.assert_array_equal(
+            np.add.reduceat(gw.numpy(), starts),
+            np.add.reduceat(sw.astype(np.int64), starts))
+    assert block_merge.launches == block_sort.launches == 0
