@@ -5,7 +5,11 @@
 Builds the CUDA kernels from jellyfish_tpu_torch/csrc (K1 merge_path.cu,
 K2 compact.cu, K3 bitonic.cu, rows 9 and 10 window.cu) and holds each
 entry point against its plain PyTorch version at the shapes its path gives
-it and at the Pallas kernels' own shapes. Runs `count` end to end through
+it and at the Pallas kernels' own shapes; row 8's fused passes of up to
+four steps (jf_exchange_group) also at Wk 2 and 7 with a payload and Wk 4
+keys only, each timed against the same steps one pass each, and row 9's
+windows inside and across either end of a run at odd and even offsets.
+Kernel times are device times (cuda_ms). Runs `count` end to end through
 the CLI at k = 21, 33, 63 and 100 with every record checked against a
 numpy oracle; merges 4 parts of the k = 63 input in small windows (every
 slab rotated) and checks the result against the whole input's count, and
@@ -217,10 +221,20 @@ def write_fastq(path, n_bases, genome_len, seed):
 
 
 def cuda_ms(fn, reps=5):
+    """Device time of one call of fn, ms: the mean of `reps` calls
+    between two events. The stream is held by a spinning kernel while the
+    calls are enqueued, so that a call whose host side (Python, launches)
+    outlasts its device work is timed by its device work, not by the
+    host's pace: the events see the calls back to back."""
     fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()  # its enqueue, or more where it waits for the device
+    host_s = time.perf_counter() - t
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * reps * host_s + 1e-3)))  # <= 2 GHz
     a.record()
     for _ in range(reps):
         fn()
@@ -263,9 +277,11 @@ def _wrappers() -> dict:
 
 def kernel_counts() -> dict:
     """Launch counts of every kernel wrapper of the port, and of
-    exchange_stages' calls whose first step is mirrored."""
+    exchange_stages' kernel passes and its calls whose first step is
+    mirrored."""
     w = _wrappers()
     counts = {name: fn.launches for name, fn in w.items()}
+    counts["exchange_stages.passes"] = w["exchange_stages"].passes
     counts["exchange_stages.mirror"] = w["exchange_stages"].mirror_launches
     return counts
 
@@ -273,6 +289,7 @@ def kernel_counts() -> dict:
 def reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["exchange_stages"].passes = 0
     _wrappers()["exchange_stages"].mirror_launches = 0
 
 
@@ -435,19 +452,22 @@ def _outs(x):
                  if t is not None)
 
 
-def hold(label, fn, plain, nbytes=None, library=None):
+def hold(label, fn, plain, nbytes=None, library=None, reps=5):
     """Run a kernel entry point and its plain version on the same inputs,
     fail unless they agree exactly; with nbytes, also time both (and the
-    library call) and return the kernel table's numbers."""
+    library call), `reps` calls each, and return the kernel table's
+    numbers."""
     err = max_abs_err(_outs(fn()), _outs(plain()))
     log(f"{label}: max_abs_err {err}")
     if err:
         raise AssertionError(f"{label} disagrees with its plain version")
     if nbytes is None:
         return None
-    row = dict(max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+    row = dict(max_abs_err=err, ms=cuda_ms(fn, reps),
+               plain_ms=cuda_ms(plain, reps),
                bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
-               library_ms=None if library is None else cuda_ms(library),
+               library_ms=None if library is None else cuda_ms(library,
+                                                               reps),
                shape=label)
     log(f"  {label}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f}, "
         f"plain {row['plain_ms']:.4f}, library {row['library_ms']}")
@@ -716,13 +736,134 @@ def phase_k3(dev):
     return rows, table
 
 
+def one_pass_each(keys, payload, dist, mirror):
+    """The steps of exchange_stages(keys, payload, dist, mirror) one
+    jf_exchange pass each, as before the fused passes: the yardstick the
+    fused call is timed against."""
+    from jellyfish_tpu_torch.kernels.bitonic import exchange_stages
+
+    for i, d in enumerate(dist):
+        keys, payload = exchange_stages(keys, payload, [d],
+                                        mirror=mirror and i == 0)
+    return keys, payload
+
+
+def passes_of(fn, label, want):
+    """The kernel passes that one call of fn (an exchange_stages call)
+    launches, counted by exchange_stages.passes; fails unless there are
+    `want`."""
+    from jellyfish_tpu_torch.kernels.bitonic import exchange_stages
+
+    before = exchange_stages.passes
+    exchange_stages.passes = 0
+    fn()
+    got = exchange_stages.passes
+    exchange_stages.passes = before
+    if got != want:
+        raise AssertionError(f"{label}: {got} kernel passes, not {want}")
+    return got
+
+
+def phase_exchange(dev):
+    """Row 8's fused passes (jf_exchange_group) against
+    exchange_stages_plain, exact, beyond the insert's shapes (phase_bloom
+    holds those): BitsArray's rows (2^22, Wk 2 + payload, its last phase:
+    the mirrored step at 2^21, then plain steps down to its tile of 4096),
+    rows of 7 limbs with a payload (2^22 rows, three steps a pass, the
+    mirrored step at 2^21 down to 1024), 4 limbs keys only (2^24 rows,
+    plain steps 2^23 ... 2^12, and mirrored), runs of 2 and 3 steps, and
+    short distances down to 1 (a warp across several 2d-row blocks). The
+    first three are timed against the same steps one jf_exchange pass
+    each. Where a number of passes is given, the kernel passes that one
+    call launches are counted and held to it. Returns the timings."""
+    from jellyfish_tpu_torch.kernels.bitonic import (
+        exchange_stages,
+        exchange_stages_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def rows(m, wk):
+        """Limbs with ties: the top column from 16 values (above one
+        column), and an eighth of the rows repeated whole."""
+        x = torch.randint(0, 1 << 32, (m, wk), device=dev, generator=g)
+        if wk > 1:
+            x[:, -1] %= 16
+        x[m // 2: m // 2 + m // 8] = x[: m // 8]
+        return x
+
+    def check(label, keys, pay, dist, mirror, passes=None, timed=False):
+        m = keys.shape[0]
+
+        def fn():
+            return exchange_stages(keys, pay, dist, mirror=mirror)
+
+        def plain():
+            return exchange_stages_plain(keys, pay, dist, mirror=mirror)
+
+        label = (f"K3 exchange_stages {label}, "
+                 f"{'mirrored ' if mirror else ''}{len(dist)} steps "
+                 f"{dist[0]} ... {dist[-1]}")
+        if passes is not None:
+            label += f" in {passes_of(fn, label, passes)} passes"
+        if not timed:
+            return hold(label, fn, plain)
+        nbytes = 2 * 8 * (keys.numel() + (0 if pay is None else m))
+        row = hold(label, fn, plain, nbytes)
+        row["steps_ms"] = cuda_ms(lambda: one_pass_each(keys, pay, dist,
+                                                        mirror))
+        row["passes"] = passes
+        log(f"  the same steps one pass each: {row['steps_ms']:.4f} ms")
+        return row
+
+    table = {}
+    m = 1 << 22
+    keys, pay = rows(m, 2), torch.randint(0, 1 << 32, (m,), device=dev,
+                                           generator=g)
+    dist = [m >> i for i in range(1, 11)]  # 2^21 ... 4096
+    table["wk=2+payload"] = check(f"{m} rows, Wk 2 + payload", keys, pay,
+                                  dist, True, passes=3, timed=True)
+    keys = rows(m, 7)
+    dist = [m >> i for i in range(1, 13)]  # 2^21 ... 1024
+    table["wk=7+payload"] = check(f"{m} rows, Wk 7 + payload", keys, pay,
+                                  dist, True, passes=4, timed=True)
+    del keys, pay
+    m = 1 << 24
+    keys = rows(m, 4)
+    dist = [m >> i for i in range(1, 13)]  # 2^23 ... 4096
+    table["wk=4"] = check(f"{m} rows, Wk 4, keys only", keys, None, dist,
+                          False, passes=3, timed=True)
+    check(f"{m} rows, Wk 4, keys only", keys, None, dist[:7], True,
+          passes=2)
+    keys = rows(m, 1)
+    pay = torch.randint(0, 1 << 32, (m,), device=dev, generator=g)
+    check(f"{m} rows, Wk 1 + payload", keys, pay, [1 << 13, 1 << 12], False,
+          passes=1)
+    check(f"{m} rows, Wk 1 + payload", keys, pay, [1 << 14, 1 << 13, 1 << 12],
+          True, passes=1)
+    m = 1 << 16
+    keys, pay = keys[:m].contiguous(), pay[:m].contiguous()
+    for dist, mirror in (([8, 4, 2, 1], True), ([2, 1], True),
+                         ([4, 2, 1], False), ([64, 32, 16, 8, 4, 2, 1], True)):
+        check(f"{m} rows, Wk 1 + payload", keys, pay, dist, mirror)
+    keys = rows(m, 3)
+    check(f"{m} rows, Wk 3, keys only", keys, None, [16, 8, 4], False)
+    keys = rows(m, 6)
+    check(f"{m} rows, Wk 6 + payload", keys, pay, [32, 16, 8, 4, 2], True)
+    del keys, pay
+    torch.cuda.empty_cache()
+    return table
+
+
 def phase_window(dev):
     """Rows 9 and 10 (csrc/window.cu) against their plain versions, exact:
-    at the Pallas probes' shapes, at the merge's shape (a 2^20-row window
-    out of a 2^24-row slab at an odd offset, Wk 1 and 4, and the slab's
-    rotation by -cursor) and at the edges, with offsets and shifts on the
-    host and on the device. Returns the JSON rows, timed at Wk 1 (the
-    full-size merge's width), and the Wk 4 timings."""
+    at the Pallas probes' shapes, at the merge's shape (2^20-row windows
+    of a 2^24-row slab, eight a timed call, at odd offsets, Wk 1 and 4,
+    and even ones, Wk 1; the slab's rotation by -cursor) and at the edges
+    (windows of several tiles across either end of the run and wholly
+    outside it, at odd and even offsets, Wk 1, 3 and 4), with offsets and
+    shifts on the host and on the device. Returns the JSON rows, timed at Wk 1 (the
+    full-size merge's width), and the other timings."""
     from jellyfish_tpu_torch.kernels.window import (
         roll_lanes,
         roll_lanes_plain,
@@ -761,6 +902,22 @@ def phase_window(dev):
         hold(f"window_rows edge off {off} n {n}, Wk 4",
              lambda: window_rows(x, c, on(off), n),
              lambda: window_rows_plain(x, c, off, n))
+    # windows of several tiles at Wk 1, 3 and 4: inside the run, across
+    # its start and its end, wholly past the end and wholly before the
+    # start, each at an odd and an even offset (so an odd and an even
+    # source word off * wk at Wk 1 and 3; at Wk 4 the counts' offset
+    # takes both parities), the offset on the device and on the host
+    n = (1 << 17) + 5
+    for wk in (1, 3, 4):
+        xw = x[:, :wk].contiguous()
+        for base in (12_344, -778, m - 5_000, m + 10, -n - 4):
+            for off in (base, base + 1):
+                for o in (off, on(off)):
+                    hold(f"window_rows off {off} n {n} "
+                         f"({type(o).__name__}), Wk {wk}",
+                         lambda: window_rows(xw, c, o, n),
+                         lambda: window_rows_plain(xw, c, off, n))
+    del xw
     flat = x.view(1, -1)
     for s in (0, -1, -4 * 777_777, 4 * m + 9, -(13 * 4 * m) - 3, 4 * m):
         hold(f"roll_lanes edge shift {s} of [1, {4 * m}]",
@@ -768,20 +925,37 @@ def phase_window(dev):
              lambda: roll_lanes_plain(flat, s))
     del x, c, flat
 
-    # the merge's shape
+    # the merge's shape: 2^20-row windows of a 2^24-row slab, timed eight
+    # windows a call, 1,500,000 rows apart from the offset, so that the
+    # rows a call reads (128 MiB at Wk 1) do not stay in the 50 MB L2
+    # between calls, as the merge's rounds do not
     rows, table = {}, {}
-    slab, n, off = 1 << 24, 1 << 20, 5_000_001
+    slab, n, off, apart = 1 << 24, 1 << 20, 5_000_001, 1_500_000
+
+    def windows(keys, cnt, wk, first):
+        offs = [first + i * apart for i in range(8)]
+        curs = [on(o) for o in offs]
+        row = hold(
+            f"window_rows {n} rows at {first} + i * {apart} (i < 8) of a "
+            f"{slab}-row slab, Wk {wk}",
+            lambda: tuple(t for cu in curs
+                          for t in window_rows(keys, cnt, cu, n)),
+            lambda: tuple(t for o in offs
+                          for t in window_rows_plain(keys, cnt, o, n)),
+            8 * 2 * n * (wk + 1) * 8,
+            library=lambda: tuple(t for o in offs for t in (
+                keys[o:o + n].clone(), cnt[o:o + n].clone())), reps=10)
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            row[key] /= 8  # one window
+        log(f"  one window: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f}, "
+            f"clone {row['library_ms']:.4f}")
+        return row
+
     for wk in (1, 4):
         keys = torch.randint(0, 1 << 32, (slab, wk), device=dev, generator=g)
         cnt = torch.randint(0, 1 << 40, (slab,), device=dev, generator=g)
+        win = windows(keys, cnt, wk, off)
         cur = on(off)
-        win = hold(
-            f"window_rows {n} rows at {off} of a {slab}-row slab, Wk {wk}",
-            lambda: window_rows(keys, cnt, cur, n),
-            lambda: window_rows_plain(keys, cnt, off, n),
-            2 * n * (wk + 1) * 8,
-            library=lambda: (keys[off:off + n].clone(),
-                             cnt[off:off + n].clone()))
         flat, cflat = keys.view(1, -1), cnt.view(1, -1)
         sk, sc = cur * -wk, -cur
         roll = hold(
@@ -794,6 +968,9 @@ def phase_window(dev):
             library=lambda: (torch.roll(flat, -off * wk, 1),
                              torch.roll(cflat, -off, 1)))
         table[f"wk={wk}"] = {"window_rows": win, "roll_lanes": roll}
+        if wk == 1:  # even source words: the 16-byte loads
+            table["wk=1"]["window_rows_even"] = windows(keys, cnt, wk,
+                                                        off - 1)
         del keys, cnt, flat, cflat
     torch.cuda.empty_cache()
     src = "jellyfish_tpu_torch/csrc/window.cu"
@@ -1411,7 +1588,7 @@ def phase_bloom(chunks, staged, table, dev):
     if missed:
         raise AssertionError("the Bloom counter has false negatives")
     for name in ("block_sort", "block_merge", "exchange_stages",
-                 "exchange_stages.mirror"):
+                 "exchange_stages.passes", "exchange_stages.mirror"):
         if not launches[name]:
             raise AssertionError(f"bc ran without {name}")
     # the exact count of the chunks that steps 2 and 3 filter
@@ -1531,6 +1708,19 @@ def phase_bloom(chunks, staged, table, dev):
                 lambda: exchange_stages(padded, pw, dist, mirror=True),
                 lambda: exchange_stages_plain(padded, pw, dist, mirror=True),
                 2 * size * 16)
+    xrow["passes"] = passes_of(
+        lambda: exchange_stages(padded, pw, dist, mirror=True),
+        "the insert's last phase", 3)
+    xrow["steps_ms"] = cuda_ms(lambda: one_pass_each(padded, pw, dist, True))
+    log(f"  the last phase in {xrow['passes']} passes; its steps one pass "
+        f"each: {xrow['steps_ms']:.4f} ms")
+    five = dist[-5:]  # the phase at run 2^16: the mirrored step + 4 steps
+    label = (f"K3 exchange_stages {size} rows, Wk 1 + payload, mirrored "
+             f"step at {five[0]} + 4 steps (a 5-step phase)")
+    hold(label, lambda: exchange_stages(padded, pw, five, mirror=True),
+         lambda: exchange_stages_plain(padded, pw, five, mirror=True))
+    passes_of(lambda: exchange_stages(padded, pw, five, mirror=True), label,
+              2)
     bk, bw = bitonic_tiles(padded, pw, tile)
     merge_row = hold(
         f"K3 block_merge {size} rows, Wk 1 + payload, bitonic tiles of "
@@ -1562,6 +1752,12 @@ def phase_bloom(chunks, staged, table, dev):
     for key, us, calls in prof_rows[:12]:
         log(f"  {us / 1e3:10.3f} ms {100 * us / 1e6 / busy:5.1f}% "
             f"{calls:6d}x  {key[:100]}")
+    row8 = [(us, calls) for key, us, calls in prof_rows
+            if "exchange_kernel" in key or "group_kernel" in key]
+    row8_ms, row8_launches = (sum(us for us, _ in row8) / 1e3,
+                              sum(calls for _, calls in row8))
+    log(f"  row 8 (exchange_kernel and group_kernel): {row8_ms:.3f} ms in "
+        f"{row8_launches} launches")
     torch.cuda.empty_cache()
     out = dict(k=k, bc_m=m, bc_hashes=nb, bc_s=t_bc,
                bc_peak_gib=peak_bc / 2**30, bc_write_s=t_write,
@@ -1571,7 +1767,8 @@ def phase_bloom(chunks, staged, table, dev):
                bf_peak_gib=peak_bf / 2**30, bf_records=len(bf_c),
                bf_exact_share=whole, fp_share_bc=fp_share,
                insert_pairs=n, sort_routes_ms=routes,
-               insert_device_ms=busy * 1e3, pair_sort=route,
+               insert_device_ms=busy * 1e3, insert_row8_ms=row8_ms,
+               insert_row8_launches=row8_launches, pair_sort=route,
                block_sort=srow, block_merge=merge_row,
                bitsarray_pair_sort=brow)
     k3_src = "jellyfish_tpu_torch/csrc/bitonic.cu"
@@ -1713,10 +1910,12 @@ def main() -> int:
     _build.build(["merge_path", "compact", "bitonic", "window"])
     log(f"build: {time.perf_counter() - t_script:.1f} s")
     ptxas_report("bitonic")
+    ptxas_report("window")
 
     rows = phase_kernels(dev)
     k3_rows, k3_table = phase_k3(dev)
     rows.update(k3_rows)
+    k3_table["exchange_groups"] = phase_exchange(dev)
     win_rows, win_table = phase_window(dev)
     rows.update(win_rows)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1744,7 +1943,8 @@ def main() -> int:
         # each kernel's launches are read from the full-size run of its
         # path: K1 and K2 the k = 21 count's, K3's block sort and
         # merge_pass the k = 63 count's, block_merge, exchange_stages (row
-        # 8), its mirrored step (row 12's role) and block_sort at the
+        # 8: its kernel passes, beside its calls), its mirrored step (row
+        # 12's role: one pass a mirrored call) and block_sort at the
         # insert's shape the full-size bc's, window_rows and roll_lanes
         # the full-size merge's. flip lies on no path and reports the
         # bc's 0
@@ -1757,6 +1957,7 @@ def main() -> int:
         # the keep-mask row counts the launches of the compact wrapper
         counter = {"compact_keep": "compact",
                    "block_sort_bloom": "block_sort",
+                   "exchange_stages": "exchange_stages.passes",
                    "exchange_stages_mirror": "exchange_stages.mirror"}
         full, launches = {}, {}
         for k in K_FULL:
@@ -1779,6 +1980,7 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = launches[path[name]][counter.get(name, name)]
         row["path"] = where.get(path[name], f"full size k={path[name]}")
+    rows["exchange_stages"]["calls"] = launches["bloom"]["exchange_stages"]
     log(json.dumps({"merge": {"full_size": merge, "k63": merge63},
                     "disk": disk}))
     log(json.dumps({"bloom": {"full_size": bloom, "cli": bloom_cli}}))

@@ -32,6 +32,11 @@
 //     phase, over the whole array). A payload is carried, not compared.
 //     `transpose` reads the input through the transpose of each 128 x 128
 //     block of positions, an index map rather than a data pass.
+//   jf_exchange_group runs 2 <= g <= 4 consecutive halving steps, at
+//     distances d, d/2, ..., s = d / 2^(g-1), the first plain or
+//     mirrored, in one read and one write of the array: the steps pair
+//     rows only within sets of 2^g rows, which one thread holds in
+//     registers (below).
 //
 // The tile entries (one kernel, tile_kernel). A block takes B = max(T,
 // 32 E) rows (several tiles when T is small); each thread holds E rows
@@ -63,10 +68,27 @@
 // and the layout moves, which cost shared-memory traffic and barriers,
 // are few. The merge, with 12 steps, is closer to the bytes bound.
 // jf_exchange is bound by bytes: each step reads and writes every row
-// once, which is why the tile entries keep their steps on chip. The
-// counting store merges sorted tiles with K1 passes; the pair sort of
-// kernels/sort.py (the Bloom insert) runs its cross-tile steps here and
-// finishes each tile with jf_block_merge.
+// once, which is why the tile entries keep their steps on chip, and why
+// jf_exchange_group runs up to four cross-tile steps a pass. The counting
+// store merges sorted tiles with K1 passes; the pair sort of
+// kernels/sort.py (the Bloom insert) runs its cross-tile steps on
+// jf_exchange_group (the phase at run L: the mirrored step at L and the
+// plain steps down to a tile, 2^24 rows in 1-3 passes where step by step
+// took 1-12) and finishes each tile with jf_block_merge.
+//
+// The fused pass (group_kernel). Thread p of m / 2^g takes the low part j
+// = p mod s in the 2d-row block at blk = (p / s) 2d. Its registers i < H =
+// 2^(g-1) hold the lower half's rows blk + j + i s; registers H + i hold
+// the upper half's rows up + i s, with up = blk + d + j for a plain first
+// step and up = blk + d + (s - 1 - j) for a mirrored one: there the
+// upper rows are the mirror partners of the lower ones (row u < d of the
+// block meets 2d - 1 - u), and j -> s - 1 - j is a bijection, so every row
+// is held once. The first step pairs register i with i + H (plain) or
+// 2H - 1 - i (mirrored); the step at s 2^t pairs i with i + 2^t (bit t of
+// i clear), inside either half. Neighbouring threads hold neighbouring
+// rows in each register (in reverse order in a mirrored upper half), so
+// each register's loads and stores are coalesced once s >= 32; on the
+// route s is at least a tile (4096 rows at Wk 1).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -379,6 +401,50 @@ exchange_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok,
   }
 }
 
+// The most steps of a fused pass for rows of `cols` int64 columns: 2^G
+// rows a thread (16 for up to four columns, else 8), in registers.
+constexpr int max_group(int cols) { return cols <= 4 ? 4 : 3; }
+
+// G steps in one pass (the map is above), the first mirrored when MIRROR;
+// in place when ik equals ok.
+template <int WK, bool PAY, int G, bool MIRROR>
+__global__ void __launch_bounds__(kStepThreads, 1)
+group_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok, int64_t* op,
+             int64_t m, int log_s) {
+  using R = Row<WK, PAY, false>;
+  constexpr int N = 1 << G, H = N / 2;
+  const int64_t p = (int64_t)blockIdx.x * kStepThreads + threadIdx.x;
+  if (p >= (m >> G)) return;
+  const int64_t s = (int64_t)1 << log_s;
+  const int64_t j = p & (s - 1);
+  const int64_t blk = (p >> log_s) << (log_s + G);
+  const int64_t lo = blk + j;
+  const int64_t up = blk + ((int64_t)H << log_s) + (MIRROR ? s - 1 - j : j);
+  int64_t v[N][R::kCols];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    load_row<R, WK>(v[i], ik, ip,
+                    (i < H ? lo : up) + ((int64_t)(i & (H - 1)) << log_s));
+  }
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    cmp_swap<R>(v[i], v[MIRROR ? N - 1 - i : i + H], false);
+  }
+#pragma unroll
+  for (int t = G - 2; t >= 0; --t) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (!(i & (1 << t))) cmp_swap<R>(v[i], v[i | (1 << t)], false);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    store_row<R, WK>(ok, op,
+                     (i < H ? lo : up) + ((int64_t)(i & (H - 1)) << log_s),
+                     v[i]);
+  }
+}
+
 // -- launchers ----------------------------------------------------------------
 
 template <int WK, bool PAY, bool MERGE>
@@ -438,6 +504,53 @@ int step_wk(const void* keys, const void* pay, void* out_keys, void* out_pay,
                                       mode, transpose, s);
 }
 
+template <int WK, bool PAY, int G>
+int launch_group(const void* keys, const void* pay, void* out_keys,
+                 void* out_pay, int64_t m, int log_s, int mirror,
+                 cudaStream_t s) {
+  if constexpr (G > max_group(WK + PAY)) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int64_t blocks = ((m >> G) + kStepThreads - 1) / kStepThreads;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    if (blocks > 0) {
+      auto kernel = mirror ? group_kernel<WK, PAY, G, true>
+                           : group_kernel<WK, PAY, G, false>;
+      kernel<<<(unsigned)blocks, kStepThreads, 0, s>>>(
+          (const int64_t*)keys, (const int64_t*)pay, (int64_t*)out_keys,
+          (int64_t*)out_pay, m, log_s);
+    }
+    return (int)cudaGetLastError();
+  }
+}
+
+template <int WK, bool PAY>
+int group_g(const void* keys, const void* pay, void* out_keys, void* out_pay,
+            int64_t m, int log_s, int g, int mirror, cudaStream_t s) {
+  switch (g) {
+    case 2:
+      return launch_group<WK, PAY, 2>(keys, pay, out_keys, out_pay, m,
+                                      log_s, mirror, s);
+    case 3:
+      return launch_group<WK, PAY, 3>(keys, pay, out_keys, out_pay, m,
+                                      log_s, mirror, s);
+    case 4:
+      return launch_group<WK, PAY, 4>(keys, pay, out_keys, out_pay, m,
+                                      log_s, mirror, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int WK>
+int group_wk(const void* keys, const void* pay, void* out_keys,
+             void* out_pay, int64_t m, int log_s, int g, int mirror,
+             cudaStream_t s) {
+  return pay ? group_g<WK, true>(keys, pay, out_keys, out_pay, m, log_s, g,
+                                 mirror, s)
+             : group_g<WK, false>(keys, pay, out_keys, out_pay, m, log_s, g,
+                                  mirror, s);
+}
+
 using TileFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
                        cudaStream_t);
 using StepFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
@@ -452,6 +565,11 @@ constexpr TileFn kMerge[] = {
     tiles_wk<6, true>, tiles_wk<7, true>};
 constexpr StepFn kStep[] = {nullptr,    step_wk<1>, step_wk<2>, step_wk<3>,
                             step_wk<4>, step_wk<5>, step_wk<6>, step_wk<7>};
+using GroupWkFn = int (*)(const void*, const void*, void*, void*, int64_t,
+                          int, int, int, cudaStream_t);
+constexpr GroupWkFn kGroup[] = {
+    nullptr,     group_wk<1>, group_wk<2>, group_wk<3>,
+    group_wk<4>, group_wk<5>, group_wk<6>, group_wk<7>};
 
 }  // namespace
 
@@ -493,4 +611,26 @@ extern "C" int jf_exchange(const void* keys, const void* pay, void* out_keys,
   }
   return kStep[wk](keys, pay, out_keys, out_pay, m, log_d, mode, transpose,
                    (cudaStream_t)stream);
+}
+
+// The most steps one jf_exchange_group pass runs on rows of wk key columns
+// and a payload when `pay` is set: the launcher cuts its runs to it.
+extern "C" int jf_exchange_group_limit(int wk, int pay) {
+  return max_group(wk + (pay != 0));
+}
+
+// g consecutive halving steps at distances 2^(log_s + g - 1), ..., 2^log_s
+// over m rows (m a multiple of 2^(log_s + g)) in one pass, the first
+// mirrored when `mirror` is set; 2 <= g <= jf_exchange_group_limit(wk,
+// pay) (one step is jf_exchange's). A payload is carried. out may be the
+// input.
+extern "C" int jf_exchange_group(const void* keys, const void* pay,
+                                 void* out_keys, void* out_pay, int64_t m,
+                                 int wk, int log_s, int g, int mirror,
+                                 void* stream) {
+  if (wk < 1 || wk > 7 || log_s < 0 || g < 2 || g > 4 || log_s + g > 62) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return kGroup[wk](keys, pay, out_keys, out_pay, m, log_s, g, mirror,
+                    (cudaStream_t)stream);
 }

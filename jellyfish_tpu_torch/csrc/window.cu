@@ -10,15 +10,24 @@
 //     pltpu.roll(x, s, axis=1) with `s` a prefetched runtime scalar (the
 //     carry buffer's compaction).
 // On the TPU both existed because VMEM is loaded in aligned tiles. On this
-// card a thread reads any 8-byte word, so each becomes a plain copy: one
-// thread an element, neighbouring threads on neighbouring words (coalesced
-// whatever the offset's alignment), the offset or shift read once a block
-// into shared memory. Where the caller has the offset on the device (an
-// int64 scalar tensor), the kernel reads it there, as the Pallas kernels
-// read their prefetched scalar: nothing waits for the host.
+// card a thread reads any 8-byte word, so each becomes a copy, with the
+// offset or shift read on the device where the caller has it there (an
+// int64 scalar tensor), as the Pallas kernels read their prefetched
+// scalar: nothing waits for the host.
 //
 // Bound on this card: bytes. Each output word is written once and each
-// input word it copies read once, against one compare and one add a word.
+// input word it copies read once. A window of the merge (2^20 rows, 32 MiB
+// moved at Wk 1) is 10 us at the bytes bound, a few launches' worth, so
+// jf_window_rows spends little per word. The keys and the counts are cut
+// into tiles of kTile words, one block a tile. A tile that lies
+// wholly inside the run is copied with no per-word compare, each thread
+// kVec 16-byte vectors (8 words) with all its loads in flight before its
+// first store; where the tile's first source word is odd (an odd off *
+// wk), the loads are 8-byte words, still coalesced. Only tiles that cross
+// an end of the run, and the last, short tile, take the checked copy of
+// one word a thread. jf_roll_lanes copies one element a thread,
+// neighbouring threads on neighbouring words, the shift read once a block
+// into shared memory.
 //
 // Rows are [M, WK] int64 key columns beside [M] int64 counts, as in K1 and
 // K2. A window's rows outside [0, M) get the PAD key and count 0.
@@ -29,30 +38,68 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kVec = 4;                        // 16-byte vectors a thread
+constexpr int kTile = kThreads * kVec * 2;     // words a tile
 
-// Elements [0, n * wk) are key words, [n * wk, n * (wk + 1)) counts:
-// one launch copies both.
+// out[e] = src[start + e] where 0 <= start + e < src_len, else pad, for e
+// in one tile [e0, e0 + kTile) of a segment of `len` words.
+struct Segment {
+  const int64_t* src;
+  int64_t* out;
+  int64_t len, start, src_len, pad;
+
+  __device__ __forceinline__ void copy_tile(int64_t e0) const {
+    const int t = threadIdx.x;
+    const int64_t s0 = start + e0;
+    const int64_t* in = src + s0;
+    int64_t* o = out + e0;
+    if (len - e0 >= kTile && s0 >= 0 && s0 + kTile <= src_len &&
+        (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+      longlong2 v[kVec];
+      if ((reinterpret_cast<uintptr_t>(in) & 15) == 0) {
+        const longlong2* in2 = reinterpret_cast<const longlong2*>(in);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) v[i] = __ldg(in2 + t + i * kThreads);
+      } else {
+        // word 2 u of the tile sits in the upper half of a 16-byte vector
+        // of the source: two 8-byte loads a vector
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          const int u = t + i * kThreads;
+          v[i] = make_longlong2(__ldg(in + 2 * u), __ldg(in + 2 * u + 1));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        reinterpret_cast<longlong2*>(o)[t + i * kThreads] = v[i];
+      }
+      return;
+    }
+    const int64_t n = len - e0 < kTile ? len - e0 : kTile;
+    for (int w = t; w < n; w += kThreads) {
+      const int64_t x = s0 + w;
+      o[w] = (x >= 0 && x < src_len) ? src[x] : pad;
+    }
+  }
+};
+
+// Key words [0, n * wk) of the window are words off * wk + e of the run,
+// in range exactly when their row is; then the n counts. Block i < tk
+// copies the keys' tile i, the others the counts' tiles.
 __global__ void __launch_bounds__(kThreads)
 window_rows_kernel(const int64_t* __restrict__ keys,
                    const int64_t* __restrict__ cnt, int64_t m, int wk,
                    const int64_t* __restrict__ off_dev, int64_t off_host,
                    int64_t n, int64_t pad, int64_t* __restrict__ out_keys,
-                   int64_t* __restrict__ out_cnt) {
-  __shared__ int64_t s_off;
-  if (threadIdx.x == 0) s_off = off_dev != nullptr ? *off_dev : off_host;
-  __syncthreads();
-  const int64_t off = s_off;
-  const int64_t nk = n * wk;
-  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (e < nk) {
-    // key word e of the window is word off * wk + e of the run: in range
-    // exactly when its row is
-    const int64_t src = off * wk + e;
-    out_keys[e] = (src >= 0 && src < m * wk) ? keys[src] : pad;
-  } else if (e < nk + n) {
-    const int64_t i = e - nk;
-    const int64_t src = off + i;
-    out_cnt[i] = (src >= 0 && src < m) ? cnt[src] : 0;
+                   int64_t* __restrict__ out_cnt, int64_t tk) {
+  const int64_t off = off_dev != nullptr ? __ldg(off_dev) : off_host;
+  const int64_t i = blockIdx.x;
+  if (i < tk) {
+    const Segment k{keys, out_keys, n * wk, off * wk, m * wk, pad};
+    k.copy_tile(i * kTile);
+  } else {
+    const Segment c{cnt, out_cnt, n, off, m, 0};
+    c.copy_tile((i - tk) * kTile);
   }
 }
 
@@ -86,15 +133,15 @@ extern "C" int jf_window_rows(const void* keys, const void* cnt, int64_t m,
                               int64_t n, int64_t pad, void* out_keys,
                               void* out_cnt, void* stream) {
   if (wk < 1 || n < 0 || m < 0) return (int)cudaErrorInvalidValue;
-  const int64_t total = n * (wk + 1);
-  if (total > 0) {
-    const int64_t blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    window_rows_kernel<<<(unsigned)blocks, kThreads, 0,
+  const int64_t tk = (n * wk + kTile - 1) / kTile;
+  const int64_t tiles = tk + (n + kTile - 1) / kTile;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (tiles > 0) {
+    window_rows_kernel<<<(unsigned)tiles, kThreads, 0,
                          (cudaStream_t)stream>>>(
         (const int64_t*)keys, (const int64_t*)cnt, m, wk,
         (const int64_t*)off_dev, off_host, n, pad, (int64_t*)out_keys,
-        (int64_t*)out_cnt);
+        (int64_t*)out_cnt, tk);
   }
   return (int)cudaGetLastError();
 }

@@ -12,11 +12,19 @@ rows 6, 7, 8, 11 and 12). A Pallas u32 tile [R, 128] is a run of key rows
 here in row-major order: tile row r, lane c is position 128 r + c, so a
 step between tile rows r and r + m is a step at distance 128 m.
 
+An `exchange_stages` call runs its steps in kernel passes over device
+memory (`exchange_plan`): each run of up to four consecutive halving steps
+(three for rows of more than four columns: jf_exchange_group_limit) is one
+pass of jf_exchange_group, the first step of the run plain or mirrored;
+any other step (a lone distance, a transposed read, a flip) is one pass of
+jf_exchange.
+
 `block_sort.launches`, `block_merge.launches`, `exchange_stages.launches`
 and `flip.launches` count the calls that launched each entry point on the
-card: a `block_sort` or `block_merge` call is one kernel launch, an
-`exchange_stages` call one a step; `exchange_stages.mirror_launches` counts
-the calls whose first step is mirrored. The counting path runs
+card: a `block_sort`, `block_merge` or `flip` call is one kernel launch;
+`exchange_stages.passes` counts `exchange_stages`' kernel launches, one
+where each pass launches, and `exchange_stages.mirror_launches` its calls whose first step is
+mirrored. The counting path runs
 `block_sort` only; the pair sort of kernels/sort.py (the Bloom insert,
 BitsArray) runs `block_sort` once, then `exchange_stages` with a mirrored
 first step (rows 8 and 12) and `block_merge` (row 8's in-tile steps). `flip`
@@ -26,6 +34,7 @@ and the transposes (row 11) lie on no path.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -35,9 +44,9 @@ from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.count import row_order
 
 __all__ = [
-    "block_merge", "block_merge_plain", "block_sort", "block_sort_plain",
-    "exchange_stages", "exchange_stages_plain", "flip", "flip_plain",
-    "tile_rows",
+    "Pass", "block_merge", "block_merge_plain", "block_sort",
+    "block_sort_plain", "exchange_plan", "exchange_stages",
+    "exchange_stages_plain", "flip", "flip_plain", "tile_rows",
 ]
 
 SHARED_TILE_BYTES = 96 * 1024  # a tile's rows; csrc/bitonic.cu kTileBytes
@@ -51,6 +60,8 @@ _SIGNATURES = {
     "jf_block_sort": (_I, [_P, _P, _P, _P, _N, _I, _I, _P]),
     "jf_block_merge": (_I, [_P, _P, _P, _P, _N, _I, _I, _P]),
     "jf_exchange": (_I, [_P, _P, _P, _P, _N, _I, _I, _I, _I, _P]),
+    "jf_exchange_group": (_I, [_P, _P, _P, _P, _N, _I, _I, _I, _I, _P]),
+    "jf_exchange_group_limit": (_I, [_I, _I]),
 }
 
 
@@ -59,6 +70,37 @@ def tile_rows(wk: int, payload: bool) -> int:
     rows of (wk + payload) int64 columns in SHARED_TILE_BYTES."""
     cols = wk + int(payload)
     return 1 << ((SHARED_TILE_BYTES // (8 * cols)).bit_length() - 1)
+
+
+class Pass(NamedTuple):
+    """One kernel pass of exchange_stages: steps at `distances`, the
+    first in `mode` (the others plain), the first reading its input
+    through the 128 x 128 transpose when `transposed`. Several distances
+    are one jf_exchange_group pass, one distance a jf_exchange pass."""
+
+    distances: tuple
+    mode: int
+    transposed: bool = False
+
+
+def exchange_plan(distances, mirror=False, transposes=0, limit=4):
+    """The passes of exchange_stages(distances, transposes, mirror): the
+    distances cut, in order, into maximal runs of consecutive halvings of
+    at most `limit` steps, each one pass. A mirrored step can only start a
+    run. The transposed read of an odd number of transposes (row 11) takes
+    its first step alone."""
+    plan, i = [], 0
+    while i < len(distances):
+        mode = _MIRROR if mirror and i == 0 else _EXCHANGE
+        transposed = transposes % 2 == 1 and i == 0
+        j = i + 1
+        if not transposed:
+            while (j < len(distances) and j - i < limit
+                   and 2 * distances[j] == distances[j - 1]):
+                j += 1
+        plan.append(Pass(tuple(distances[i:j]), mode, transposed))
+        i = j
+    return plan
 
 
 def _log2(x: int, what: str) -> int:
@@ -178,16 +220,31 @@ class _Launcher:
                 wk, log_t, self.stream)
         _build.check(rc, f"bitonic {entry}")
 
-    def steps(self, src, dst, m, wk, steps, transpose=False):
-        """(log_d, mode) steps: the first reads `src` (through the
-        transpose if asked) and writes `dst`, the others update `dst`."""
-        for i, (log_d, mode) in enumerate(steps):
+    def group_limit(self, wk, payload):
+        """The most steps a jf_exchange_group pass runs on these rows."""
+        return self.lib.jf_exchange_group_limit(wk, int(payload is not None))
+
+    def passes(self, src, dst, m, wk, plan):
+        """Launch the kernel passes of `plan`: the first reads `src` and
+        writes `dst`, the others update `dst` in place (each thread reads
+        and writes only its own rows). Returns the number launched."""
+        launched = 0
+        for i, ps in enumerate(plan):
             ik, ip = src if i == 0 else dst
+            log_s = _log2(ps.distances[-1], "distance")
             with torch.cuda.device(self.dev):
-                rc = self.lib.jf_exchange(
-                    _ptr(ik), _ptr(ip), _ptr(dst[0]), _ptr(dst[1]), m, wk,
-                    log_d, mode, int(transpose and i == 0), self.stream)
+                if len(ps.distances) > 1:
+                    rc = self.lib.jf_exchange_group(
+                        _ptr(ik), _ptr(ip), _ptr(dst[0]), _ptr(dst[1]), m,
+                        wk, log_s, len(ps.distances),
+                        int(ps.mode == _MIRROR), self.stream)
+                else:
+                    rc = self.lib.jf_exchange(
+                        _ptr(ik), _ptr(ip), _ptr(dst[0]), _ptr(dst[1]), m,
+                        wk, log_s, ps.mode, int(ps.transposed), self.stream)
             _build.check(rc, "bitonic exchange")
+            launched += 1
+        return launched
 
 
 def _empty_like(keys, payload):
@@ -253,32 +310,34 @@ def exchange_stages(keys, payload=None, distances=(), transposes=0,
     """exchange_stages_plain on the card (rows 7, 8 and 11 of the kernel
     table; a mirrored first step takes row 12's place): at least one
     distance, each a power of two, M a multiple of twice each (and of
-    128 * 128 for an odd number of transposes). Returns (keys, payload or
-    None)."""
+    128 * 128 for an odd number of transposes). The steps run in the
+    passes of exchange_plan, at most jf_exchange_group_limit's a pass.
+    Returns (keys, payload or None)."""
     _check(keys, payload)
     m, wk = keys.shape
     if not distances:
         raise ValueError("exchange_stages: no distance")
-    steps = [(_log2(d, "distance"), _MIRROR if mirror and i == 0 else
-              _EXCHANGE) for i, d in enumerate(distances)]
-    if any(m % (2 << ld) for ld, _ in steps):
+    if any(m % (2 << _log2(d, "distance")) for d in distances):
         raise ValueError("exchange_stages: M must be whole blocks of 2d rows")
-    transpose = transposes % 2 == 1
-    if transpose and m % (_SQUARE * _SQUARE):
+    if transposes % 2 and m % (_SQUARE * _SQUARE):
         raise ValueError("exchange_stages: transposes need whole 128 x 128 "
                          "squares of rows")
     if keys.device.type == "cpu":
         return exchange_stages_plain(keys, payload, distances, transposes,
                                      mirror)
+    launcher = _Launcher(keys.device)
+    plan = exchange_plan(list(distances), mirror, transposes,
+                         launcher.group_limit(wk, payload))
     out = _empty_like(keys, payload)
-    _Launcher(keys.device).steps((keys, payload), out, m, wk, steps,
-                                 transpose)
+    exchange_stages.passes += launcher.passes((keys, payload), out, m, wk,
+                                              plan)
     exchange_stages.launches += 1
     exchange_stages.mirror_launches += int(mirror)
     return out
 
 
 exchange_stages.launches = 0
+exchange_stages.passes = 0
 exchange_stages.mirror_launches = 0
 
 
@@ -293,8 +352,8 @@ def flip(keys, tile):
     if keys.device.type == "cpu":
         return flip_plain(keys, tile)
     out = torch.empty_like(keys)
-    _Launcher(keys.device).steps((keys, None), (out, None), m, wk,
-                                 [(log_t - 1, _FLIP)])
+    _Launcher(keys.device).passes((keys, None), (out, None), m, wk,
+                                  [Pass((tile // 2,), _FLIP)])
     flip.launches += 1
     return out
 

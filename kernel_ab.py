@@ -1,0 +1,182 @@
+"""Device times of the port's kernel wrappers in several checkouts, side by side.
+
+    python3 kernel_ab.py TREE [TREE ...]
+
+Each TREE is a directory that holds a jellyfish_tpu_torch package: a
+checkout, or an unpacked `git archive` of one (for the parent commit:
+`git archive HEAD~1 jellyfish_tpu_torch | tar -x -C DIR`). Each TREE runs in
+a process of its own, in the order given (give A B B A to compare two on one
+card), which builds that tree's CUDA kernels into TREE/build and times its
+wrappers with this checkout's chip_smoke.cuda_ms (device time, the stream
+held while the calls are enqueued) on the same seeded inputs, at the shapes
+of PERF.md's kernel table: row 9's windows (eight 2^20-row windows of a
+2^24-row slab a call, 1,500,000 rows apart, Wk 1 at odd and even offsets
+and Wk 4), row 10's rotation of the slab, rows 7, 8 and 11 at the Pallas
+probes' shapes, the standalone flip, K2's keep mask at the merge's round,
+and at the Bloom insert's shape (2^24 rows, Wk 1 + payload) row 8's last
+phase, row 12's mirrored step, block_sort, block_merge and the whole pair
+sort. Needs a CUDA card; the wrappers' APIs must match across the trees.
+
+Prints one JSON line a run, then the card's name and power limit (nvidia-smi)
+and a JSON object of each case's times (ms a call; a window for row 9), one
+a run in the order given; writes the same to chiprun_out/kernel_ab.json.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+WINDOWS, SLAB, WINDOW, FIRST, APART = 8, 1 << 24, 1 << 20, 5_000_001, 1_500_000
+INSERT_ROWS, INSERT_PAIRS, TILE = 1 << 24, 8_890_770, 4096
+
+
+def _smoke():
+    """This checkout's chip_smoke module (cuda_ms, _cycle), loaded by path
+    so that a TREE's own chip_smoke.py is not the one imported."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cases(dev):
+    """(label, fn, calls a timed call makes) for every case, on inputs made
+    from fixed seeds."""
+    import torch
+
+    from jellyfish_tpu_torch.kernels.bitonic import (
+        block_merge,
+        block_sort,
+        exchange_stages,
+        flip,
+    )
+    from jellyfish_tpu_torch.kernels.compact import compact
+    from jellyfish_tpu_torch.kernels.sort import sort_pairs_bitonic
+    from jellyfish_tpu_torch.kernels.window import roll_lanes, window_rows
+
+    cycle = _smoke()._cycle
+    g = torch.Generator(device=dev).manual_seed(88)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, device=dev, generator=g)
+
+    out = []
+    for wk in (1, 4):
+        keys, cnt = ints(1 << 32, SLAB, wk), ints(1 << 40, SLAB)
+        for first in ((FIRST, FIRST - 1) if wk == 1 else (FIRST,)):
+            curs = [torch.tensor(first + i * APART, device=dev)
+                    for i in range(WINDOWS)]
+            out.append((f"row 9 window_rows, Wk {wk}, "
+                        f"{'odd' if first % 2 else 'even'} offsets",
+                        lambda k=keys, c=cnt, cs=curs: [
+                            window_rows(k, c, cu, WINDOW) for cu in cs],
+                        WINDOWS))
+        if wk == 1:
+            flat, cflat = keys.view(1, -1), cnt.view(1, -1)
+            shift = torch.tensor(-FIRST, device=dev)
+            out.append(("row 10 roll_lanes, Wk 1, keys and counts",
+                        lambda: (roll_lanes(flat, shift),
+                                 roll_lanes(cflat, shift)), 1))
+    x7 = ints(1 << 32, 4096 * 128, 1)
+    d7 = cycle(4096, 12)
+    out.append(("row 7 exchange_stages u32[4096, 128], 12 steps",
+                lambda: exchange_stages(x7, distances=d7), 1))
+    k8 = torch.stack([ints(64, 4096 * 128), ints(4, 4096 * 128)], 1)
+    c8 = ints(1 << 32, 4096 * 128)
+    out.append(("row 8 exchange_stages 3x u32[4096, 128], 12 steps",
+                lambda: exchange_stages(k8, c8, d7), 1))
+    x11 = ints(1 << 32, 1024 * 128, 1)
+    d11 = cycle(1024, 10)
+    out.append(("row 11 exchange_stages u32[1024, 128], 1 transpose + 10 "
+                "steps", lambda: exchange_stages(x11, distances=d11,
+                                                 transposes=1), 1))
+    out.append(("row 12 flip u32[1024, 128]",
+                lambda: flip(x11, x11.shape[0]), 1))
+    m = 4 << 20
+    pool = torch.sort(ints(1 << 62, m)).values
+    reps = ints(4, m) + 1
+    kk = torch.repeat_interleave(pool, reps)[:m].contiguous()[:, None]
+    is_new = torch.ones(m, dtype=torch.bool, device=dev)
+    is_new[1:] = kk[1:, 0] != kk[:-1, 0]
+    vals = ints(9, m)[torch.cumsum(is_new, 0) - 1]
+    keep = is_new & (vals <= 5)
+    out.append(("K2 compact with a keep mask, 4 x 2^20 rows, Wk 1",
+                lambda: compact(kk, vals, keep)[:2], 1))
+    pos, pw = ints(1 << 32, INSERT_ROWS, 1), ints(3, INSERT_ROWS)
+    last = [INSERT_ROWS >> i for i in range(1, 13)]  # 2^23 ... 4096
+    out.append(("row 8 exchange_stages, the insert's last phase",
+                lambda: exchange_stages(pos, pw, last, mirror=True), 1))
+    out.append(("row 12 mirrored step at 2^23, 2^24 rows",
+                lambda: exchange_stages(pos, pw, last[:1], mirror=True), 1))
+    out.append(("K3 block_sort, 2^24 rows, Wk 1 + payload, tile 4096",
+                lambda: block_sort(pos, pw, TILE), 1))
+    out.append(("K3 block_merge, 2^24 rows, Wk 1 + payload, tile 4096",
+                lambda: block_merge(pos, pw, TILE), 1))
+    pairs, wb = pos[:INSERT_PAIRS].contiguous(), pw[:INSERT_PAIRS].contiguous()
+    out.append(("the pair sort, one insert's 8,890,770 pairs",
+                lambda: sort_pairs_bitonic(pairs, wb), 1))
+    return out
+
+
+def run_tree(tree: str) -> dict:
+    """Build TREE's kernels and time every case there (this process)."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+
+    import jellyfish_tpu_torch
+    from jellyfish_tpu_torch.kernels import _build
+
+    here = Path(jellyfish_tpu_torch.__file__).resolve()
+    if Path(tree).resolve() not in here.parents:
+        raise RuntimeError(f"imported {here}, not the package of {tree}")
+    _build.build(["merge_path", "compact", "bitonic", "window"])
+    cuda_ms = _smoke().cuda_ms
+    dev = torch.device("cuda", 0)
+    ms = {}
+    for label, fn, calls in cases(dev):
+        ms[label] = cuda_ms(fn, reps=10) / calls
+        torch.cuda.synchronize()
+    return {"tree": tree, "ms": ms}
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--run":
+        print(json.dumps(run_tree(sys.argv[2])), flush=True)
+        return 0
+    trees = sys.argv[1:]
+    if not trees:
+        print(__doc__, file=sys.stderr)
+        return 2
+    runs = []
+    for tree in trees:
+        p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--run", tree], stdout=subprocess.PIPE,
+                           text=True)
+        if p.returncode:
+            print(p.stdout, end="")
+            return p.returncode
+        runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], stdout=subprocess.PIPE,
+        text=True).stdout.strip().splitlines()[0]
+    table = {label: [r["ms"][label] for r in runs] for label in runs[0]["ms"]}
+    result = {"card": card, "trees": trees, "ms": table}
+    os.makedirs(HERE / "chiprun_out", exist_ok=True)
+    (HERE / "chiprun_out" / "kernel_ab.json").write_text(
+        json.dumps(result, indent=1))
+    print(card)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

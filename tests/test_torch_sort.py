@@ -22,10 +22,12 @@ from jax.experimental import pallas as pl
 
 from jellyfish_tpu_torch.kernels import sort as ksort
 from jellyfish_tpu_torch.kernels.bitonic import (
+    Pass,
     block_merge,
     block_merge_plain,
     block_sort,
     block_sort_plain,
+    exchange_plan,
     exchange_stages,
     exchange_stages_plain,
     flip,
@@ -257,7 +259,7 @@ def test_wrappers_on_cpu_tensors_are_the_plain_versions():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert torch.equal(flip(keys, 512), flip_plain(keys, 512))
     assert block_sort.launches == exchange_stages.launches == 0
-    assert flip.launches == 0
+    assert exchange_stages.passes == flip.launches == 0
 
 
 def test_wrappers_reject_bad_inputs():
@@ -477,3 +479,160 @@ def test_pair_sort_matches_lax_sort(m):
             np.add.reduceat(gw.numpy(), starts),
             np.add.reduceat(sw.astype(np.int64), starts))
     assert block_merge.launches == block_sort.launches == 0
+
+
+@pytest.mark.parametrize("tile,m", [(64, 1 << 13), (64, 6000)])
+def test_pair_sort_matches_lax_sort_in_long_phases(tile, m):
+    """As above at a tile of 64 rows: 2^13 padded rows make phases of 1-7
+    cross-tile steps, so the fused passes' runs of four steps, and the
+    lone step after one, sort the insert's pairs."""
+    rng = np.random.default_rng(7400 + m)
+    pos = rng.integers(0, 1 << 32, m, dtype=np.uint64).astype(np.uint32)
+    pos[: m // 4] = pos[m // 4: 2 * (m // 4)]
+    wb = rng.integers(0, 3, m).astype(np.uint32)
+    spos, sw = jax.lax.sort([jnp.asarray(pos), jnp.asarray(wb)], num_keys=1,
+                            is_stable=False)
+    spos, sw = np.asarray(spos).astype(np.int64), np.asarray(sw)
+    got, gw = ksort.sort_pairs_bitonic(
+        torch.from_numpy(pos.astype(np.int64))[:, None].contiguous(),
+        torch.from_numpy(wb.astype(np.int64)), tile)
+    np.testing.assert_array_equal(got[:, 0].numpy(), spos)
+    starts = np.unique(spos, return_index=True)[1]
+    np.testing.assert_array_equal(
+        np.add.reduceat(gw.numpy(), starts),
+        np.add.reduceat(sw.astype(np.int64), starts))
+    assert exchange_stages.launches == exchange_stages.passes == 0
+
+
+# -- the fused passes of exchange_stages (row 8, jf_exchange_group) -------
+
+
+def exchange_group_plain(keys, payload, s, g, mirror=False):
+    """One jf_exchange_group pass as the kernel lays it out: the steps at
+    distances s 2^(g-1), ..., s, the first mirrored if asked. Each of the
+    M / 2^g threads gathers its 2^g rows (register i < H = 2^(g-1): row
+    blk + j + i s of its 2d-row block's lower half; register H + i: row
+    blk + d + j' + i s of the upper half, j' = s - 1 - j when mirrored,
+    else j), runs the g steps between its registers, and scatters them
+    back."""
+    m, wk = keys.shape
+    n, h, d = 1 << g, 1 << (g - 1), s << (g - 1)
+    p = torch.arange(m >> g)
+    j = p % s
+    blk = (p // s) * 2 * d
+    i = torch.arange(h) * s
+    up = s - 1 - j if mirror else j
+    idx = torch.cat([(blk + j)[:, None] + i, (blk + d + up)[:, None] + i], 1)
+    k = keys[idx]
+    pv = None if payload is None else payload[idx]
+    first = [(r, n - 1 - r) if mirror else (r, r + h) for r in range(h)]
+    steps = [first] + [[(r, r | 1 << t) for r in range(n) if not r >> t & 1]
+                       for t in range(g - 2, -1, -1)]
+    for pairs in steps:
+        a, b = (torch.tensor(x) for x in zip(*pairs))
+        swap = mw.mw_less(k[:, b], k[:, a])
+        k[:, a], k[:, b] = (mw.mw_select(swap, k[:, b], k[:, a]),
+                            mw.mw_select(swap, k[:, a], k[:, b]))
+        if pv is not None:
+            pv[:, a], pv[:, b] = (torch.where(swap, pv[:, b], pv[:, a]),
+                                  torch.where(swap, pv[:, a], pv[:, b]))
+    out_k = torch.empty_like(keys)
+    out_k[idx.reshape(-1)] = k.reshape(-1, wk)
+    if pv is None:
+        return out_k, None
+    out_p = torch.empty_like(payload)
+    out_p[idx.reshape(-1)] = pv.reshape(-1)
+    return out_k, out_p
+
+
+@pytest.mark.parametrize("mirror", [False, True])
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+@pytest.mark.parametrize("payload", [True, False])
+@pytest.mark.parametrize("wk", [1, 2, 7])
+def test_exchange_group_plain_is_the_steps(wk, payload, g, mirror):
+    """One fused pass as the kernel lays out its rows (each thread's 2^g
+    rows gathered, the g steps run between them, scattered back) equals
+    the steps at distances s 2^(g-1), ..., s one at a time, keys and
+    payload, at s = 1 (a warp across many blocks) and s > 1."""
+    rng = np.random.default_rng(8000 + 100 * wk + 10 * g + payload)
+    for s in (1, 2, 16):
+        m = 4 * (s << g)
+        keys, pay = _pairs(rng, m, wk, payload)
+        dist = [s << t for t in range(g - 1, -1, -1)]
+        got = exchange_group_plain(keys, pay, s, g, mirror)
+        want = exchange_stages_plain(keys, pay, dist, mirror=mirror)
+        assert torch.equal(got[0], want[0])
+        assert (got[1] is None) == (not payload)
+        assert not payload or torch.equal(got[1], want[1])
+
+
+def _route(phase, tile=4096):
+    """The distances of the pair sort's phase at run tile * 2^(phase - 1):
+    the mirrored step at the run, then plain steps down to the tile."""
+    return [tile << t for t in range(phase - 1, -1, -1)]
+
+
+def test_exchange_plan_of_the_route():
+    """The route's phases of 1-12 steps make 1, 1, 1, 1, 2, 2, 2, 2, 3, 3,
+    3, 3 passes (24 an insert, from 78 steps), each run of four steps one
+    pass, the mirrored step first in its phase's first pass; at rows of
+    more than four columns (csrc/bitonic.cu max_group) three steps a
+    pass."""
+    passes = [exchange_plan(_route(k), True, 0, 4)
+              for k in range(1, 13)]
+    assert [len(p) for p in passes] == [1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3]
+    assert sum(map(len, passes)) == 24
+    for k, plan in zip(range(1, 13), passes):
+        assert [d for ps in plan for d in ps.distances] == _route(k)
+        assert [ps.mode for ps in plan] == [2] + [0] * (len(plan) - 1)
+        assert all(len(ps.distances) <= 4 for ps in plan)
+        assert not any(ps.transposed for ps in plan)
+    assert exchange_plan(_route(12), True) == [
+        Pass((1 << 23, 1 << 22, 1 << 21, 1 << 20), 2),
+        Pass((1 << 19, 1 << 18, 1 << 17, 1 << 16), 0),
+        Pass((1 << 15, 1 << 14, 1 << 13, 1 << 12), 0)]
+    assert exchange_plan(_route(5), True) == [
+        Pass((1 << 16, 1 << 15, 1 << 14, 1 << 13), 2), Pass((1 << 12,), 0)]
+    assert exchange_plan(_route(1), True) == [Pass((4096,), 2)]
+    wide = exchange_plan(_route(12, 1024), True, 0, 3)
+    assert [len(ps.distances) for ps in wide] == [3, 3, 3, 3]
+
+
+@pytest.mark.parametrize("dist,mirror,transposes,limit,want", [
+    # isolated distances: one jf_exchange pass each
+    ([1 << 12, 64, 1], False, 0, 4, [(1 << 12,), (64,), (1,)]),
+    # runs longer than the limit, and runs broken by a jump
+    ([64, 32, 16, 8, 4, 2, 1], False, 0, 4, [(64, 32, 16, 8), (4, 2, 1)]),
+    ([64, 32, 16, 8, 4, 2, 1], True, 0, 3, [(64, 32, 16), (8, 4, 2), (1,)]),
+    ([8, 4, 16, 8, 8], False, 0, 4, [(8, 4), (16, 8), (8,)]),
+    # a transposed read takes its first step alone; two transposes cancel
+    ([512, 256, 128, 64, 32], False, 1, 4, [(512,), (256, 128, 64, 32)]),
+    ([512, 256, 128, 64, 32], False, 2, 4, [(512, 256, 128, 64), (32,)]),
+    ([512, 256], True, 1, 4, [(512,), (256,)]),
+])
+def test_exchange_plan_cuts(dist, mirror, transposes, limit, want):
+    """exchange_plan as a pure function: maximal runs of consecutive
+    halvings of at most `limit` steps, in order; only the first pass can
+    be mirrored or transposed. Run through the plain models (fused passes
+    by exchange_group_plain, lone steps by exchange_stages_plain) the plan
+    equals exchange_stages_plain on the whole list."""
+    plan = exchange_plan(dist, mirror, transposes, limit)
+    assert [ps.distances for ps in plan] == want
+    assert [ps.mode for ps in plan] == [2 * mirror] + [0] * (len(plan) - 1)
+    assert [ps.transposed for ps in plan] == (
+        [transposes % 2 == 1] + [False] * (len(plan) - 1))
+    rng = np.random.default_rng(8100 + len(dist))
+    m = max(128 * 128 if transposes else 0, 4 * max(dist))
+    keys, pay = _pairs(rng, m, 2, True)
+    k, p = keys, pay
+    for ps in plan:
+        if len(ps.distances) > 1:
+            k, p = exchange_group_plain(k, p, ps.distances[-1],
+                                        len(ps.distances), ps.mode == 2)
+        else:
+            k, p = exchange_stages_plain(k, p, ps.distances,
+                                         int(ps.transposed), ps.mode == 2)
+    want_k, want_p = exchange_stages_plain(keys, pay, dist, transposes,
+                                           mirror)
+    assert torch.equal(k, want_k) and torch.equal(p, want_p)
+

@@ -179,3 +179,35 @@ def test_wrappers_check_their_inputs():
         roll_lanes(keys.t(), 1)
     with pytest.raises(ValueError, match="contiguous int64"):
         roll_lanes(counts, 1)
+
+
+@pytest.mark.parametrize("wk", [1, 3, 4])
+@pytest.mark.parametrize("off", [
+    1001, 1000,        # inside the run: an odd and an even off * wk
+    -777, -778,        # across its start
+    4001, 4000,        # across its end
+    5000, 5001,        # wholly past the end (from its last row + 1)
+    -3000, -3001,      # wholly before its start
+])
+def test_window_rows_plain_at_both_parities(wk, off):
+    """Windows of 3000 rows of a 5000-row run, several of the card
+    kernel's tiles of 2048 words, at an odd and an even first source word
+    off * Wk (its 16-byte and 8-byte loads), across either end and wholly
+    outside the run: rows outside [0, M) are PAD rows with count 0, the
+    others the run's rows, against numpy."""
+    rng = np.random.default_rng(9000 + 10 * wk + off % 7)
+    m, n = 5000, 3000
+    keys = rng.integers(0, 1 << 32, (m, wk))
+    counts = rng.integers(1, 1 << 40, m)
+    rows = np.arange(off, off + n)
+    inside = (rows >= 0) & (rows < m)
+    want_k = np.full((n, wk), pad_of(wk), dtype=np.int64)
+    want_c = np.zeros(n, dtype=np.int64)
+    want_k[inside] = keys[rows[inside]]
+    want_c[inside] = counts[rows[inside]]
+    for o in (off, torch.tensor(off)):
+        for fn in (window_rows_plain, window_rows):
+            k, c = fn(torch.from_numpy(keys), torch.from_numpy(counts), o, n)
+            np.testing.assert_array_equal(k.numpy(), want_k)
+            np.testing.assert_array_equal(c.numpy(), want_c)
+    assert window_rows.launches == 0
