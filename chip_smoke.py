@@ -8,8 +8,11 @@ entry point against its plain PyTorch version at the shapes its path gives
 it and at the Pallas kernels' own shapes; row 8's fused passes of up to
 four steps (jf_exchange_group) also at Wk 2 and 7 with a payload and Wk 4
 keys only, each timed against the same steps one pass each, and row 9's
-windows inside and across either end of a run at odd and even offsets.
-Kernel times are device times (cuda_ms). Runs `count` end to end through
+windows inside and across either end of a run at odd and even offsets;
+K1's merge_pass and its partition pass (merge_splits) at every key width,
+keys only and with a payload, in runs of 1, 2,048, 2^16 and 2^22 rows,
+and timed at the k = 63 grain's passes. Kernel times are device times
+(cuda_ms); K2's keep mask, whose call waits on the host, by the profiler. Runs `count` end to end through
 the CLI at k = 21, 33, 63 and 100 with every record checked against a
 numpy oracle; merges 4 parts of the k = 63 input in small windows (every
 slab rotated) and checks the result against the whole input's count, and
@@ -265,10 +268,15 @@ def _wrappers() -> dict:
         flip,
     )
     from jellyfish_tpu_torch.kernels.compact import compact
-    from jellyfish_tpu_torch.kernels.merge_path import merge_pass, merge_path
+    from jellyfish_tpu_torch.kernels.merge_path import (
+        merge_pass,
+        merge_path,
+        merge_splits,
+    )
     from jellyfish_tpu_torch.kernels.window import roll_lanes, window_rows
 
     return {"merge_path": merge_path, "merge_pass": merge_pass,
+            "merge_splits": merge_splits,
             "compact": compact, "block_sort": block_sort,
             "block_merge": block_merge,
             "exchange_stages": exchange_stages, "flip": flip,
@@ -436,7 +444,18 @@ def phase_kernels(dev):
                    lambda: compact_plain(keys, vals, keep)[:2],
                    m * (wk + 1) * 8 + m + n * (wk + 1) * 8,
                    library=lambda: (keys[keep], vals[keep]))
-    # the row is the full-size merge's width, Wk 1
+    # the keep mask's two kernels alone (the row is the full-size merge's
+    # width, Wk 1): the call reads its kept count on the host, so it runs
+    # at the host's pace, and its kernels' device time comes from the
+    # profiler, ten calls in one window, each kernel's mean over the
+    # launches the profiler recorded
+    prof_rows = profiled(lambda: [compact(keys, vals, keep)
+                                  for _ in range(10)])[2]
+    kernel_us = sum(us / n for name, us, n in prof_rows if "compact_" in name)
+    row = dict(row, call_ms=row["ms"], ms=kernel_us / 1e3)
+    log(f"  {label}: kernels {row['ms']:.4f} ms a call (profiler: "
+        f"{[(name[:60], us, n) for name, us, n in prof_rows[:4]]}), the "
+        f"call {row['call_ms']:.4f} ms")
     rows["compact_keep"] = dict(
         name="compact.keep_mask", route="cuda",
         source="jellyfish_tpu_torch/csrc/compact.cu",
@@ -537,10 +556,13 @@ def phase_k3(dev):
     and at a grain's shape (2^26 rows of 4 limbs, keys only; 2^24 rows of
     7 limbs with a row-index payload), plus a ragged row count;
     block_merge on bitonic tiles at Wk 2 (with and without a payload) and
-    Wk 7 + payload, and on unsorted small tiles. Returns
-    the JSON rows of block_sort, flip and merge_pass (exchange_stages'
-    rows come from phase_bloom, at the Bloom insert's shape), and the
-    table's per-row numbers."""
+    Wk 7 + payload, and on unsorted small tiles; merge_pass and
+    merge_splits at Wk 1-7 (keys only and with a payload), and merge_pass
+    timed at the k = 63 grain's first and last passes and at Wk 1 +
+    payload against a stable torch.sort of each pair. Returns the JSON
+    rows of block_sort, flip, merge_pass and merge_splits
+    (exchange_stages' rows come from phase_bloom, at the Bloom insert's
+    shape), and the table's per-row numbers."""
     from jellyfish_tpu_torch.kernels.bitonic import (
         block_merge,
         block_merge_plain,
@@ -555,6 +577,10 @@ def phase_k3(dev):
     from jellyfish_tpu_torch.kernels.merge_path import (
         merge_pass,
         merge_pass_plain,
+        merge_splits,
+        merge_splits_plain,
+        pass_tile_rows,
+        split_steps,
     )
     from jellyfish_tpu_torch.kernels.sort import sort_rows_blocked
     from jellyfish_tpu_torch.ops.count import sort_rows, sort_rows_plain
@@ -654,6 +680,26 @@ def phase_k3(dev):
         f"K1 merge_pass {m} rows, Wk 4, keys only, runs of 2^22",
         lambda: merge_pass(runs, 1 << 22),
         lambda: merge_pass_plain(runs, 1 << 22), 2 * row_bytes)
+    # its partition pass: the splits of 8 pairs at tiles of 2048 rows; the
+    # least bytes a boundary's search reads are the two rows either side
+    # of its split
+    tile = pass_tile_rows(4, False)
+    pairs, steps = split_steps(m, 1 << 22, tile)
+    n_splits = pairs * (steps + 1)
+    splits_row = hold(
+        f"K1 merge_splits {m} rows, Wk 4, runs of 2^22, tiles of {tile}",
+        lambda: merge_splits(runs, 1 << 22, tile),
+        lambda: merge_splits_plain(runs, 1 << 22, tile),
+        n_splits * (8 + 2 * 4 * 8))
+    # the grain's first pass: runs of 2048 as block_sort leaves them; the
+    # plain version of a pass over 32,768 pairs is the stable sort of each
+    # pair (block_sort_plain at tiles of 4096, keys only)
+    runs = block_sort(x)[0]
+    table["merge_pass first"] = hold(
+        f"K1 merge_pass {m} rows, Wk 4, keys only, runs of 2048 (the "
+        "grain's first pass)",
+        lambda: merge_pass(runs, 2048)[0],
+        lambda: block_sort_plain(runs, tile=4096)[0], 2 * row_bytes)
     del x, runs
     # 2^24 rows of 7 limbs (k = 100) with a row-index payload: stable
     m = 1 << 24
@@ -673,9 +719,10 @@ def phase_k3(dev):
          lambda: block_merge_plain(bk, bi, 1024))
     del bk, bi
     runs, ridx = block_sort_plain(x, idx, tile=1 << 16)
-    hold(f"K1 merge_pass {m} rows, Wk 7 + payload, runs of 2^16",
-         lambda: merge_pass(runs, 1 << 16, ridx),
-         lambda: merge_pass_plain(runs, 1 << 16, ridx))
+    table["merge_pass wk=7 + payload"] = hold(
+        f"K1 merge_pass {m} rows, Wk 7 + payload, runs of 2^16",
+        lambda: merge_pass(runs, 1 << 16, ridx),
+        lambda: merge_pass_plain(runs, 1 << 16, ridx), 2 * m * 8 * 8)
     hold(f"sort_rows_blocked {m} rows, Wk 7 + row index: the stable perm",
          lambda: sort_rows_blocked(x, idx), lambda: sort_rows_plain(x))
     del x, idx, runs, ridx
@@ -691,6 +738,45 @@ def phase_k3(dev):
          lambda: merge_pass(runs, 1 << 17),
          lambda: merge_pass_plain(runs, 1 << 17))
     del x, idx, runs
+    # merge_pass and its splits at every key width, keys only and with a
+    # row-index payload (so a tie out of order shows): runs of one row
+    # (4,097 rows), of 2,048 and 2^16 rows and one longer than the array
+    # (2^22) on (1 << 20) + 777 rows: a short last pair, a lone last run
+    for wk in range(1, 8):
+        for m, run_lens in ((4097, (1,)),
+                            ((1 << 20) + 777, (2048, 1 << 16, 1 << 22))):
+            x = grain(m, wk, m >> 2)
+            idx = torch.arange(m, device=dev)
+            for run in run_lens:
+                runs = x if run == 1 else block_sort_plain(x, tile=run)[0]
+                for pay in (None, idx):
+                    tile = pass_tile_rows(wk, pay is not None)
+                    hold(f"K1 merge_pass {m} rows, Wk {wk}"
+                         f"{' + payload' if pay is not None else ''}, runs "
+                         f"of {run}; its splits at tiles of {tile}",
+                         lambda: merge_pass(runs, run, pay)
+                         + (merge_splits(runs, run, tile),),
+                         lambda: merge_pass_plain(runs, run, pay)
+                         + (merge_splits_plain(runs, run, tile),))
+            del x, idx, runs
+    # Wk 1 + payload (the Bloom insert's rows), 2^24 rows in runs of 2^22,
+    # against the one PyTorch call that merges them: a stable sort of each
+    # pair's keys, and a gather of the payload
+    m, run = 1 << 24, 1 << 22
+    x = torch.sort(torch.randint(-(1 << 63), (1 << 63) - 1, (m // run, run),
+                                 device=dev, generator=g), dim=1)[0]
+    x = x.reshape(-1, 1)
+    pay = torch.randint(0, 1 << 40, (m,), device=dev, generator=g)
+
+    def library():
+        s, perm = torch.sort(x.view(-1, 2 * run), dim=1, stable=True)
+        return s, torch.gather(pay.view(-1, 2 * run), 1, perm)
+
+    table["merge_pass wk=1 + payload"] = hold(
+        f"K1 merge_pass {m} rows, Wk 1 + payload, runs of 2^22",
+        lambda: merge_pass(x, run, pay), lambda: merge_pass_plain(x, run, pay),
+        2 * m * 16, library=library)
+    del x, pay
     # block_merge at Wk 2 (BitsArray's (seq, id) rows): bitonic tiles of
     # the largest tile and of a small one (several tiles a block), and
     # unsorted tiles
@@ -731,7 +817,15 @@ def phase_k3(dev):
         "merge_pass": json_row(
             "merge_path.merge_pass", pass_row,
             "jellyfish_tpu_torch/csrc/merge_path.cu",
-            "experiments/pallas_merge_probe.py:492"),
+            "experiments/pallas_merge_probe.py:492",
+            note="one call is two kernel launches: merge_splits, then the "
+                 "tiles"),
+        "merge_splits": json_row(
+            "merge_path.merge_splits", splits_row,
+            "jellyfish_tpu_torch/csrc/merge_path.cu",
+            "experiments/pallas_merge_probe.py:492",
+            note="merge_pass's partition pass (the Pallas merge's split "
+                 "points, computed there by XLA outside the kernel)"),
     }
     return rows, table
 
@@ -1909,6 +2003,7 @@ def main() -> int:
     t_script = time.perf_counter()
     _build.build(["merge_path", "compact", "bitonic", "window"])
     log(f"build: {time.perf_counter() - t_script:.1f} s")
+    ptxas_report("merge_path")
     ptxas_report("bitonic")
     ptxas_report("window")
 
@@ -1922,11 +2017,14 @@ def main() -> int:
         seq21 = phase_cli(tmp, 21, 32_000_000, 4_000_000, seed=21,
                           need=["compact"])
         phase_cli(tmp, 33, 4_000_000, 1_000_000, seed=33,
-                  need=["compact", "block_sort", "merge_pass"])
+                  need=["compact", "block_sort", "merge_pass",
+                        "merge_splits"])
         phase_cli(tmp, 63, 12_000_000, 3_000_000, seed=63,
-                  need=["compact", "block_sort", "merge_pass", "merge_path"])
+                  need=["compact", "block_sort", "merge_pass",
+                        "merge_splits", "merge_path"])
         phase_cli(tmp, 100, 2_000_000, 1_000_000, seed=100,
-                  need=["compact", "block_sort", "merge_pass"])
+                  need=["compact", "block_sort", "merge_pass",
+                        "merge_splits"])
         merge63 = phase_merge_ops(tmp, os.path.join(tmp, "r63.fq"),
                                   os.path.join(tmp, "o63.jf"), dev)
         on_merge = ["window_rows", "roll_lanes", "merge_path", "compact"]
@@ -1949,7 +2047,8 @@ def main() -> int:
         # the full-size merge's. flip lies on no path and reports the
         # bc's 0
         path = {"merge_path": 21, "compact": 21, "block_sort": 63,
-                "merge_pass": 63, "block_sort_bloom": "bloom",
+                "merge_pass": 63, "merge_splits": 63,
+                "block_sort_bloom": "bloom",
                 "block_merge": "bloom", "exchange_stages": "bloom",
                 "exchange_stages_mirror": "bloom", "flip": "bloom",
                 "window_rows": "merge", "roll_lanes": "merge",

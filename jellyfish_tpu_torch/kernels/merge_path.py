@@ -9,9 +9,13 @@ deduplicated runs leaves each shared key on two adjacent rows, A's count
 first (ops/count.fold_adjacent sums them).
 
 `merge_pass` is one pass of a merge sort (kernels/sort.py): every adjacent
-pair of sorted runs of L rows merged at once, the payload optional.
-`merge_path.launches` and `merge_pass.launches` count calls; each call is
-one kernel launch.
+pair of sorted runs of L rows merged at once, the payload optional. On the
+card a call is two kernel launches: `merge_splits` (the partition pass:
+where each output tile of `pass_tile_rows` rows starts in its pair's first
+run) and the tile merge that reads those splits. `merge_path.launches`,
+`merge_pass.launches` and `merge_splits.launches` count calls; a
+`merge_path` or `merge_splits` call is one kernel launch, a `merge_pass`
+call two (its `merge_splits` call counts there too).
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from jellyfish_tpu_torch.kernels import _build
 from jellyfish_tpu_torch.ops.count import sort_rows_plain
 
 __all__ = ["merge_path", "merge_path_plain", "merge_pass",
-           "merge_pass_plain", "MAX_KEY_COLS"]
+           "merge_pass_plain", "merge_splits", "merge_splits_plain",
+           "pass_tile_rows", "split_steps", "MAX_KEY_COLS"]
 
 MAX_KEY_COLS = 7  # the kernel's WK template instances (k <= 112)
 
@@ -32,8 +37,10 @@ _P, _N = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "jf_merge_path": (ctypes.c_int,
                       [_P, _P, _N, _P, _P, _N, _P, _P, ctypes.c_int, _P]),
+    "jf_merge_splits": (ctypes.c_int,
+                        [_P, _N, _N, _N, _P, ctypes.c_int, _P]),
     "jf_merge_pass": (ctypes.c_int,
-                      [_P, _P, _N, _N, _P, _P, ctypes.c_int, _P]),
+                      [_P, _P, _N, _N, _N, _P, _P, _P, ctypes.c_int, _P]),
 }
 
 
@@ -85,6 +92,80 @@ def merge_path(a_keys, a_cnt, b_keys, b_cnt):
 merge_path.launches = 0
 
 
+def pass_tile_rows(wk: int, payload: bool) -> int:
+    """Output rows of one merge_pass tile (csrc/merge_path.cu PassTile):
+    256 threads of 17, 9 or 5 rows for rows of up to 2, 5 or 7 columns
+    (key columns and the payload), so that two stages of a tile fit in
+    shared memory."""
+    cols = wk + int(payload)
+    return 256 * (17 if cols <= 2 else 9 if cols <= 5 else 5)
+
+
+def split_steps(m: int, run_len: int, tile: int) -> tuple[int, int]:
+    """(pairs, steps) of a pass over m rows at tiles of `tile` rows: a run
+    past the array is the array; each pair is served by `steps` tiles and
+    has steps + 1 splits."""
+    if m == 0:
+        return 0, 0
+    run = min(run_len, m)
+    return -(-m // (2 * run)), -(-min(2 * run, m) // tile)
+
+
+def _check_pass(keys, run_len, tile=1):
+    if keys.dtype != torch.int64 or not keys.is_contiguous() or keys.dim() != 2:
+        raise ValueError("merge_pass takes contiguous int64 keys [M, Wk]")
+    if not 1 <= keys.shape[1] <= MAX_KEY_COLS or run_len < 1 or tile < 1:
+        raise ValueError(f"merge_pass: key width {keys.shape[1]}, run "
+                         f"length {run_len}, tile {tile}")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"merge_pass: unsupported device {keys.device}")
+
+
+def merge_splits_plain(keys, run_len, tile):
+    """merge_splits by the stable sort of each pair: the A rows among the
+    first d rows of the pair's merge are those among the first d of the
+    sort's perm that come from the first run."""
+    m = keys.shape[0]
+    pairs, steps = split_steps(m, run_len, tile)
+    out = torch.empty((pairs, steps + 1), dtype=torch.int64,
+                      device=keys.device)
+    run = min(run_len, m)
+    for p in range(pairs):
+        pair = keys[2 * p * run:2 * (p + 1) * run]
+        from_a = sort_rows_plain(pair)[1] < min(run, len(pair))
+        taken = torch.cat([from_a.new_zeros(1, dtype=torch.int64),
+                           torch.cumsum(from_a, 0)])
+        d = torch.arange(steps + 1, device=keys.device) * tile
+        out[p] = taken[d.clamp(max=len(pair))]
+    return out.reshape(-1)
+
+
+def merge_splits(keys, run_len, tile):
+    """The splits of a merge pass over sorted runs of `run_len` rows of
+    keys [M, Wk] at tiles of `tile` output rows -> int64 [pairs x (steps +
+    1)] (split_steps): entry p (steps + 1) + t is the number of rows of
+    pair p's first run among the first min(t tile, pair rows) rows of the
+    pair's stable merge."""
+    _check_pass(keys, run_len, tile)
+    if keys.device.type == "cpu":
+        return merge_splits_plain(keys, run_len, tile)
+    m, wk = keys.shape
+    pairs, steps = split_steps(m, run_len, tile)
+    splits = torch.empty(pairs * (steps + 1), dtype=torch.int64,
+                         device=keys.device)
+    fn = _build.load("merge_path", _SIGNATURES).jf_merge_splits
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        rc = fn(keys.data_ptr(), m, run_len, tile, splits.data_ptr(), wk,
+                stream)
+    _build.check(rc, "merge_splits")
+    merge_splits.launches += 1
+    return splits
+
+
+merge_splits.launches = 0
+
+
 def merge_pass_plain(keys, run_len, payload=None):
     """Per pair of runs, the stable sort of the pair (merge_path_plain's
     arithmetic)."""
@@ -103,11 +184,8 @@ def merge_pass(keys, run_len, payload=None):
     [M, Wk] (the last pair may be short, a lone last run is copied), each
     stably, with the payload [M] if given. Returns (keys, payload or
     None)."""
-    if keys.dtype != torch.int64 or not keys.is_contiguous() or keys.dim() != 2:
-        raise ValueError("merge_pass takes contiguous int64 keys [M, Wk]")
+    _check_pass(keys, run_len)
     m, wk = keys.shape
-    if not 1 <= wk <= MAX_KEY_COLS or run_len < 1:
-        raise ValueError(f"merge_pass: key width {wk}, run length {run_len}")
     if payload is not None and (
             payload.dtype != torch.int64 or not payload.is_contiguous()
             or payload.shape != (m,) or payload.device != keys.device):
@@ -116,8 +194,8 @@ def merge_pass(keys, run_len, payload=None):
     dev = keys.device
     if dev.type == "cpu":
         return merge_pass_plain(keys, run_len, payload)
-    if dev.type != "cuda":
-        raise ValueError(f"merge_pass: unsupported device {dev}")
+    tile = pass_tile_rows(wk, payload is not None)
+    splits = merge_splits(keys, run_len, tile)
     out_k = torch.empty_like(keys)
     out_p = None if payload is None else torch.empty_like(payload)
     fn = _build.load("merge_path", _SIGNATURES).jf_merge_pass
@@ -125,8 +203,8 @@ def merge_pass(keys, run_len, payload=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(keys.data_ptr(),
                 None if payload is None else payload.data_ptr(), m, run_len,
-                out_k.data_ptr(), None if out_p is None else out_p.data_ptr(),
-                wk, stream)
+                tile, splits.data_ptr(), out_k.data_ptr(),
+                None if out_p is None else out_p.data_ptr(), wk, stream)
     _build.check(rc, "merge_pass")
     merge_pass.launches += 1
     return out_k, out_p

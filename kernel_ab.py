@@ -13,9 +13,13 @@ of PERF.md's kernel table: row 9's windows (eight 2^20-row windows of a
 2^24-row slab a call, 1,500,000 rows apart, Wk 1 at odd and even offsets
 and Wk 4), row 10's rotation of the slab, rows 7, 8 and 11 at the Pallas
 probes' shapes, the standalone flip, K2's keep mask at the merge's round,
-and at the Bloom insert's shape (2^24 rows, Wk 1 + payload) row 8's last
+at the Bloom insert's shape (2^24 rows, Wk 1 + payload) row 8's last
 phase, row 12's mirrored step, block_sort, block_merge and the whole pair
-sort. Needs a CUDA card; the wrappers' APIs must match across the trees.
+sort; K1's merge_pass at the k = 63 grain (2^26 rows, Wk 4, keys only) in
+runs of 2^22 and of 2,048 (its first pass) and at 2^24 rows of Wk 1 +
+payload in runs of 2^22, and K1's merge_path at row 1's shape (A 2^24 + B
+2^24 rows, Wk 1 with counts, 90% of keys in both). Needs a CUDA card; the
+wrappers' APIs must match across the trees.
 
 Prints one JSON line a run, then the card's name and power limit (nvidia-smi)
 and a JSON object of each case's times (ms a call; a window for row 9), one
@@ -122,6 +126,44 @@ def cases(dev):
     pairs, wb = pos[:INSERT_PAIRS].contiguous(), pw[:INSERT_PAIRS].contiguous()
     out.append(("the pair sort, one insert's 8,890,770 pairs",
                 lambda: sort_pairs_bitonic(pairs, wb), 1))
+    out += merge_cases(dev, g, ints)
+    return out
+
+
+def merge_cases(dev, g, ints):
+    """K1's cases: merge_pass over sorted runs (each run sorted by the
+    plain LSD chain of stable sorts) and merge_path over two sorted runs
+    drawn from one pool."""
+    import torch
+
+    from jellyfish_tpu_torch.kernels.merge_path import merge_pass, merge_path
+    from jellyfish_tpu_torch.ops.count import row_order
+
+    def sorted_runs(m, wk, run):
+        x = ints(1 << 32, m // run, run, wk)
+        order = row_order(x)
+        return torch.gather(x, 1, order[..., None].expand_as(x)).reshape(
+            m, wk)
+
+    out = []
+    g4 = sorted_runs(1 << 26, 4, 1 << 22)
+    out.append(("K1 merge_pass 2^26 rows, Wk 4, keys only, runs of 2^22",
+                lambda: merge_pass(g4, 1 << 22), 1))
+    f4 = sorted_runs(1 << 26, 4, 2048)
+    out.append(("K1 merge_pass 2^26 rows, Wk 4, keys only, runs of 2048",
+                lambda: merge_pass(f4, 2048), 1))
+    w1 = torch.sort(ints(1 << 62, 4, 1 << 22), dim=1)[0].reshape(-1, 1)
+    p1 = ints(1 << 40, 1 << 24)
+    out.append(("K1 merge_pass 2^24 rows, Wk 1 + payload, runs of 2^22",
+                lambda: merge_pass(w1, 1 << 22, p1), 1))
+    n = 1 << 24
+    pool = torch.sort(ints(1 << 62, int(n / 0.9)))[0]
+    a, b = (pool[torch.sort(torch.randperm(len(pool), device=dev,
+                                           generator=g)[:n])[0]]
+            .reshape(-1, 1).contiguous() for _ in range(2))
+    ac, bc = ints(1 << 20, n), ints(1 << 20, n)
+    out.append(("K1 merge_path A 2^24 + B 2^24 rows, Wk 1, 90% of keys in "
+                "both (row 1)", lambda: merge_path(a, ac, b, bc), 1))
     return out
 
 

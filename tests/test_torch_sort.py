@@ -34,7 +34,14 @@ from jellyfish_tpu_torch.kernels.bitonic import (
     flip_plain,
     tile_rows,
 )
-from jellyfish_tpu_torch.kernels.merge_path import merge_pass, merge_pass_plain
+from jellyfish_tpu_torch.kernels.merge_path import (
+    merge_pass,
+    merge_pass_plain,
+    merge_splits,
+    merge_splits_plain,
+    pass_tile_rows,
+    split_steps,
+)
 from jellyfish_tpu_torch.kernels.sort import sort_rows_blocked
 from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.count import sort_rows, sort_rows_plain
@@ -246,6 +253,131 @@ def test_merge_pass_plain(wk, run):
     assert merge_pass.launches == 0
 
 
+def _sorted_runs(keys, run):
+    """keys with each run of `run` rows sorted."""
+    keys = keys.clone()
+    for s in range(0, len(keys), run):
+        keys[s:s + run] = sort_rows_plain(keys[s:s + run])[0]
+    return keys
+
+
+def _splits_brute(keys, run, tile):
+    """merge_splits by numpy: per pair, a stable lexicographic sort (last
+    column first) and the count of first-run rows before each tile
+    boundary."""
+    x = keys.numpy()
+    m = len(x)
+    run = min(run, m)
+    out = []
+    for s in range(0, m, 2 * run):
+        pair = x[s:s + 2 * run]
+        from_a = np.lexsort(pair.T) < min(run, len(pair))
+        steps = -(-min(2 * run, m) // tile)
+        out += [int(from_a[:min(t * tile, len(pair))].sum())
+                for t in range(steps + 1)]
+    return out
+
+
+@pytest.mark.parametrize("m,run", [
+    (4 * 40 + 40 + 9, 40),   # a short last pair
+    (4 * 40 + 9, 40),        # a lone last run
+    (37, 1),                 # runs of one row
+    (50, 64),                # a run longer than the array
+    (300, 128),              # few values: ties within and across runs
+])
+@pytest.mark.parametrize("wk", range(1, 8))
+def test_merge_splits_plain_at_every_boundary(wk, m, run):
+    """The partition pass's plain twin against a numpy count, at tiles of
+    one row (every diagonal a boundary) and at ragged tiles; ties across
+    the two runs and whole-row ties come first from A."""
+    rng = np.random.default_rng(3100 + 10 * wk + run)
+    keys = _rows(rng, m, wk)
+    if run == 128:
+        keys = torch.from_numpy(rng.integers(0, 3, (m, wk), dtype=np.int64))
+    keys = _sorted_runs(keys, run)
+    for tile in (1, 3, 64):
+        got = merge_splits_plain(keys, run, tile)
+        assert got.tolist() == _splits_brute(keys, run, tile)
+        pairs, steps = split_steps(m, run, tile)
+        assert got.shape == (pairs * (steps + 1),)
+        assert torch.equal(merge_splits(keys, run, tile), got)
+    assert merge_splits.launches == 0
+
+
+def test_pass_tile_rows():
+    """The pass tiles of csrc/merge_path.cu: 17, 9 or 5 rows a thread of
+    256 for rows of up to 2, 5 or 7 columns with the payload."""
+    assert [pass_tile_rows(wk, False) for wk in range(1, 8)] == [
+        4352, 4352, 2304, 2304, 2304, 1280, 1280]
+    assert [pass_tile_rows(wk, True) for wk in range(1, 8)] == [
+        4352, 2304, 2304, 2304, 1280, 1280, 1280]
+    assert split_steps(0, 5, 4352) == (0, 0)
+    assert split_steps(1 << 26, 1 << 22, 2304) == (8, 3641)
+    assert split_steps((1 << 20) + 777, 1 << 22, 2304) == (1, 456)
+    assert split_steps(1 << 26, 2048, 2304) == (1 << 14, 2)
+
+
+@pytest.fixture(scope="module")
+def merge_probe():
+    """experiments/pallas_merge_probe.py in interpret mode (its import
+    points JAX's compilation cache outside the checkout, undone here)."""
+    os.environ["JF_PALLAS_INTERPRET"] = "1"
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        import pallas_merge_probe
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+    assert pallas_merge_probe.INTERPRET
+    return pallas_merge_probe
+
+
+@pytest.mark.parametrize("w", [1, 3, 7])
+def test_merge_pass_plain_matches_pallas(merge_probe, w):
+    """merge_pass_plain over two pairs of sorted runs of W-limb keys (store
+    key columns: packed for W = 1) with a count, pair by pair against
+    build_merge_n (experiments/pallas_merge_probe.py:492), which merges
+    (hi, lo) = the top two limbs with the lower limbs and the count as
+    payloads. The top two limbs are distinct across each pair: the Pallas
+    merge keeps no order among equal keys."""
+    rng = np.random.default_rng(3200 + w)
+    run = merge_probe.T_OUT // 2
+    limbs, cnts = [], []
+    for _ in range(2):
+        top = rng.choice(1 << (32 if w == 1 else 52), 2 * run,
+                         replace=False).astype(np.uint64)
+        x = rng.integers(0, 1 << 32, (2 * run, w), dtype=np.uint64)
+        if w == 1:
+            x[:, 0] = top
+        else:
+            x[:, w - 1] = top >> np.uint64(20)
+            x[:, w - 2] = top & np.uint64((1 << 20) - 1)
+        for half in (x[:run], x[run:]):
+            half[:] = half[np.argsort(mw.to_ints(half), kind="stable")]
+        limbs.append(x)
+        cnts.append(rng.integers(1, 1 << 31, 2 * run))
+    keys = mw.key_columns(torch.from_numpy(
+        np.concatenate(limbs).astype(np.int64))).contiguous()
+    cnt = torch.from_numpy(np.concatenate(cnts))
+    got_k, got_c = merge_pass_plain(keys, run, cnt)
+    got = mw.limbs_of_key_columns(got_k, w).numpy().astype(np.uint32)
+
+    def ops(x, c):
+        hi = x[:, -1] if w > 1 else np.zeros(len(x), np.uint32)
+        lo = x[:, -2] if w > 1 else x[:, 0]
+        return [hi, lo] + [x[:, i] for i in range(w - 2)] + [c]
+
+    f = merge_probe.build_merge_n(1, 2 * run, max(w - 2, 0) + 1)
+    for p, (x, c) in enumerate(zip(limbs, cnts)):
+        x, c = x.astype(np.uint32), c.astype(np.uint32)
+        outs = [np.asarray(o) for o in f(*[
+            jnp.asarray(v) for v in ops(x[:run], c[:run])
+            + ops(x[run:], c[run:])])]
+        rows = slice(2 * p * run, 2 * (p + 1) * run)
+        want = ops(got[rows], got_c[rows].numpy().astype(np.uint32))
+        for o, v in zip(outs, want, strict=True):
+            np.testing.assert_array_equal(o, v)
+
+
 def test_wrappers_on_cpu_tensors_are_the_plain_versions():
     rng = np.random.default_rng(4000)
     keys = _rows(rng, 1 << 15, 2)
@@ -286,6 +418,8 @@ def test_wrappers_reject_bad_inputs():
         merge_pass(k.t(), 4)
     with pytest.raises(ValueError):
         merge_pass(k, 0)
+    with pytest.raises(ValueError):
+        merge_splits(k, 4, 0)
 
 
 # -- the pair sort (Bloom insert, BitsArray): rows 6, 8 and 12 ------------
