@@ -34,8 +34,24 @@ after 8 chunks and with no false negative among the k = 21 count's mers,
 then count --bc and count --bf-size 512M of the first 64 chunks against
 their exact count, and the pair sort of kernels/sort.py (kernel-table rows
 6, 8 and 12) held against its plain version and timed beside K1's merge
-passes and torch.sort at the insert's shape. Exits nonzero, with no result
-line, when there is no GPU or any phase fails.
+passes and torch.sort at the insert's shape. count --packed-store at full
+size (phase_packed): the k = 21 count with the grain cut to 2^21 rows,
+so that runs reach level 2, rest packed and are unpacked by the merges
+that take them, and the same count dense at the same cut, both
+record-equal to the k = 21 count at the real grain; the k = 63 count
+(four limb columns) packed at the same cut, record-equal to the k = 63
+count; device bytes, peak memory and bits per entry of each, and pack_run
+and unpack_run of each k's resting run timed against their bound and held
+exact. count --if at full size (phase_if): the k = 21 count restricted to
+the mers of the first 16 chunks and of 1 Mbase of seeded random sequence,
+against a numpy join. At the CLI sizes (phase_cli_modes): count
+--packed-store at k = 21 and 63, --if and --if --disk at k = 21 and 63,
+--text, -g of 4 generator commands with -G 2, and --disk --packed-store,
+each against its oracle; and count --disk at k = 21 with the grain cut to
+2^18 rows, dense and packed, where the packed store must spill less.
+Every new path must launch K1 and K2 (and K3 at k = 63, rows 9 on --disk).
+Exits nonzero, with no result line, when there is no GPU or any phase
+fails.
 
 The last lines of standard output are the kernels' JSON line, the
 script's time, the card's name and power limit as nvidia-smi reports
@@ -44,6 +60,8 @@ them, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import glob
 import json
 import os
 import re
@@ -60,6 +78,9 @@ import torch
 K_FULL, CHUNKS, CHUNK_LEN, BATCH = (21, 63), 256, 1 << 20, 8
 BC_SIZE, BF_SIZE = "64M", "512M"  # phase_bloom's bc -s and --bf-size
 FILTER_CHUNKS = 64  # phase_bloom's count --bc and --bf-size: a quarter
+PACK_GRAIN = 1 << 21  # phase_packed's grain: 128 grains, runs at level 2
+DISK_GRAIN = 1 << 18  # the CLI --disk spill pair's grain: one a batch
+IF_CHUNKS, IF_RANDOM = 16, 1 << 20  # phase_if's allowed chunks, random bases
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 
 
@@ -1134,6 +1155,27 @@ def stage_chunks(dev):
     return chunks, staged
 
 
+def one_pass(counter, staged, step=BATCH):
+    """Feed the staged batches to counter, `step` chunks a call, then
+    finalize. Returns (mers, counts, counting s, finalize s, (device
+    bytes, PackedRuns made) at the end of counting); every row is
+    consolidated inside the counting seconds."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for pw, vb in staged:
+        for i in range(0, pw.shape[0], step):
+            counter.add_chunks_packed_batch(pw[i:i + step], vb[i:i + step])
+    # drain the raw backlog inside the timed region: every row is sorted,
+    # counted and compacted before the clock stops
+    counter.store.flush()
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t
+    held = counter.store.device_bytes(), counter.store.packed
+    t = time.perf_counter()
+    mers, counts = counter.finalize_np()
+    return mers, counts, t_count, time.perf_counter() - t, held
+
+
 def lsd_chain_sort(keys):
     """Key rows [M, Wk > 1] sorted by a chain of Wk stable argsorts and
     gathers, least significant column first: the grain sort of limb keys
@@ -1144,37 +1186,23 @@ def lsd_chain_sort(keys):
     return keys[perm]
 
 
-def phase_full(k, chunks, staged, need, compare_lsd=False, keep=False):
+def phase_full(k, chunks, staged, need, compare_lsd=False):
     """Count the staged chunks at k through MerCounter: the counting
     region ends when every row is consolidated; then finalize, a profiled
     second pass, and the totals against the host. Each kernel in `need`
     must have launched in the first pass. With compare_lsd, three more
     passes time the grain sort's routes against each other: the LSD
     chain, the kernels, the LSD chain; each must give the first pass's
-    totals. With keep, the first pass's table (mers, counts) is returned
-    too."""
+    totals. Returns (launches, results, the first pass's table (mers,
+    counts))."""
     import jellyfish_tpu_torch.ops.count as ops_count
     from jellyfish_tpu_torch.counter import MerCounter
-
-    def one_pass(counter):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for pw, vb in staged:
-            counter.add_chunks_packed_batch(pw, vb)
-        # drain the raw backlog inside the timed region: every row is
-        # sorted, counted and compacted before the clock stops
-        counter.store.flush()
-        torch.cuda.synchronize()
-        t_count = time.perf_counter() - t
-        t = time.perf_counter()
-        mers, counts = counter.finalize_np()
-        return mers, counts, t_count, time.perf_counter() - t
 
     counter = MerCounter(k, 4 << 20, canonical=True,
                          rng=np.random.default_rng(42))
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    mers, counts, t_count, t_final = one_pass(counter)
+    mers, counts, t_count, t_final, _ = one_pass(counter, staged)
     launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
 
@@ -1185,7 +1213,7 @@ def phase_full(k, chunks, staged, need, compare_lsd=False, keep=False):
         torch.profiler.ProfilerActivity.CUDA])
     t = time.perf_counter()
     with prof:
-        one_pass(counter)
+        one_pass(counter, staged)
     t_prof = time.perf_counter() - t
 
     routes = {"kernels": [t_count], "lsd_chain": []}
@@ -1195,7 +1223,7 @@ def phase_full(k, chunks, staged, need, compare_lsd=False, keep=False):
                                else kernel_route)
         try:
             counter.reset()
-            _, c, t_c, _ = one_pass(counter)
+            _, c, t_c, _, _ = one_pass(counter, staged)
         finally:
             ops_count.sort_rows = kernel_route
         if len(c) != len(counts) or c.sum() != counts.sum():
@@ -1242,12 +1270,12 @@ def phase_full(k, chunks, staged, need, compare_lsd=False, keep=False):
     missed = [n for n in need if launches[n] == 0]
     if missed:
         raise AssertionError(f"full-size k={k} ran without {missed}")
-    result = launches, dict(
+    return launches, dict(
         k=k, mers=n_valid, counting_s=t_count, mers_per_s=n_valid / t_count,
         finalize_s=t_final, device_busy_share=busy_share,
         peak_gib=peak / 2**30, distinct=len(counts),
-        **({"counting_s_by_route": routes} if compare_lsd else {}))
-    return (*result, (mers, counts)) if keep else result
+        **({"counting_s_by_route": routes} if compare_lsd else {})), (
+            mers, counts)
 
 
 def records_of(path) -> bytes:
@@ -1502,6 +1530,354 @@ def phase_disk(tmp, fq, k, size, chunk_len, need):
     for p in parts + [mem, disk, merged]:
         os.unlink(p)
     return dict(k=k, size=size, partials=len(parts), wall_s=dt)
+
+
+# -- count --packed-store, --if, --text and generators ---------------------------
+
+
+def transient_bytes(fn):
+    """Peak device bytes that fn() allocates above what is held before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def phase_packed(staged, tables, grain=PACK_GRAIN):
+    """count --packed-store at full size: MerCounter(pack_resting=True)
+    with the grain cut to `grain` rows and two chunks a call, so that the
+    main configuration's 268M windows make 128 grains and runs reach level
+    2, where they rest packed, and merges unpack them. At k = 21 (one
+    packed key column) the same count runs dense at the same cut too, in
+    turns; at k = 63 (four limb columns) it runs packed once. Every table
+    must equal tables[k] (phase_full's count at the real grain). Then
+    pack_run and unpack_run of each k's resting run, timed against their
+    bound and held exact. Returns (launches by pass, results)."""
+    from jellyfish_tpu_torch.counter import MerCounter
+    from jellyfish_tpu_torch.ops.packed_run import PackedRun
+
+    out, launches = {"packed": [], "dense": [], "packed_k63": []}, {}
+    need = {21: ["merge_path", "compact"],
+            63: ["merge_path", "compact", "block_sort", "merge_pass"]}
+    # k = 21 in turns (dense, packed, packed, dense): one pass of each mode
+    # alone was 1.4 s packed against 2.2 s dense, with the dense pass second
+    for k, mode in ((21, "dense"), (21, "packed"), (21, "packed"),
+                    (21, "dense"), (63, "packed")):
+        name = mode if k == 21 else f"{mode}_k{k}"
+        counter = MerCounter(k, 4 << 20, canonical=True,
+                             rng=np.random.default_rng(42),
+                             pack_resting=mode == "packed")
+        counter.store.consolidate_rows = grain
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        mers, counts, t_count, t_final, (held, made) = one_pass(
+            counter, staged, 2)
+        launches[name] = kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        same = (np.array_equal(mers, tables[k][0])
+                and np.array_equal(counts, tables[k][1]))
+        row = dict(k=k, counting_s=t_count, finalize_s=t_final,
+                   device_bytes_counted=held,
+                   device_bytes_resting=counter.store.device_bytes(),
+                   packed_runs_counting=made,
+                   packed_runs=counter.store.packed, peak_gib=peak / 2**30,
+                   records=len(counts), equal=same)
+        log(f"full size k={k} --packed-store grain {grain}, {mode}: "
+            f"{json.dumps(row)}; launches {launches[name]}")
+        missed = [n for n in need[k] if launches[name][n] == 0]
+        if not same or missed:
+            raise AssertionError(f"{mode} count k={k} differs or ran "
+                                 f"without {missed}")
+        out[name].append(row)
+        timing = "timing" if k == 21 else f"timing_k{k}"
+        if mode == "packed" and timing not in out:
+            rest = counter.store.levels[-1][0]
+            if not (made >= 1 and isinstance(rest, PackedRun)):
+                raise AssertionError(f"no run rested packed at level 2 at "
+                                     f"k={k}")
+            out[timing] = time_packing(rest)
+        del counter, mers, counts
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def time_packing(rest):
+    """pack_run and unpack_run at the resting run's size: device ms
+    (cuda_ms; pack's includes its one host sync, so also the profiler's
+    sum of its kernels), peak bytes above what is held, the bound
+    (bytes read + written at 3.35 TB/s), and exactness both ways."""
+    from jellyfish_tpu_torch.ops.packed_run import pack_run, unpack_run
+
+    n = rest.n
+    width = rest.key_bits - rest.p + rest.cbits
+    (keys, counts), unpack_peak = transient_bytes(lambda: unpack_run(rest))
+    again, pack_peak = transient_bytes(
+        lambda: pack_run(keys, counts, rest.key_bits))
+    exact = all(torch.equal(getattr(again, f), getattr(rest, f)) for f in (
+        "stream", "index", "esc_pos", "esc_lo", "esc_hi", "tail"))
+    k2, c2 = unpack_run(again)
+    exact = exact and torch.equal(k2, keys) and torch.equal(c2, counts)
+    del again, k2, c2
+    dense = keys.numel() * 8 + counts.numel() * 8
+    bound_ms = 1e3 * (dense + rest.device_bytes()) / PEAK_BYTES_PER_S
+    row = dict(
+        n=n, p=rest.p, width_bits=width, esc_slots=rest.esc_pos.numel(),
+        bits_per_entry=8 * rest.device_bytes() / n,
+        packed_bytes=rest.device_bytes(), dense_bytes=dense,
+        pack_ms=cuda_ms(lambda: pack_run(keys, counts, rest.key_bits),
+                        reps=3),
+        pack_kernels_ms=1e3 * profiled(
+            lambda: pack_run(keys, counts, rest.key_bits))[1],
+        unpack_ms=cuda_ms(lambda: unpack_run(rest), reps=3),
+        unpack_kernels_ms=1e3 * profiled(lambda: unpack_run(rest))[1],
+        bound_ms=bound_ms, pack_peak_bytes=pack_peak,
+        unpack_peak_bytes=unpack_peak, exact=exact)
+    log(f"pack/unpack of the resting run k={rest.key_bits // 2}: "
+        f"{json.dumps(row)}")
+    if not exact:
+        raise AssertionError("pack_run/unpack_run do not round trip")
+    return row
+
+
+def phase_if(chunks, staged, table, n_chunks=IF_CHUNKS, n_random=IF_RANDOM):
+    """count --if at full size: MerCounter.restrict_to the mers of the
+    first n_chunks chunks and of a seeded random sequence of n_random
+    bases, then the 256 staged chunks counted. The output must be the
+    allowed set, each mer with its count in `table` or 0 (a numpy join),
+    and the allowed mers that were counted come in `table`'s hash order.
+    Returns (launches, results)."""
+    from jellyfish_tpu_torch.counter import MerCounter
+
+    rng = np.random.default_rng(7)
+    rand = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n_random)]
+    allowed = [*chunks[:n_chunks], rand]
+    counter = MerCounter(21, 4 << 20, canonical=True,
+                         rng=np.random.default_rng(42))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    counter.restrict_to(allowed)
+    torch.cuda.synchronize()
+    t_restrict = time.perf_counter() - t
+    reset_counts()
+    mers, counts, t_count, t_final, _ = one_pass(counter, staged)
+    launches = kernel_counts()
+    del counter
+    torch.cuda.empty_cache()
+
+    with ThreadPoolExecutor(8) as pool:
+        words = list(pool.map(lambda c: canonical_words(c, 21)[:, 0],
+                              allowed))
+    want = np.unique(np.concatenate(words))
+    tkeys = u64_keys(table[0])
+    order = np.argsort(tkeys)
+    sorted_t = tkeys[order]
+    i = np.minimum(np.searchsorted(sorted_t, want), len(sorted_t) - 1)
+    hit = sorted_t[i] == want
+    want_counts = np.where(hit, table[1][order[i]], 0)
+    got = u64_keys(mers)
+    o = np.argsort(got)
+    same = (np.array_equal(got[o], want)
+            and np.array_equal(counts[o], want_counts))
+    # hash order: the counted ones keep their order in the full table (the
+    # searches above ran on sorted keys: unsorted ones cost 20 s on a host)
+    in_order = False
+    if same:
+        tpos, present = np.empty(len(got), np.int64), np.empty(len(got), bool)
+        tpos[o], present[o] = order[i], hit
+        in_order = bool((np.diff(tpos[present]) > 0).all())
+    res = dict(allowed=len(want), counted=int(hit.sum()),
+               zero=int((counts == 0).sum()), restrict_s=t_restrict,
+               counting_s=t_count, finalize_s=t_final, equal=same,
+               hash_order=in_order)
+    log(f"full size k=21 --if ({n_chunks} chunks + {n_random} random "
+        f"bases): {json.dumps(res)}; launches {launches}")
+    missed = [n for n in ("merge_path", "compact") if launches[n] == 0]
+    if not (same and in_order) or missed:
+        raise AssertionError(f"the restricted count is wrong or ran without "
+                             f"{missed}")
+    return launches, res
+
+
+def rows_view(words):
+    """[n, nw] uint64 rows, first column most significant -> [n] values
+    in the same order (big-endian bytes)."""
+    be = np.ascontiguousarray(words.astype(">u8"))
+    return be.view(f"V{8 * words.shape[1]}").ravel()
+
+
+def text_records(path, k):
+    """(keys [n, 1] uint64, counts) of a text database, k <= 32, in file
+    order."""
+    from jellyfish_tpu_torch.io.header import FileHeader
+
+    with open(path, "rb") as f:
+        f.seek(FileHeader.read(f).offset)
+        buf = np.frombuffer(f.read(), np.uint8)
+    nl = np.flatnonzero(buf == ord("\n"))
+    start = np.concatenate([[0], nl[:-1] + 1])
+    key = np.zeros(len(nl), np.uint64)
+    for j in range(k):
+        key = (key << np.uint64(2)) | _CODE[buf[start + j]].astype(np.uint64)
+    digits = nl - start - k - 1
+    cnt = np.zeros(len(nl), np.uint64)
+    for j in range(int(digits.max())):
+        on = j < digits
+        d = buf[np.where(on, start + k + 1 + j, 0)].astype(np.uint64) - 48
+        cnt = np.where(on, cnt * np.uint64(10) + d, cnt)
+    return key[:, None], cnt
+
+
+def phase_cli_modes(tmp):
+    """count --packed-store (k = 21, 63), --if and --if --disk -s 512k (k =
+    21, 63), --text (k = 21), -g of 4 generator commands with -G 2 (k =
+    21) and --disk --packed-store (k = 21) through the CLI on the CLI
+    phases' inputs (r21.fq, r63.fq), against their in-memory counts
+    (o21.jf, o63.jf, held to numpy by phase_cli) and a numpy join with the
+    allowed set. At these sizes no run reaches level 2, so --packed-store
+    packs only the resting run, after the dump has taken the dense one:
+    these runs check the flag's file paths. Packing in the spill decision
+    is checked by one more pair, --disk at k = 21 with the grain cut,
+    dense and packed: the packed store must write fewer partials."""
+    from jellyfish_tpu_torch import cli
+
+    out, rows = os.path.join(tmp, "mode.jf"), []
+    fq = {k: os.path.join(tmp, f"r{k}.fq") for k in (21, 63)}
+    mem = {k: os.path.join(tmp, f"o{k}.jf") for k in (21, 63)}
+    need = {21: ["merge_path", "compact"],
+            63: ["merge_path", "compact", "block_sort", "merge_pass"]}
+    on_disk = ["window_rows", "merge_path", "compact"]
+
+    def run(k, flags, inputs, check, needed, dst=out):
+        reset_counts()
+        t = time.perf_counter()
+        rc = cli.main(["count", "-m", str(k), "-s", "4M", "-C",
+                       "--matrix-seed", "1", *flags, "-o", dst, *inputs])
+        dt = time.perf_counter() - t
+        launches = kernel_counts()
+        ok = rc == 0 and check(dst)
+        missed = [n for n in needed if launches[n] == 0]
+        shown = " ".join(os.path.basename(f) for f in flags)
+        log(f"CLI count k={k} {shown}: {dt:.2f} s, == oracle: {ok}; "
+            f"launches {launches}")
+        if not ok or missed:
+            raise AssertionError(f"count {flags} k={k} is wrong or ran "
+                                 f"without {missed}")
+        rows.append(dict(k=k, flags=shown, wall_s=dt))
+
+    def same_as(path):
+        return lambda p: records_of(p) == records_of(path)
+
+    def same_set(path):
+        """The records of path in another hash order (another -s)."""
+        _, _, want, want_c = read_records(path)
+
+        def check(p):
+            h, words, sw, sc = read_records(p)
+            return (np.array_equal(sw, want) and np.array_equal(sc, want_c)
+                    and sortkeys_ascend(h, words))
+        return check
+
+    for k in (21, 63):
+        run(k, ["--packed-store"], [fq[k]], same_as(mem[k]), need[k])
+
+    for k in (21, 63):
+        # allowed: the first 2,000 reads and 100,000 random bases
+        with open(fq[k], "rb") as f:
+            reads = f.read().split(b"\n")[1:8000:4]
+        rand = np.frombuffer(b"ACGT", np.uint8)[
+            np.random.default_rng(k).integers(0, 4, 100_000)]
+        allow = os.path.join(tmp, f"allow{k}.fa")
+        with open(allow, "wb") as f:
+            f.write(b"".join(b">a\n%s\n" % r for r in reads)
+                    + b">r\n" + rand.tobytes() + b"\n")
+        seq = np.frombuffer(b"N".join([*reads, rand.tobytes()]), np.uint8)
+        want = unique_rows(canonical_words(seq, k))[0]
+        _, mw_, mc = read_db(mem[k])
+        mv, wv = rows_view(mw_), rows_view(want)
+        order = np.argsort(mv)
+        i = np.minimum(np.searchsorted(mv[order], wv), len(mv) - 1)
+        hit = mv[order][i] == wv
+        want_c = np.where(hit, mc[order[i]], 0)
+
+        def check(p, want=want, want_c=want_c):
+            h, words, sw, sc = read_records(p)
+            return (np.array_equal(sw, want) and np.array_equal(sc, want_c)
+                    and sortkeys_ascend(h, words) and (sc == 0).any())
+
+        run(k, ["--if", allow], [fq[k]], check, need[k])
+        run(k, ["--if", allow, "--disk", "-s", "512k"], [fq[k]], check,
+            on_disk)
+        os.unlink(allow)
+
+    def text_check(p):
+        _, words, counts = read_db(mem[21])
+        tw, tc = text_records(p, 21)
+        return np.array_equal(tw, words) and np.array_equal(tc, counts)
+
+    run(21, ["--text"], [fq[21]], text_check, need[21])
+    cmds = os.path.join(tmp, "cmds.txt")
+    parts = split_fastq(fq[21], 4)
+    with open(cmds, "w") as f:
+        f.write("".join(f"cat {q}\n" for q in parts))
+    run(21, ["-g", cmds, "-G", "2"], [], same_as(mem[21]), need[21])
+    run(21, ["--disk", "--packed-store", "-s", "1M"], [fq[21]],
+        same_set(mem[21]), on_disk)
+
+    # the spill points: with the grain cut to 2^18 rows (a batch of 8
+    # chunks of 32k), each batch is a level-0 run and the 64th puts a run
+    # at level 2, which the packed store holds in about a quarter of the
+    # dense bytes. The dense store then grows from 3.9M to 14.7M entries
+    # (device_bytes / 16) by the end of the input, the packed one from 1.0M
+    # to 11.9M: at -s 6650k (a spill at 13.3M) the dense store spills once
+    # and the packed one never
+    partials = []
+
+    def spills(p):
+        parts = sorted(glob.glob(p + "[0-9]*"))
+        partials.append(len(parts))
+        if parts:
+            if cli.main(["merge", "-o", p, *parts]) != 0:
+                return False
+            for q in parts:
+                os.unlink(q)
+        return same_set(mem[21])(p)
+
+    with store_grain(DISK_GRAIN):
+        for flags in ([], ["--packed-store"]):
+            run(21, ["--disk", "--no-merge", "--no-unlink", "-s", "6650k",
+                     "--chunk-len", "32k", *flags], [fq[21]], spills,
+                need[21])
+    log(f"CLI count k=21 --disk -s 6650k, grain {DISK_GRAIN}: partials "
+        f"dense {partials[0]}, packed {partials[1]}")
+    if not partials[1] < partials[0]:
+        raise AssertionError("the packed store spilled no later than the "
+                             "dense one")
+    rows[-2]["partials"], rows[-1]["partials"] = partials
+    for p in [out, cmds, *parts]:
+        os.unlink(p)
+    return rows
+
+
+@contextlib.contextmanager
+def store_grain(rows):
+    """Every SortedCountStore built inside consolidates `rows` rows a
+    grain (the CLI gives no way to cut it)."""
+    from jellyfish_tpu_torch.store import SortedCountStore
+
+    init = SortedCountStore.__init__
+
+    def cut(self, *a, **kw):
+        init(self, *a, **kw)
+        self.consolidate_rows = rows
+
+    SortedCountStore.__init__ = cut
+    try:
+        yield
+    finally:
+        SortedCountStore.__init__ = init
 
 
 # -- the Bloom path ------------------------------------------------------------
@@ -2036,6 +2412,7 @@ def main() -> int:
         ]
         bloom_cli = phase_bloom_cli(tmp, os.path.join(tmp, "r21.fq"), seq21,
                                     os.path.join(tmp, "o21.jf"))
+        cli_modes = phase_cli_modes(tmp)
         del seq21
         chunks, staged = stage_chunks(dev)
         # each kernel's launches are read from the full-size run of its
@@ -2058,16 +2435,21 @@ def main() -> int:
                    "block_sort_bloom": "block_sort",
                    "exchange_stages": "exchange_stages.passes",
                    "exchange_stages_mirror": "exchange_stages.mirror"}
-        full, launches = {}, {}
+        full, launches, tables = {}, {}, {}
         for k in K_FULL:
             need = [n for n, run in path.items()
                     if run in (21, 63) and (k == 63 or run == k)]
-            out = phase_full(k, chunks, staged, need, compare_lsd=k == 63,
-                             keep=k == 21)
-            launches[k], full[k] = out[:2]
-            if k == 21:
-                table = out[2]
+            launches[k], full[k], tables[k] = phase_full(
+                k, chunks, staged, need, compare_lsd=k == 63)
             torch.cuda.empty_cache()
+        table = tables[21]
+        mode_launches, modes = {}, {}
+        mode_launches["packed_store"], modes["packed_store"] = phase_packed(
+            staged, tables)
+        del tables
+        mode_launches["restricted"], modes["restricted"] = phase_if(
+            chunks, staged, table)
+        torch.cuda.empty_cache()
         launches["bloom"], bloom_rows, bloom = phase_bloom(chunks, staged,
                                                            table, dev)
         rows.update(bloom_rows)
@@ -2083,6 +2465,8 @@ def main() -> int:
     log(json.dumps({"merge": {"full_size": merge, "k63": merge63},
                     "disk": disk}))
     log(json.dumps({"bloom": {"full_size": bloom, "cli": bloom_cli}}))
+    log(json.dumps({"count_modes": {**modes, "cli": cli_modes}}))
+    log(json.dumps({"count_mode_launches": mode_launches}))
     log(json.dumps({"window_table": win_table}))
     log(json.dumps({"full_size": list(full.values())}))
     log(json.dumps({"k3_table": k3_table}))

@@ -10,11 +10,15 @@ PyTorch. Databases are byte-compatible with `jellyfish_tpu count`.
 The package imports torch and numpy only: never jax, and nothing of
 jellyfish_tpu (host-only helpers are copied, e.g. `gf2.py`, `io/`).
 Entry points run on the GPU unless the caller passes device="cpu".
+The scripting API of the reference's SWIG bindings (MerDNA, HashCounter,
+HashSet, QueryMerFile, ReadMerFile, string_mers, string_canonicals) is
+exported here, as in the JAX package.
 """
 
 __version__ = "0.1.0"
 
 from jellyfish_tpu_torch.gf2 import GF2Matrix
+from jellyfish_tpu_torch.mer import MerDNA, string_canonicals, string_mers
 
 
 class NotPortedError(NotImplementedError):
@@ -24,6 +28,10 @@ class NotPortedError(NotImplementedError):
 
 def __getattr__(name):
     # lazily exported, keeping `import jellyfish_tpu_torch` light
+    if name in ("HashCounter", "HashSet", "QueryMerFile", "ReadMerFile"):
+        from jellyfish_tpu_torch import api
+
+        return getattr(api, name)
     if name == "MerCounter":
         from jellyfish_tpu_torch.counter import MerCounter
 

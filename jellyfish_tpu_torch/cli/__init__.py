@@ -1,12 +1,12 @@
 """`jellyfish` CLI of the port: `python -m jellyfish_tpu_torch
-<count|bc|query|histo|dump|stats|merge|info> ...`.
+<count|bc|query|histo|dump|stats|merge|info|mem|cite|generate> ...`.
 
 `count`, `bc` and `merge` run on the GPU, and so does `query` of a Bloom
-counter (a binary database is searched on the host); histo, dump, stats
-and info read databases on the host. `count` and `bc` take the JAX
-package's flags, and the ones whose paths are not ported raise
-NotPortedError. The JAX package's mem, cite, generate and fastq2sam are
-not ported yet.
+counter (a binary database is searched on the host); histo, dump, stats,
+info, mem, cite and generate run on the host. `count` and `bc` take the
+JAX package's flags, and the ones whose paths are not ported (`count -d`,
+`--sam`, `--coordinator`) raise NotPortedError. The JAX package's
+fastq2sam is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +36,9 @@ def build_parser() -> argparse.ArgumentParser:
     dbtools.add_stats_parser(sub)
     dbtools.add_merge_parser(sub)
     dbtools.add_info_parser(sub)
+    tools.add_mem_parser(sub)
+    tools.add_cite_parser(sub)
+    tools.add_generate_parser(sub)
     return parser
 
 

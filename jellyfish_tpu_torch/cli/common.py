@@ -1,13 +1,14 @@
-"""CLI plumbing (the parts of jellyfish_tpu/cli/common.py that the ported
-subcommands use, copied): ISO suffix sizes (10M, 2G, ...), the shared
-input flags, output files and fatal errors."""
+"""CLI plumbing (a copy of jellyfish_tpu/cli/common.py, with
+count's generator-file reader): ISO suffix sizes (10M, 2G, ...), the
+shared input flags, output files and fatal errors."""
 
 from __future__ import annotations
 
 import argparse
 import sys
 
-__all__ = ["suffix_int", "open_output", "add_common_input_flags", "die"]
+__all__ = ["suffix_int", "add_suffix", "open_output",
+           "add_common_input_flags", "load_generator_cmds", "die"]
 
 _SUFFIXES = {
     "k": 10**3, "M": 10**6, "G": 10**9, "T": 10**12, "P": 10**15, "E": 10**18,
@@ -23,6 +24,21 @@ def suffix_int(s: str) -> int:
         key = "k" if s[-1].lower() == "k" else s[-1].upper()
         return int(float(s[:-1]) * _SUFFIXES[key])
     return int(s)
+
+
+def add_suffix(val: int, base: int = 1000) -> str:
+    """Format a size with an ISO suffix (1024 -> '1k' with base 1024)."""
+    suffixes = "kMGTPE"
+    x = float(val)
+    i = -1
+    while x >= base and i < len(suffixes) - 1:
+        x /= base
+        i += 1
+    if i < 0:
+        return str(val)
+    if x == int(x):
+        return f"{int(x)}{suffixes[i]}"
+    return f"{x:.6g}{suffixes[i]}"
 
 
 def open_output(path: str | None, binary: bool = False):
@@ -46,6 +62,12 @@ def add_common_input_flags(p: argparse.ArgumentParser):
                    help="Print timing information")
     p.add_argument("--chunk-len", type=suffix_int, default=1 << 20,
                    help="Device chunk length in bytes")
+
+
+def load_generator_cmds(path: str) -> list:
+    """The commands of a -g file: its non-blank lines."""
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
 
 
 def die(msg: str) -> "NoReturn":

@@ -3,14 +3,19 @@ jellyfish_tpu/cli/count.py, with its --disk spill and merge and its Bloom
 filters).
 
 The flag surface is the JAX package's (count_main_cmdline.yaggo:4-112).
-Flags whose paths are not ported yet raise NotPortedError rather than
-doing something else.
+Flags whose paths are not ported yet (-d, --sam, --coordinator) raise
+NotPortedError rather than doing something else.
 
 Ingest: host-packed batches when no filter is given and --chunk-len is a
 multiple of 32; otherwise ASCII chunks one at a time, as the JAX package
 does, so that `--bf-size` decides on exactly the JAX package's chunks.
 --bc keeps a chunk's mers whose Bloom-counter check is 2; --bf-size drops
-each mer's first occurrence (bloom.load_count_filter).
+each mer's first occurrence (bloom.load_count_filter). --if builds the
+allowed set before counting, and every dump, --disk partials included,
+holds exactly the allowed mers, each with its count or 0. --packed-store
+keeps the store's resting runs bit-packed (ops/packed_run.py). -g runs
+the generator commands of a file (-G at once, in shell -S) and counts
+their output after the files'.
 
 --disk writes a partial database `{output}{i}` whenever the store holds
 twice `--size` entries (16 bytes an entry, store.device_bytes), then
@@ -102,12 +107,8 @@ def add_parser(sub):
 def _check_ported(args) -> None:
     unported = [
         ("-d/--devices", args.devices != "1"),
-        ("--if", bool(args.if_files)),
-        ("--packed-store", args.packed_store),
         ("--sam", bool(args.sam)),
-        ("-g/--generator", args.generator is not None),
         ("--coordinator", args.coordinator is not None),
-        ("--text", args.text),
     ]
     for flag, used in unported:
         if used:
@@ -173,17 +174,18 @@ def _min_qual(args):
 
 
 def run(args, argv, device=None):
-    from jellyfish_tpu_torch.cli.common import die
+    import signal
+
+    from jellyfish_tpu_torch.cli.common import die, load_generator_cmds
     from jellyfish_tpu_torch.counter import MerCounter
-    from jellyfish_tpu_torch.io.dumpers import dump_counter
     from jellyfish_tpu_torch.io.parse import SequenceChunker
-    from jellyfish_tpu_torch.merge import merge_files
 
     t_start = time.perf_counter()
     _check_ported(args)
     k = args.mer_len
-    if not args.file:
+    if not args.file and not args.generator:
         die("count: no input files given")
+    gen_cmds = load_generator_cmds(args.generator) if args.generator else None
     filt = None
     if args.bc or args.bf_size is not None:
         from jellyfish_tpu_torch.bloom import load_count_filter
@@ -195,16 +197,50 @@ def run(args, argv, device=None):
     counter = MerCounter(
         k, size=args.size, canonical=args.canonical,
         rng=np.random.default_rng(args.matrix_seed), device=device,
-        mer_filter=filt,
+        mer_filter=filt, pack_resting=args.packed_store,
     )
     chunker = SequenceChunker(
         list(args.file), k, chunk_len=args.chunk_len, min_qual=_min_qual(args),
+        generator_cmds=gen_cmds, shell=args.shell,
+        nb_generators=args.nb_generators,
     )
+
+    # a SIGTERM ends the run through the finally below, which terminates
+    # the generator children (count_main.cc:209-216)
+    def _on_term(signum, frame):
+        raise SystemExit(143)
+
+    old_term = None
+    try:
+        old_term = signal.signal(signal.SIGTERM, _on_term)
+    except ValueError:
+        pass  # not the main thread (library use)
+    try:
+        return _run_counting(args, argv, k, counter, chunker, t_start)
+    finally:
+        chunker.close()
+        if old_term is not None:
+            signal.signal(signal.SIGTERM, old_term)
+
+
+def _run_counting(args, argv, k, counter, chunker, t_start):
+    from jellyfish_tpu_torch.io.dumpers import dump_counter
+    from jellyfish_tpu_torch.io.parse import SequenceChunker
+    from jellyfish_tpu_torch.merge import merge_files
+
+    filt = counter.mer_filter
+    if args.if_files:
+        # the allowed set first (the reference PRIMEs its table before
+        # counting, count_main.cc:288-295), so every dump is restricted
+        with SequenceChunker(list(args.if_files), k,
+                             chunk_len=args.chunk_len) as allowed:
+            counter.restrict_to(allowed.chunks())
     t_init = time.perf_counter()
 
     def dump(path, **filters):
         dump_counter(
-            counter, path, counter_len_bytes=args.out_counter_len,
+            counter, path, text=args.text,
+            counter_len_bytes=args.out_counter_len,
             val_len_bits=args.counter_len, max_reprobe=args.reprobes,
             cmdline=argv, **filters,
         )

@@ -14,7 +14,8 @@ consolidations and merges run the hand-written kernels. With a mer filter
 (`_chunk_pipeline_dedup`), its distinct mers recovered and filtered, and
 the filtered run goes to the store as a counted run (`insert_run`).
 finalize_np() yields the whole table in the reference's dump order
-(ascending (pos, key)).
+(ascending (pos, key)). With restrict_to (`count --if`) it yields the
+allowed mers instead, each with its count or 0.
 """
 
 from __future__ import annotations
@@ -84,6 +85,18 @@ def _recover_mers(keys, inv_masks, k, lsize, W):
                             lsize)
 
 
+def _sortkey_order_view(rows: np.ndarray) -> np.ndarray:
+    """1-D order-preserving comparable view of sortkey rows [n, W] uint32
+    (columns LSW..MSW): u64 for W <= 2, big-endian memcmp bytes beyond."""
+    n, W = rows.shape
+    if W == 1:
+        return rows[:, 0]
+    if W == 2:
+        return np.ascontiguousarray(rows).view(np.uint64).ravel()
+    be = np.ascontiguousarray(rows[:, ::-1]).byteswap()
+    return np.ascontiguousarray(be).view(f"V{4 * W}").ravel()
+
+
 class MerCounter:
     """Accumulates k-mer counts from packed sequence chunks.
 
@@ -95,8 +108,10 @@ class MerCounter:
     `mer_filter` (bloom.load_count_filter) maps each ASCII chunk's
     (distinct mers [n, W], counts [n]) to new counts, the batch
     equivalent of the reference's filter chain (count_main.cc:99-131).
-    k above 16 * MAX_KEY_COLS = 112 raises NotPortedError: the kernels
-    take keys of at most MAX_KEY_COLS 32-bit limbs.
+    pack_resting holds the store's resting runs bit-packed
+    (`count --packed-store`). k above 16 * MAX_KEY_COLS = 112 raises
+    NotPortedError: the kernels take keys of at most MAX_KEY_COLS 32-bit
+    limbs.
     """
 
     def __init__(
@@ -108,6 +123,7 @@ class MerCounter:
         rng: np.random.Generator | None = None,
         device=None,
         mer_filter=None,
+        pack_resting: bool = False,
     ):
         self.k = int(k)
         c = 2 * self.k
@@ -150,8 +166,10 @@ class MerCounter:
             self._A = masks_of_matrix(self.matrix, self.W)
             self._Ainv = inverse_masks_of_matrix(self.matrix, self.W)
         self._pad = mw.pad_key(self.W)
-        self.store = SortedCountStore(self.W, self.device)
+        self.store = SortedCountStore(self.W, self.device, key_bits=c,
+                                      pack_resting=pack_resting)
         self.mer_filter = mer_filter
+        self._restrict_store: SortedCountStore | None = None
 
     # -- ingestion ------------------------------------------------------------
 
@@ -215,19 +233,41 @@ class MerCounter:
                 self.canonical)
             self.store.insert_raw(keys, n_valid)
 
+    def add_mers_np(self, mers_int_iterable, value: int = 1) -> None:
+        """Add explicit mers (python ints), each with weight `value`: their
+        sortkeys, sorted and counted on the device, go to the store as a
+        counted run."""
+        mers = list(mers_int_iterable)
+        if not mers:
+            return
+        limbs = mw.from_ints(mers, self.W, self.device)
+        sk = sortkey_of_mers(limbs, self._A, self.k, self.lsize)
+        keys, counts = consolidate_premasked(mw.key_columns(sk).contiguous())
+        self.store.insert_run(keys, counts * int(value))
+
+    def restrict_to(self, chunks_iter) -> None:
+        """`count --if` (count_main.cc:288-295, PRIME then UPDATE): after
+        counting, only the mers of these ASCII chunks appear in the output,
+        each with its count, 0 if it was never counted. reset() keeps the
+        restriction, so every --disk partial is restricted too."""
+        self._restrict_store = SortedCountStore(self.W, self.device,
+                                                key_bits=2 * self.k)
+        for chunk_u8 in chunks_iter:
+            if len(chunk_u8) < self.k:
+                continue
+            self._restrict_store.insert_raw(*_chunk_pipeline(
+                self._chunk(chunk_u8), self._A, self.k, self.lsize,
+                self.canonical))
+
     # -- extraction -----------------------------------------------------------
 
-    def finalize_np(self):
-        """Return (mer limbs [n, W] uint32, counts [n] uint64) in hash
-        order (the reference's dump order: ascending (pos, key))."""
-        empty = (np.zeros((0, self.W), dtype=np.uint32),
-                 np.zeros(0, dtype=np.uint64))
-        keys, counts, pads = self.store.finalize()
-        n = keys.shape[0]
-        if n == 0:
-            return empty
+    def _corrected(self, store):
+        """Finalize `store`: (key columns [n, Wk] on the device, counts [n]
+        uint64 on the host), the PAD entry's pad rows removed and the entry
+        dropped if that leaves it at 0."""
+        keys, counts, pads = store.finalize()
         counts = counts.cpu().numpy().astype(np.uint64)
-        if pads and bool((keys[-1] == self._pad).all()):
+        if pads and len(counts) and bool((keys[-1] == self._pad).all()):
             # the PAD entry holds the pad rows, plus one real mer if one
             # maps to the PAD key (the sortkey is a bijection)
             if int(counts[-1]) < pads:
@@ -237,12 +277,48 @@ class MerCounter:
                 )
             counts[-1] -= np.uint64(pads)
             if counts[-1] == 0:
-                n -= 1
-                keys, counts = keys[:n], counts[:n]
-        if n == 0:
-            return empty
+                keys, counts = keys[:-1], counts[:-1]
+        return keys, counts
+
+    def _empty(self):
+        return (np.zeros((0, self.W), dtype=np.uint32),
+                np.zeros(0, dtype=np.uint64))
+
+    def _mers_np(self, keys) -> np.ndarray:
         mers = _recover_mers(keys, self._Ainv, self.k, self.lsize, self.W)
-        return mers.cpu().numpy().astype(np.uint32), counts
+        return mers.cpu().numpy().astype(np.uint32)
+
+    def finalize_np(self):
+        """Return (mer limbs [n, W] uint32, counts [n] uint64) in hash
+        order (the reference's dump order: ascending (pos, key))."""
+        keys, counts = self._corrected(self.store)
+        if self._restrict_store is not None:
+            # before the emptiness check: an empty count still dumps the
+            # allowed mers at 0
+            return self._apply_restriction(keys, counts)
+        if len(counts) == 0:
+            return self._empty()
+        return self._mers_np(keys), counts
+
+    def _apply_restriction(self, keys, counts):
+        """--if output: the allowed mers in their hash order, each with its
+        count in (keys, counts) or 0 (the reference PRIMEs the allowed mers
+        at 0 before counting, so unseen ones dump at 0). Both runs are in
+        hash order under one matrix: one binary search on the host."""
+        akeys, _ = self._corrected(self._restrict_store)
+        if akeys.shape[0] == 0:
+            return self._empty()
+        out = np.zeros(akeys.shape[0], dtype=np.uint64)
+        if len(counts):
+            def view(cols):
+                limbs = mw.limbs_of_key_columns(cols, self.W)
+                return _sortkey_order_view(
+                    limbs.cpu().numpy().astype(np.uint32))
+
+            kv, av = view(keys), view(akeys)
+            pos = np.minimum(np.searchsorted(kv, av), len(kv) - 1)
+            out = np.where(kv[pos] == av, counts[pos], np.uint64(0))
+        return self._mers_np(akeys), out
 
     def finalize(self):
         """Return (mers [n] object ints, counts [n] uint64) in hash order

@@ -14,13 +14,19 @@ Turns FASTA/FASTQ files (plain or gzip) into fixed-size uint8 chunks:
 
 `chunks_packed` packs each chunk to 2-bit codes and a validity bitstream,
 the counter's input (`pack_chunk`, the numpy version of
-jellyfish_tpu/native pack_chunk). SAM/BAM/CRAM input, generator commands
-and the native chunker are not part of this package yet.
+jellyfish_tpu/native pack_chunk). Generator commands (`-g`, `-G`, `-S`)
+run as shell children whose standard output is read like a file; a child
+that exits nonzero raises, and close() terminates the live ones.
+SAM/BAM/CRAM input and the native chunker are not part of this package
+yet.
 """
 
 from __future__ import annotations
 
+import os
+import subprocess
 import sys
+from collections import deque
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -120,7 +126,9 @@ def pack_chunk(chunk: np.ndarray):
 
 
 class SequenceChunker:
-    """Concatenate reads from many files into fixed-size chunks."""
+    """Concatenate reads from many files, and from the output of generator
+    commands, into fixed-size chunks. Use it as a context manager, or call
+    close(), so that no generator child outlives it."""
 
     def __init__(
         self,
@@ -128,17 +136,87 @@ class SequenceChunker:
         k: int,
         chunk_len: int,
         min_qual: int | None = None,
+        generator_cmds: Iterable[str] | None = None,
+        shell: str | None = None,
+        nb_generators: int = 1,
     ):
         self.paths = list(paths)
         self.k = int(k)
         self.chunk_len = int(chunk_len)
         self.min_qual = min_qual
+        self.generator_cmds = list(generator_cmds or [])
+        self.shell = shell or os.environ.get("SHELL", "/bin/sh")
+        self.nb_generators = max(1, int(nb_generators))
+        self._procs: set = set()
+
+    def _spawn_generator(self, cmd: str):
+        proc = subprocess.Popen([self.shell, "-c", cmd],
+                                stdout=subprocess.PIPE)
+        self._procs.add(proc)
+        return proc
+
+    def _streams(self):
+        """(stream, generator child or None) per input: the files, then
+        the generators' outputs. Up to nb_generators children run at once
+        (generator_manager.hpp:62-162): later commands start while an
+        earlier one's output is read, and the pipe bounds their memory."""
+        for path in self.paths:
+            yield open_stream(path), None
+        pending: deque = deque()
+        cmds = iter(self.generator_cmds)
+
+        def top_up():
+            while len(pending) < self.nb_generators:
+                cmd = next(cmds, None)
+                if cmd is None:
+                    return
+                pending.append(self._spawn_generator(cmd))
+
+        top_up()
+        while pending:
+            proc = pending.popleft()
+            yield proc.stdout, proc
+            top_up()
+
+    def _finish_proc(self, proc, completed: bool) -> None:
+        """Reap a generator child. After its output was read to the end,
+        wait and raise on a nonzero exit status; when it was abandoned
+        (an error downstream, close()), terminate it, then kill it
+        (count_main.cc:209-216, lib/generator_manager.cc:186-215)."""
+        self._procs.discard(proc)
+        try:
+            if completed:
+                ret = proc.wait()
+                if ret != 0:
+                    raise RuntimeError(
+                        f"generator subprocess exited with status {ret}")
+                return
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        finally:
+            proc.stdout.close()
+
+    def close(self) -> None:
+        """Terminate any live generator children (idempotent)."""
+        for proc in list(self._procs):
+            self._finish_proc(proc, completed=False)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     def _read_bytes(self):
-        """Yield filtered sequence bytes per read across all files."""
+        """Yield filtered sequence bytes per read across all inputs."""
         want_quals = self.min_qual is not None
-        for path in self.paths:
-            stream = open_stream(path)
+        for stream, proc in self._streams():
+            completed = False
             try:
                 for item in iter_reads(stream, with_quals=want_quals):
                     if want_quals:
@@ -151,8 +229,11 @@ class SequenceChunker:
                     else:
                         seq = item
                     yield seq
+                completed = True
             finally:
-                if stream is not sys.stdin.buffer:
+                if proc is not None:
+                    self._finish_proc(proc, completed)
+                elif stream is not sys.stdin.buffer:
                     stream.close()
 
     def chunks(self) -> Iterator[np.ndarray]:

@@ -19,7 +19,11 @@ limbs, pow2 sort groups and the asynchronous resolve):
     `merge_bytes_budget` bytes of input runs (at least two runs) and
     combines them pairwise, ceil(log2(runs)) rounds, each pair through
     kernel K1 (kernels/merge_path.py), ops/count.fold_adjacent and K2;
-  - finalize() merges every run the same way, into the resting run.
+  - finalize() merges every run the same way, into the resting run;
+  - with pack_resting (`count --packed-store`), a run that a merge puts at
+    level >= 2 and the resting run are held bit-packed
+    (ops/packed_run.py) and unpacked when a merge or a finalize takes
+    them, as in the JAX package.
 
 Every run is exact: sorted, each key once, its count beside it, no PAD
 rows except the one PAD entry whose count is the number of pad rows
@@ -36,13 +40,18 @@ from jellyfish_tpu_torch.kernels.compact import compact
 from jellyfish_tpu_torch.kernels.merge_path import merge_path
 from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.count import consolidate_premasked, fold_adjacent
+from jellyfish_tpu_torch.ops.packed_run import PackedRun, pack_run, unpack_run
 
 __all__ = ["SortedCountStore"]
 
 _LEVELS = 16
+_PACK_LEVEL = 2  # with pack_resting, runs from this level up rest packed
 
 
 def _run_bytes(run) -> int:
+    """Dense bytes of a run (a packed one's once unpacked)."""
+    if isinstance(run, PackedRun):
+        return 8 * run.n * ((1 if mw.packs(run.W) else run.W) + 1)
     keys, counts = run
     return 8 * (keys.numel() + counts.numel())
 
@@ -51,11 +60,17 @@ class SortedCountStore:
     """Grain-consolidating count store (see module docstring).
 
     W is the limb count of the keys (store key columns as in
-    ops/multiword.key_columns)."""
+    ops/multiword.key_columns). pack_resting needs key_bits (2k)."""
 
     def __init__(self, W: int, device, branch: int = 8,
-                 consolidate_rows: int | None = None):
+                 consolidate_rows: int | None = None,
+                 key_bits: int | None = None, pack_resting: bool = False):
+        if pack_resting and key_bits is None:
+            raise ValueError("pack_resting needs key_bits")
         self.W = W
+        self.key_bits = key_bits
+        self.pack_resting = bool(pack_resting)
+        self.packed = 0  # runs packed since construction
         self.key_cols = 1 if mw.packs(W) else W
         self.device = torch.device(device)
         self.branch = int(branch)
@@ -139,11 +154,27 @@ class SortedCountStore:
             self.levels[lvl] = level[len(take):]
             if lvl + 1 >= _LEVELS:
                 raise RuntimeError("store exceeded maximum level count")
-            self.levels[lvl + 1].append(self._merge(take))
+            merged = self._merge([self._materialize(r) for r in take])
+            self.levels[lvl + 1].append(self._maybe_pack(lvl + 1, merged))
             # a budget-limited partial take can leave this level >= branch:
             # keep merging here before moving up
             if len(self.levels[lvl]) < self.branch:
                 lvl += 1
+
+    @staticmethod
+    def _materialize(run):
+        """A run as (keys, counts): a packed run is unpacked."""
+        return unpack_run(run) if isinstance(run, PackedRun) else run
+
+    def _maybe_pack(self, lvl: int, run):
+        """Pack a run that rests at level lvl, when pack_resting is on and
+        lvl >= 2 (runs that high are rarely merged again)."""
+        keys, counts = run
+        if not (self.pack_resting and lvl >= _PACK_LEVEL
+                and keys.shape[0] > 0):
+            return run
+        self.packed += 1
+        return pack_run(keys, counts, self.key_bits)
 
     @staticmethod
     def _merge(runs):
@@ -166,11 +197,15 @@ class SortedCountStore:
     def device_bytes(self) -> int:
         """Bytes the store holds, in the JAX package's units
         (jellyfish_tpu/store.py device_bytes): 4 for each 32-bit limb of a
-        raw or compacted row and 8 for a count. `count --disk` spills on
-        it."""
+        raw or compacted row and 8 for a count; a packed run's buffers at 4
+        bytes an element. `count --disk` spills on it."""
         limbs = 4 * self.W
-        runs = sum(r[1].shape[0] for level in self.levels for r in level)
-        return self.raw_rows * limbs + runs * (limbs + 8)
+        total = self.raw_rows * limbs
+        for level in self.levels:
+            for r in level:
+                total += (r.device_bytes() if isinstance(r, PackedRun)
+                          else r[1].shape[0] * (limbs + 8))
+        return total
 
     def total_pads(self) -> int:
         """Exact count of PAD rows inserted since the last finalize."""
@@ -184,10 +219,12 @@ class SortedCountStore:
     def finalize(self):
         """Merge everything. Returns (keys [n, Wk], counts [n], pads): the
         sorted exact run, and the pad total the caller subtracts from the
-        trailing PAD entry (dropping it if it reaches zero)."""
+        trailing PAD entry (dropping it if it reaches zero). With
+        pack_resting the store keeps the run packed, and the caller gets
+        these dense arrays."""
         self.flush()
         pads = self.residual_pads + self.total_pads()
-        runs = [r for level in self.levels for r in level]
+        runs = [self._materialize(r) for level in self.levels for r in level]
         self.valid_scalars = []
         self.raw_rows_ever = 0
         self.residual_pads = pads
@@ -199,5 +236,6 @@ class SortedCountStore:
             return keys, torch.empty(0, dtype=torch.int64,
                                      device=self.device), 0
         keys, counts = self._merge(runs)
-        self.levels[-1].append((keys, counts))
+        del runs  # the unpacked inputs go before the resting run packs
+        self.levels[-1].append(self._maybe_pack(_LEVELS - 1, (keys, counts)))
         return keys, counts, pads

@@ -1,10 +1,11 @@
-"""`python -m jellyfish_tpu_torch count`, `bc` and `query` against the
-same subcommands of `python -m jellyfish_tpu`: with SOURCE_DATE_EPOCH and
---matrix-seed, the databases and .bc files hold the same records byte for
-byte, and the same header apart from exe_path, pwd and cmdline; query
-prints the same text. The Bloom hash matrices come from an unseeded
-numpy generator in both packages, so these tests seed it in both. Flags
-whose paths are not ported raise NotPortedError."""
+"""`python -m jellyfish_tpu_torch count`, `bc`, `query`, `mem`, `cite` and
+`generate` against the same subcommands of `python -m jellyfish_tpu`:
+with SOURCE_DATE_EPOCH and --matrix-seed, the databases and .bc files
+hold the same records byte for byte (binary or text), and the same header
+apart from exe_path, pwd and cmdline; query, mem and cite print the same
+text; generate writes the same files. The Bloom hash matrices come from
+an unseeded numpy generator in both packages, so these tests seed it in
+both. Flags whose paths are not ported raise NotPortedError."""
 
 import gzip
 import io
@@ -95,9 +96,8 @@ def test_no_write_and_timing(reads, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-d", "2"], ["-d", "auto"],
-    ["--if", "x.fa"], ["--packed-store"], ["--sam", "x.sam"],
-    ["-g", "cmds.txt"], ["--coordinator", "localhost:1234"], ["--text"],
+    ["-d", "2"], ["-d", "auto"], ["--sam", "x.sam"],
+    ["--coordinator", "localhost:1234"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(reads, tmp_path, flags):
     _, fq, _ = reads
@@ -116,10 +116,19 @@ def test_key_width_above_the_kernels_raises(tmp_path, k):
                     str(tmp_path / "x.jf"), missing], device="cpu")
 
 
-def test_bc_generator_raises(tmp_path):
-    with pytest.raises(NotPortedError, match="not yet ported"):
-        torch_main(["bc", "-m", "21", "-s", "1M", "-g", "cmds.txt",
+def test_bc_generator_raises(reads, tmp_path):
+    """bc -g: a generator command that exits nonzero after its output was
+    read raises, and so does one in count -g, however much it wrote."""
+    _, fq, _ = reads
+    cmds = tmp_path / "cmds.txt"
+    cmds.write_text(f"cat {fq}\ncat {fq}; exit 3\n")
+    with pytest.raises(RuntimeError, match="status 3"):
+        torch_main(["bc", "-m", "21", "-s", "1M", "-g", str(cmds),
                     "-o", str(tmp_path / "x.bc")], device="cpu")
+    with pytest.raises(RuntimeError, match="status 3"):
+        torch_main(["count", "-m", "21", "-s", "1M", "-g", str(cmds),
+                    "-o", str(tmp_path / "x.jf")], device="cpu")
+    assert not (tmp_path / "x.jf").exists()
 
 
 @pytest.fixture
@@ -276,3 +285,202 @@ def test_query_matches_jax(reads, bc_files, tmp_path, monkeypatch, fmt, k):
     assert got == want
     assert len(want.splitlines()) > 100
     assert any(not line.endswith(" 0") for line in want.splitlines())
+
+
+# -- --packed-store, --if, --text, generators, mem, cite, generate ----------
+
+
+def _allow_file(tmp_path, fq, k):
+    """FASTA of some reads of the input (counted mers) and of random
+    sequence (mers never counted, which dump at 0)."""
+    rng = np.random.default_rng(k)
+    with open(fq) as f:
+        lines = f.read().splitlines()
+    path = tmp_path / "allow.fa"
+    rand = "".join("ACGT"[c] for c in rng.integers(0, 4, 900))
+    path.write_text("".join(f">a{i}\n{lines[4 * i + 1]}\n"
+                            for i in range(0, 60, 3)) + f">r\n{rand}\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("k,extra", [
+    (21, ["--packed-store", "-C"]),
+    (63, ["--packed-store", "-L", "2"]),
+    (21, ["--packed-store", "--disk", "-s", "2000", "-C"]),
+    (21, ["--if", "ALLOW", "-C"]),
+    (63, ["--if", "ALLOW"]),
+    (21, ["--if", "ALLOW", "--disk", "-s", "2000", "-C"]),
+    (63, ["--if", "ALLOW", "--disk", "-s", "1000", "--packed-store"]),
+    (21, ["--text", "-C", "-U", "5"]),
+    (33, ["--text", "--disk", "-s", "2000"]),
+], ids=lambda v: v if isinstance(v, int) else " ".join(v))
+def test_count_modes_match_jax(reads, tmp_path, monkeypatch, k, extra):
+    """count --packed-store, --if (also with --disk: every partial is
+    restricted), --text and --text --disk: the same bytes as the JAX
+    package's, and no partial left behind."""
+    _, fq, fa = reads
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", "1700000000")
+    extra = [_allow_file(tmp_path, fq, k) if a == "ALLOW" else a
+             for a in extra]
+    size = [] if "-s" in extra else ["-s", "10k"]
+    argv = ["count", "-m", str(k), *size, "--matrix-seed", "77",
+            "--chunk-len", "2048", *extra]
+    rec = _same_files(*_both(tmp_path, f"{k}.jf", argv, [fq, fa]))
+    assert len(rec) > 100
+    assert not list(tmp_path.glob("*.jf[0-9]*"))
+    if "--if" in extra and "--disk" not in extra:
+        # the random sequence's mers are in the dump, at count 0
+        dump = tmp_path / "dump.txt"
+        assert torch_main(["dump", "-c", "-o", str(dump),
+                           str(tmp_path / f"t{k}.jf")]) == 0
+        counts = [int(line.split()[1])
+                  for line in dump.read_text().splitlines()]
+        assert counts.count(0) > 500 and max(counts) > 1
+    if "--text" in extra:
+        assert rec.count(b"\n") > 100 and rec.split()[1].isdigit()
+
+
+def test_text_db_parses_as_binary(reads, tmp_path):
+    """count --text writes the records of the binary database of the same
+    run, as text lines (`dump -c` of both is the same)."""
+    _, fq, _ = reads
+    common = ["count", "-m", "21", "-s", "10k", "-C", "--matrix-seed", "5",
+              "--chunk-len", "4096"]
+    out = {}
+    for name, flags in (("bin", []), ("text", ["--text"])):
+        db = str(tmp_path / f"{name}.jf")
+        assert torch_main([*common, *flags, "-o", db, fq],
+                          device="cpu") == 0
+        txt = tmp_path / f"{name}.txt"
+        assert torch_main(["dump", "-c", "-o", str(txt), db]) == 0
+        out[name] = txt.read_text()
+    assert out["bin"] == out["text"] and len(out["bin"]) > 1000
+
+
+def _quarters(tmp_path, fq):
+    with open(fq) as f:
+        lines = f.read().splitlines(keepends=True)
+    recs = ["".join(lines[i:i + 4]) for i in range(0, len(lines), 4)]
+    paths = []
+    for j in range(4):
+        path = tmp_path / f"q{j}.fq"
+        path.write_text("".join(recs[j::4]))
+        paths.append(str(path))
+    return paths
+
+
+@pytest.mark.parametrize("nb", [1, 2])
+def test_count_generators_match_jax(reads, tmp_path, monkeypatch, nb):
+    """count -g (a file of `cat` commands, one a quarter of the FASTQ) -G
+    nb -S /bin/sh: the JAX package's bytes, and the records of the count
+    of the file itself."""
+    _, fq, _ = reads
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", "1700000000")
+    cmds = tmp_path / "cmds.txt"
+    cmds.write_text("".join(f"cat {q}\n" for q in _quarters(tmp_path, fq)))
+    argv = ["count", "-m", "21", "-s", "10k", "-C", "--matrix-seed", "6",
+            "--chunk-len", "4096"]
+    rec = _same_files(*_both(tmp_path, "g.jf", [
+        *argv, "-g", str(cmds), "-G", str(nb), "-S", "/bin/sh"], []))
+    whole = str(tmp_path / "whole.jf")
+    assert torch_main([*argv, "-o", whole, fq], device="cpu") == 0
+    assert _split(whole)[1] == rec and len(rec) > 1000
+
+
+def test_bc_generators_match_jax(reads, seeded, tmp_path):
+    """bc -g -G 2: the same .bc as the JAX package's."""
+    _, fq, _ = reads
+    cmds = tmp_path / "cmds.txt"
+    cmds.write_text("".join(f"cat {q}\n" for q in _quarters(tmp_path, fq)))
+    cells = _same_files(*_both(tmp_path, "g.bc", [
+        "bc", "-m", "21", "-s", "10k", "-C", "-g", str(cmds), "-G", "2"],
+        []))
+    assert any(cells)
+
+
+def _stdout_of(capsys, main, argv):
+    assert main(argv) == 0
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    ["mem", "-m", "24", "-s", "1G"],
+    ["mem", "-m", "31", "--mem", "8g"],
+    ["mem", "-m", "21", "-s", "33554432", "--packed"],
+    ["mem", "-m", "63", "--mem", "1G", "--packed", "-c", "9"],
+    ["mem", "-m", "21", "-s", "4M", "-C", "-o", "x.jf", "--disk", "-t", "4",
+     "--if", "a.fa", "r.fq"],
+    ["cite"],
+    ["cite", "-b"],
+], ids=lambda a: " ".join(a))
+def test_host_tools_match_jax(capsys, argv):
+    got = _stdout_of(capsys, lambda a: torch_main(a, device="cpu"), argv)
+    assert got == _stdout_of(capsys, _jax_main, argv) and got
+
+
+@pytest.mark.parametrize("extra", [
+    ["-m", "5000"],
+    ["-m", "3000", "-m", "1k", "-r", "150", "-q"],
+    ["-m", "2000", "-r", "300", "-s", "9"],
+], ids=lambda a: " ".join(a))
+def test_generate_matches_jax(tmp_path, extra):
+    for name, main in (("t", lambda a: torch_main(a, device="cpu")),
+                       ("j", _jax_main)):
+        assert main(["generate", *extra, "-o", str(tmp_path / name)]) == 0
+    got = sorted(p.name[1:] for p in tmp_path.glob("t*"))
+    assert got and got == sorted(p.name[1:] for p in tmp_path.glob("j*"))
+    for name in got:
+        assert ((tmp_path / f"t{name}").read_bytes()
+                == (tmp_path / f"j{name}").read_bytes())
+
+
+def _children_running(marker):
+    """Pids of live processes whose command line holds `marker`."""
+    import os
+
+    pids = []
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ")
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except (OSError, IndexError):
+            continue
+        if marker.encode() in cmd and state != "Z":
+            pids.append(int(pid))
+    return pids
+
+
+def test_sigterm_terminates_generators(tmp_path):
+    """A SIGTERM to count while it reads a generator's output ends the run
+    and terminates the generator child (count_main.cc:209-216)."""
+    import signal
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    marker = f"{31.5 + (tmp_path.stat().st_ino % 1000) / 1e4:.4f}"
+    cmds = tmp_path / "cmds.txt"
+    cmds.write_text(f"exec sleep {marker}\n")
+    code = ("from jellyfish_tpu_torch.cli import main\n"
+            f"main(['count', '-m', '15', '-s', '1k', '-g', {str(cmds)!r},"
+            f" '-o', {str(tmp_path / 'x.jf')!r}], device='cpu')\n")
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=root)
+    try:
+        deadline = time.monotonic() + 60
+        while not _children_running(f"sleep {marker}"):
+            assert time.monotonic() < deadline and proc.poll() is None
+            time.sleep(0.1)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) != 0
+        deadline = time.monotonic() + 10
+        while _children_running(f"sleep {marker}"):
+            assert time.monotonic() < deadline, "generator left running"
+            time.sleep(0.1)
+    finally:
+        proc.kill()
+        proc.wait()
+    assert not (tmp_path / "x.jf").exists()

@@ -17,6 +17,7 @@ from jellyfish_tpu.counter import MerCounter as JaxCounter
 from jellyfish_tpu_torch.counter import MerCounter
 from jellyfish_tpu_torch.io.parse import pack_chunk
 from jellyfish_tpu_torch.ops import hashing, multiword as mw
+from jellyfish_tpu_torch.ops.packed_run import PackedRun
 
 torch.set_num_threads(1)
 
@@ -318,3 +319,104 @@ def test_filtered_counts_match_jax(k, motif):
     assert port.store.levels[1] and port.store.total_pads() == 0
     m, c = _same(port, ref)
     assert (c > 0).all() and len(c) > 100
+
+
+# -- count --packed-store, --if, add_mers_np ---------------------------------
+
+
+@pytest.mark.parametrize("k,canonical,size,motif", [
+    (21, True, None, None),
+    (32, False, None, "ones"),
+    (63, True, None, None),
+    (8, False, 4 ** 8, "T" * 60),
+], ids=["k21", "k32-ones", "k63", "k8-identity"])
+def test_packed_store_matches_dense_and_jax(k, canonical, size, motif):
+    """pack_resting=True with a small grain and branch 4: merged runs
+    reach level 2 and rest packed, and so does the finalize's run; the
+    table equals the dense port's and the JAX package's, packed and
+    dense, and the packed store holds fewer bytes. After more input, the
+    repeated finalize unpacks the resting run and equals the JAX dense
+    store's table. (The JAX packed store differs there at k = 8: its
+    unpack turns the real all-ones key of the resting run into the PAD
+    key, and its count comes out under a mer that was never counted. The
+    port keeps the run's last two keys as they were.)"""
+    seed = 9600 + k
+
+    def make(cls, **kw):
+        return cls(k, size or 4096, canonical=canonical,
+                   rng=np.random.default_rng(seed), **kw)
+
+    packed = make(MerCounter, device="cpu", pack_resting=True)
+    dense = make(MerCounter, device="cpu")
+    ref, jpacked = make(JaxCounter), make(JaxCounter, pack_resting=True)
+    for c in (packed, dense):
+        c.store.consolidate_rows = GRAIN
+        c.store.branch = 4
+    if motif == "ones":
+        motif = _all_ones_mer(packed)
+    rng = np.random.default_rng(seed)
+    _feed([packed, dense, ref, jpacked], _chunks(rng, 72, k, motif))
+    assert packed.store.levels[2] and packed.store.packed > 0
+    assert all(isinstance(r, PackedRun) for r in packed.store.levels[2])
+    assert packed.store.device_bytes() < dense.store.device_bytes()
+    m, c = _same(packed, ref)
+    for other in (dense, jpacked):
+        om, oc = other.finalize_np()
+        np.testing.assert_array_equal(m, np.asarray(om))
+        np.testing.assert_array_equal(c, np.asarray(oc))
+    assert isinstance(packed.store.levels[-1][0], PackedRun)
+    assert packed.store.device_bytes() < dense.store.device_bytes()
+    _feed([packed, ref], _chunks(rng, 10, k, motif))
+    _same(packed, ref)
+    _same(packed, ref)
+
+
+@pytest.mark.parametrize("k", [21, 33])
+def test_add_mers_np_matches_jax(k):
+    """add_mers_np: explicit mers (repeated, weight 3) as a counted run,
+    beside packed chunks."""
+    seed = 9700 + k
+    port = MerCounter(k, 4096, rng=np.random.default_rng(seed), device="cpu")
+    ref = JaxCounter(k, 4096, rng=np.random.default_rng(seed))
+    rng = np.random.default_rng(seed)
+    mers = [int(x) for x in rng.integers(0, 1 << 40, 500)] * 2
+    for c in (port, ref):
+        c.add_mers_np(mers, 3)
+        c.add_mers_np([])
+    _feed([port, ref], _chunks(rng, 4, k))
+    m, c = _same(port, ref)
+    assert (c >= 6).sum() >= 500
+
+
+def _allowed(rng, k, n):
+    """ASCII chunks of allowed reads: pieces of the test genome's reads
+    (so many are counted) and random sequence (mostly never counted)."""
+    chunks = list(_chunks(rng, n, k))
+    chunks.append(_ascii_chunk(rng, 3000))
+    return [c[:L - 5] for c in chunks]
+
+
+@pytest.mark.parametrize("k,canonical", [(21, True), (32, False), (63, True)])
+def test_restrict_to_matches_jax(k, canonical):
+    """--if: the allowed set in hash order with its counts or 0; after
+    reset() (a --disk spill) the restriction still holds; with nothing
+    counted the allowed set dumps at 0."""
+    seed = 9800 + k
+    port = MerCounter(k, 4096, canonical=canonical,
+                      rng=np.random.default_rng(seed), device="cpu")
+    ref = JaxCounter(k, 4096, canonical=canonical,
+                     rng=np.random.default_rng(seed))
+    port.store.consolidate_rows = GRAIN
+    rng = np.random.default_rng(seed)
+    allowed = _allowed(rng, k, 3)
+    port.restrict_to(iter(allowed))
+    ref.restrict_to(iter(allowed))
+    m, c = _same(port, ref)  # nothing counted yet: all at 0
+    assert len(c) > 300 and not c.any()
+    _feed([port, ref], _chunks(np.random.default_rng(seed), 24, k))
+    m, c = _same(port, ref)
+    assert 0 < (c > 0).sum() < len(c)
+    for x in (port, ref):
+        x.reset()
+    _feed([port, ref], _chunks(rng, 6, k))
+    _same(port, ref)

@@ -106,6 +106,40 @@ def test_bloom_path_runs_without_jax(tmp_path):
         assert (tmp_path / name).stat().st_size > 0
 
 
+def test_count_modes_tools_and_api_run_without_jax(tmp_path):
+    """count --packed-store, --if, --text and -g, mem, cite, generate and
+    the scripting API in a fresh interpreter leave jax and jellyfish_tpu
+    out of sys.modules."""
+    d = str(tmp_path)
+    code = (
+        "import sys, contextlib, io\n"
+        "import jellyfish_tpu_torch as jf\n"
+        "from jellyfish_tpu_torch.cli import main\n"
+        "def run(*a):\n"
+        "    assert main(list(a), device='cpu') == 0, a\n"
+        f"run('generate', '-m', '20k', '-r', '150', '-q', '-o', {d!r} + '/g')\n"
+        f"fq = {d!r} + '/g.fq'\n"
+        f"open({d!r} + '/cmds', 'w').write('cat ' + fq + '\\n')\n"
+        f"run('count', '-m', '15', '-s', '1k', '--packed-store', '--if', fq,"
+        f" '--text', '-g', {d!r} + '/cmds', '-o', {d!r} + '/a.jf')\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    run('mem', '-m', '21', '-s', '4M', '--packed')\n"
+        "    run('cite')\n"
+        f"run('count', '-m', '15', '-s', '1k', '-o', {d!r} + '/b.jf', fq)\n"
+        f"assert sum(c for _, c in jf.ReadMerFile({d!r} + '/b.jf')) > 0\n"
+        f"q = jf.QueryMerFile({d!r} + '/b.jf')\n"
+        "jf.HashCounter(10, 5).add(jf.MerDNA('A' * 15), 1)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'jellyfish_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert (tmp_path / "a.jf").stat().st_size > 0
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -125,7 +159,10 @@ def test_no_jax_imports_in_sources():
             "jellyfish_tpu_torch/bloom.py",
             "jellyfish_tpu_torch/ops/bitsarray.py",
             "jellyfish_tpu_torch/cli/tools.py",
-            "jellyfish_tpu_torch/kernels/sort.py"} <= names
+            "jellyfish_tpu_torch/kernels/sort.py",
+            "jellyfish_tpu_torch/ops/packed_run.py",
+            "jellyfish_tpu_torch/api.py",
+            "jellyfish_tpu_torch/memmodel.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
