@@ -49,6 +49,15 @@ against a numpy join. At the CLI sizes (phase_cli_modes): count
 --text, -g of 4 generator commands with -G 2, and --disk --packed-store,
 each against its oracle; and count --disk at k = 21 with the grain cut to
 2^18 rows, dense and packed, where the packed store must spill less.
+count -d (phase_sharded): ShardedMerCounter counts the 268M windows with
+2 and 4 shards sharing the card at k = 21 and with 4 at k = 63, each
+record-equal to the single-device table, with the device time of each
+layer (pipeline, local dedup, exchange, stores, finalize) from a profiled
+pass over the first 64 chunks; at the CLI k = 21 size -d 2's modes
+(--if, --bc, seeded --bf-size, --packed-store, --disk -s 1M with 3 or
+more partials) through cli/count._run_counting against the single-device
+counter, and count -d 1 and -d auto (the plain count's records) and -d
+N above the visible devices (dies) through the CLI (phase_sharded_modes).
 Every new path must launch K1 and K2 (and K3 at k = 63, rows 9 on --disk).
 Exits nonzero, with no result line, when there is no GPU or any phase
 fails.
@@ -62,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import io
 import json
 import os
 import re
@@ -81,6 +91,9 @@ FILTER_CHUNKS = 64  # phase_bloom's count --bc and --bf-size: a quarter
 PACK_GRAIN = 1 << 21  # phase_packed's grain: 128 grains, runs at level 2
 DISK_GRAIN = 1 << 18  # the CLI --disk spill pair's grain: one a batch
 IF_CHUNKS, IF_RANDOM = 16, 1 << 20  # phase_if's allowed chunks, random bases
+# phase_sharded's (k, shards) on the one card, and the chunks of the
+# profiled pass of each (the profiler stretches a full pass to 30-45 s)
+SHARD_RUNS, SHARD_PROFILE_CHUNKS = ((21, 2), (21, 4), (63, 4)), 64
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 
 
@@ -2355,6 +2368,296 @@ def phase_bloom_cli(tmp, fq, seq, mem_db):
     return dict(bc_s=t_bc, count_bc_s=t_count, ascii_count_s=t_ascii,
                 records=len(bcnt))
 
+# -- count -d: the sharded counter -----------------------------------------------
+
+
+def sharded_pass(counter, staged, n_chunks=CHUNKS):
+    """Feed the first n_chunks staged chunks to a ShardedMerCounter, one a
+    shard a step, then finalize: (mers, counts, counting s, finalize s,
+    device bytes at the end of counting). The shards' stores take counted
+    runs only, so no backlog is left when the last step returns."""
+    P = counter.n_shards
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = 0
+    for pw, vb in staged:
+        for i in range(0, pw.shape[0], P):
+            if done < n_chunks:
+                counter.add_chunks_packed(pw[i:i + P], vb[i:i + P])
+                done += P
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t
+    held = counter.store.device_bytes()
+    t = time.perf_counter()
+    mers, counts = counter.finalize_np()
+    return mers, counts, t_count, time.perf_counter() - t, held
+
+
+@contextlib.contextmanager
+def annotated(targets):
+    """Every call of each (owner, attribute, label) in `targets` runs
+    inside torch.profiler.record_function(label); restored on exit."""
+    saved = []
+    for owner, attr, label in targets:
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **kw)
+        setattr(owner, attr, wrapped)
+    try:
+        yield
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+def device_ms_by_range(prof, inner, outer):
+    """Device ms of the profiled kernels, copies and memsets, by the
+    record_function range their launch fell in on the host: a range
+    labelled in `inner`, else one in `outer` (its own work: outer[label]),
+    else "other". Launch and kernel meet by their correlation id in the
+    exported trace."""
+    import bisect
+
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as g:
+            events = json.load(g)["traceEvents"]
+    spans = {"inner": [], "outer": []}
+    launch = {}
+    for e in events:
+        cat, args = e.get("cat"), e.get("args") or {}
+        if cat == "user_annotation" and e.get("ph") == "X":
+            for kind, labels in (("inner", inner), ("outer", outer)):
+                if e["name"] in labels:
+                    spans[kind].append((e["ts"], e["ts"] + e["dur"],
+                                        labels[e["name"]]))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch[args["correlation"]] = e["ts"]
+    for kind in spans:
+        spans[kind].sort()
+    starts = {kind: [s[0] for s in v] for kind, v in spans.items()}
+
+    def label_of(t):
+        for kind in ("inner", "outer"):
+            i = bisect.bisect_right(starts[kind], t) - 1
+            if i >= 0 and t <= spans[kind][i][1]:
+                return spans[kind][i][2]
+        return "other"
+
+    ms = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            t = launch.get((e.get("args") or {}).get("correlation"))
+            name = "other" if t is None else label_of(t)
+            ms[name] = ms.get(name, 0.0) + e["dur"] / 1e3
+    return ms
+
+
+def exchange_shares(counter, staged, n_chunks=SHARD_PROFILE_CHUNKS):
+    """A sharded pass over the first n_chunks chunks, unprofiled for its
+    wall time, then profiled: device ms of the chunk pipeline
+    (extraction, hashing), the local deduplication (sort, segment counts,
+    PAD correction, the sender's K2), the exchange proper (owners, their
+    counts, the host read, the cuts and moves), the stores (insert_run:
+    K2 and the level merges) and finalize, each as a share of all device
+    time. "exchange_share" is the deduplication and the exchange;
+    "device_busy_share" all device time over the unprofiled pass's
+    wall."""
+    from jellyfish_tpu_torch.counter import MerCounter
+    from jellyfish_tpu_torch.parallel import sharded
+    from jellyfish_tpu_torch.store import SortedCountStore
+
+    counter.reset()
+    _, _, t_count, t_final, _ = sharded_pass(counter, staged, n_chunks)
+    counter.reset()
+    inner = {"pipeline": "pipeline", "dedup": "dedup", "send_k2": "dedup",
+             "store": "store"}
+    outer = {"step": "exchange", "finalize": "finalize"}
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with annotated([
+            (MerCounter, "packed_sortkeys", "pipeline"),
+            (sharded, "_dedup", "dedup"), (sharded, "compact", "send_k2"),
+            (SortedCountStore, "insert_run", "store"),
+            (sharded.ShardedMerCounter, "add_chunks_packed", "step"),
+            (sharded.ShardedMerCounter, "finalize_np", "finalize")]):
+        with prof:
+            sharded_pass(counter, staged, n_chunks)
+    ms = device_ms_by_range(prof, inner, outer)
+    total = sum(ms.values())
+    if total == 0:
+        log("  the profiler saw no device work: shares not measured")
+        return {"profiled_chunks": n_chunks, "device_ms": None}
+    return {
+        "profiled_chunks": n_chunks, "wall_s": t_count + t_final,
+        "device_ms": {n: round(v, 3) for n, v in sorted(ms.items())},
+        "shares": {n: round(v / total, 4) for n, v in sorted(ms.items())},
+        "exchange_share": round(
+            (ms.get("dedup", 0) + ms.get("exchange", 0)) / total, 4),
+        "device_busy_share": round(total / 1e3 / (t_count + t_final), 4)}
+
+
+def phase_sharded(staged, tables, dev, runs=SHARD_RUNS):
+    """count -d at full size through ShardedMerCounter on the one card:
+    for each (k, P) of `runs`, P shards that share it (mesh=[cuda] * P),
+    fed the 256 staged chunks one a shard a step. Each table must equal
+    tables[k] (phase_full's MerCounter count: -s 4M gives both the same
+    22 x 2k matrix). Counting s, finalize s, peak GiB, then the device
+    time of each layer in a profiled pass over the first chunks
+    (exchange_shares). Returns (launches by run, results)."""
+    from jellyfish_tpu_torch.parallel import ShardedMerCounter
+
+    out, launches = {}, {}
+    for k, P in runs:
+        name = f"k{k}_P{P}"
+        counter = ShardedMerCounter(k, 4 << 20, mesh=[dev] * P,
+                                    canonical=True,
+                                    rng=np.random.default_rng(42))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        mers, counts, t_count, t_final, held = sharded_pass(counter, staged)
+        launches[name] = kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        same = (np.array_equal(mers, tables[k][0])
+                and np.array_equal(counts, tables[k][1]))
+        per_shard = [len(c) for _, _, c in counter.finalize_local_np()]
+        n_valid = int(counts.sum(dtype=np.uint64))
+        del mers, counts
+        t = time.perf_counter()
+        shares = exchange_shares(counter, staged)
+        t_prof = time.perf_counter() - t
+        row = dict(k=k, shards=P, counting_s=t_count,
+                   mers_per_s=n_valid / t_count,
+                   finalize_s=t_final,
+                   peak_gib=peak / 2**30, device_bytes_counted=held,
+                   records_by_shard=per_shard, equal=same,
+                   profile_s=t_prof, **shares)
+        log(f"full size k={k} -d {P} on one card: "
+            f"{json.dumps(row)}; launches {launches[name]}")
+        need = ["merge_path", "compact"] + (
+            ["block_sort", "merge_pass"] if k > 32 else [])
+        missed = [n for n in need if launches[name][n] == 0]
+        if not same or missed:
+            raise AssertionError(f"-d {P} count k={k} differs from the "
+                                 f"single-device table or ran without "
+                                 f"{missed}")
+        out[name] = row
+        del counter
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_sharded_modes(tmp, dev):
+    """count -d's modes at the CLI k = 21 size (r21.fq), through
+    cli/count._run_counting with a 2-shard counter on the one card, each
+    against the same run with the single-device MerCounter: --if (the
+    first 2,000 reads and 100,000 random bases), --bc (a bc of the
+    input), --bf-size 16M (both filters from one seed), --packed-store,
+    and --disk -s 1M (3 or more partials, merged). Then the CLI's -d:
+    count -d 1 and -d auto write the plain CLI count's records (o21.jf),
+    and -d N above the visible devices dies with the JAX package's
+    message. Returns (launches of the 2-shard runs, results)."""
+    from jellyfish_tpu_torch import cli
+    from jellyfish_tpu_torch.bloom import load_count_filter
+    from jellyfish_tpu_torch.cli import count as cli_count
+    from jellyfish_tpu_torch.counter import MerCounter
+    from jellyfish_tpu_torch.io.parse import SequenceChunker
+    from jellyfish_tpu_torch.parallel import ShardedMerCounter
+
+    k, fq = 21, os.path.join(tmp, "r21.fq")
+    out = os.path.join(tmp, "shard.jf")
+    bcp, allow = os.path.join(tmp, "d21.bc"), os.path.join(tmp, "d21.fa")
+    if cli.main(["bc", "-m", "21", "-s", "4M", "-C", "-o", bcp, fq]) != 0:
+        raise AssertionError("bc failed")
+    with open(fq, "rb") as f:
+        reads = f.read().split(b"\n")[1:8000:4]
+    rand = np.frombuffer(b"ACGT", np.uint8)[
+        np.random.default_rng(5).integers(0, 4, 100_000)]
+    with open(allow, "wb") as f:
+        f.write(b"".join(b">a\n%s\n" % r for r in reads)
+                + b">r\n" + rand.tobytes() + b"\n")
+    base = ["count", "-m", "21", "-s", "4M", "-C", "--matrix-seed", "1"]
+    modes = {"if": ["--if", allow], "bc": ["--bc", bcp],
+             "bf_size": ["--bf-size", "16M"],
+             "packed_store": ["--packed-store"],
+             "disk": ["--disk", "-s", "1M", "--no-unlink"]}
+    res, launches = {}, {}
+    for mode, flags in modes.items():
+        argv = [*base, *flags, "-o", out, fq]
+        args = cli.build_parser().parse_args(argv)
+        got = {}
+        for shards in (1, 2):
+            filt = None
+            if args.bc or args.bf_size is not None:
+                filt = load_count_filter(
+                    bc_path=args.bc, bf_size=args.bf_size,
+                    bf_fp=args.bf_fp, k=k, canonical=True,
+                    rng=np.random.default_rng(5))
+            rng = np.random.default_rng(args.matrix_seed)
+            if shards == 1:
+                counter = MerCounter(k, args.size, canonical=True, rng=rng,
+                                     mer_filter=filt,
+                                     pack_resting=args.packed_store)
+            else:
+                counter = ShardedMerCounter(
+                    k, args.size, mesh=[dev] * shards, canonical=True,
+                    rng=rng, mer_filter=filt,
+                    pack_resting=args.packed_store)
+            reset_counts()
+            t = time.perf_counter()
+            with SequenceChunker([fq], k, chunk_len=args.chunk_len) as ch:
+                cli_count._run_counting(args, argv, k, counter, ch, t)
+            dt = time.perf_counter() - t
+            parts = sorted(glob.glob(out + "[0-9]*"))
+            for q in parts:
+                os.unlink(q)
+            got[shards] = (records_of(out), dt, len(parts))
+            launches[mode] = kernel_counts()
+            del counter
+        same = got[1][0] == got[2][0]
+        row = dict(wall_s_single=got[1][1], wall_s_2=got[2][1],
+                   partials_2=got[2][2], records_bytes=len(got[2][0]),
+                   equal=same)
+        log(f"-d 2 count {' '.join(os.path.basename(f) for f in flags)} "
+            f"at the CLI k=21 size: {json.dumps(row)}; launches "
+            f"{launches[mode]}")
+        missed = [n for n in ("merge_path", "compact")
+                  if launches[mode][n] == 0]
+        if not same or missed or (mode == "disk" and got[2][2] < 3):
+            raise AssertionError(f"-d 2 {mode} differs from one device, "
+                                 f"ran without {missed} or spilled "
+                                 f"{got[2][2]} partials")
+        res[mode] = row
+
+    want = records_of(os.path.join(tmp, "o21.jf"))
+    for d in ("1", "auto"):
+        if cli.main([*base, "-d", d, "-o", out, fq]) != 0:
+            raise AssertionError(f"count -d {d} failed")
+        res[f"cli_d_{d}"] = records_of(out) == want
+    n = torch.cuda.device_count() + 1
+    err, code = io.StringIO(), 0
+    with contextlib.redirect_stderr(err):
+        try:
+            code = cli.main([*base, "-d", str(n), "-o", out, fq])
+        except SystemExit as e:
+            code = e.code
+    msg = f"count: --devices {n} exceeds the {n - 1} visible devices"
+    res[f"cli_d_{n}_dies"] = code not in (0, None) and msg in err.getvalue()
+    log(f"CLI count -d 1, -d auto == the plain count, -d {n} dies: "
+        f"{res['cli_d_1']}, {res['cli_d_auto']}, {res[f'cli_d_{n}_dies']}")
+    if not (res["cli_d_1"] and res["cli_d_auto"]
+            and res[f"cli_d_{n}_dies"]):
+        raise AssertionError("the CLI's -d is wrong")
+    for p in (out, bcp, allow):
+        os.unlink(p)
+    return launches, res
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2413,6 +2716,7 @@ def main() -> int:
         bloom_cli = phase_bloom_cli(tmp, os.path.join(tmp, "r21.fq"), seq21,
                                     os.path.join(tmp, "o21.jf"))
         cli_modes = phase_cli_modes(tmp)
+        shard_mode_launches, shard_modes = phase_sharded_modes(tmp, dev)
         del seq21
         chunks, staged = stage_chunks(dev)
         # each kernel's launches are read from the full-size run of its
@@ -2446,6 +2750,10 @@ def main() -> int:
         mode_launches, modes = {}, {}
         mode_launches["packed_store"], modes["packed_store"] = phase_packed(
             staged, tables)
+        mode_launches["sharded"], modes["sharded"] = phase_sharded(
+            staged, tables, dev)
+        mode_launches["sharded_modes"] = shard_mode_launches
+        modes["sharded_modes"] = shard_modes
         del tables
         mode_launches["restricted"], modes["restricted"] = phase_if(
             chunks, staged, table)

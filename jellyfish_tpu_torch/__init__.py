@@ -36,6 +36,10 @@ def __getattr__(name):
         from jellyfish_tpu_torch.counter import MerCounter
 
         return MerCounter
+    if name == "ShardedMerCounter":
+        from jellyfish_tpu_torch.parallel import ShardedMerCounter
+
+        return ShardedMerCounter
     if name == "SequenceChunker":
         from jellyfish_tpu_torch.io.parse import SequenceChunker
 

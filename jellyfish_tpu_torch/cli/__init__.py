@@ -4,9 +4,9 @@
 `count`, `bc` and `merge` run on the GPU, and so does `query` of a Bloom
 counter (a binary database is searched on the host); histo, dump, stats,
 info, mem, cite and generate run on the host. `count` and `bc` take the
-JAX package's flags, and the ones whose paths are not ported (`count -d`,
-`--sam`, `--coordinator`) raise NotPortedError. The JAX package's
-fastq2sam is not ported yet.
+JAX package's flags; `count -d N` shards the table over N devices of one
+process. The ones whose paths are not ported (`--sam`, `--coordinator`)
+raise NotPortedError. The JAX package's fastq2sam is not ported yet.
 """
 
 from __future__ import annotations

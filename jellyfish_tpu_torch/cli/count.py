@@ -1,10 +1,17 @@
-"""`jellyfish count` on the GPU (the single-device paths of
-jellyfish_tpu/cli/count.py, with its --disk spill and merge and its Bloom
-filters).
+"""`jellyfish count` on the GPU (the single-process paths of
+jellyfish_tpu/cli/count.py: one device or `-d N` shards, with its --disk
+spill and merge and its Bloom filters).
 
 The flag surface is the JAX package's (count_main_cmdline.yaggo:4-112).
-Flags whose paths are not ported yet (-d, --sam, --coordinator) raise
+Flags whose paths are not ported yet (--sam, --coordinator) raise
 NotPortedError rather than doing something else.
+
+-d N shards the table by hash prefix over N devices
+(parallel/sharded.py); -d auto means every visible CUDA device (1 on the
+CPU), and -d 0, -d 1 or one device count on one device. On the card N may
+not exceed the visible CUDA devices; with device="cpu" every shard lies
+on the CPU and N is free. Under -d each ingest step takes N chunks, one a
+shard, the tail padded with chunks that hold no mer.
 
 Ingest: host-packed batches when no filter is given and --chunk-len is a
 multiple of 32; otherwise ASCII chunks one at a time, as the JAX package
@@ -106,7 +113,6 @@ def add_parser(sub):
 
 def _check_ported(args) -> None:
     unported = [
-        ("-d/--devices", args.devices != "1"),
         ("--sam", bool(args.sam)),
         ("--coordinator", args.coordinator is not None),
     ]
@@ -149,8 +155,9 @@ def _prefetch(iterable, depth: int = 4):
 
 
 def _batched(iterable, n: int):
-    """Group (pwords, validbits) chunks into lists of n, padding the tail
-    with all-zero chunks (zero validity bits: no windows)."""
+    """Group chunks into lists of n, padding the tail with chunks that hold
+    no window: all-zero (pwords, validbits) tuples (zero validity bits),
+    or all-N uint8 chunks."""
     batch = []
     for item in iterable:
         batch.append(item)
@@ -158,9 +165,29 @@ def _batched(iterable, n: int):
             yield batch
             batch = []
     if batch:
-        zero = tuple(np.zeros_like(x) for x in batch[-1])
-        batch.extend([zero] * (n - len(batch)))
+        pad = batch[-1]
+        if isinstance(pad, tuple):
+            pad = tuple(np.zeros_like(x) for x in pad)
+        else:
+            pad = np.full_like(pad, ord("N"))
+        batch.extend([pad] * (n - len(batch)))
         yield batch
+
+
+def _n_devices(args, on_card: bool) -> int:
+    """-d's shard count: `auto` is every visible CUDA device on the card
+    and 1 on the CPU; N above the visible CUDA devices dies."""
+    import torch
+
+    from jellyfish_tpu_torch.cli.common import die
+
+    if args.devices == "auto":
+        return torch.cuda.device_count() if on_card else 1
+    n = int(args.devices)
+    if on_card and n > torch.cuda.device_count():
+        die(f"count: --devices {n} exceeds the "
+            f"{torch.cuda.device_count()} visible devices")
+    return n
 
 
 def _min_qual(args):
@@ -178,6 +205,7 @@ def run(args, argv, device=None):
 
     from jellyfish_tpu_torch.cli.common import die, load_generator_cmds
     from jellyfish_tpu_torch.counter import MerCounter
+    from jellyfish_tpu_torch.device import resolve_device
     from jellyfish_tpu_torch.io.parse import SequenceChunker
 
     t_start = time.perf_counter()
@@ -194,11 +222,23 @@ def run(args, argv, device=None):
             bc_path=args.bc, bf_size=args.bf_size, bf_fp=args.bf_fp, k=k,
             canonical=args.canonical, device=device,
         )
-    counter = MerCounter(
-        k, size=args.size, canonical=args.canonical,
-        rng=np.random.default_rng(args.matrix_seed), device=device,
-        mer_filter=filt, pack_resting=args.packed_store,
-    )
+    rng = np.random.default_rng(args.matrix_seed)
+    on_card = resolve_device(device).type == "cuda"
+    n_devices = _n_devices(args, on_card)
+    if n_devices > 1:
+        from jellyfish_tpu_torch.parallel import ShardedMerCounter, make_mesh
+
+        counter = ShardedMerCounter(
+            k, size=args.size,
+            mesh=make_mesh(n_devices, None if on_card else "cpu"),
+            canonical=args.canonical, rng=rng, mer_filter=filt,
+            pack_resting=args.packed_store,
+        )
+    else:
+        counter = MerCounter(
+            k, size=args.size, canonical=args.canonical, rng=rng,
+            device=device, mer_filter=filt, pack_resting=args.packed_store,
+        )
     chunker = SequenceChunker(
         list(args.file), k, chunk_len=args.chunk_len, min_qual=_min_qual(args),
         generator_cmds=gen_cmds, shell=args.shell,
@@ -259,14 +299,21 @@ def _run_counting(args, argv, k, counter, chunker, t_start):
 
     # parsing (and packing) runs on a producer thread so host work
     # overlaps the device's
+    n_shards = getattr(counter, "n_shards", 1)
     if filt is None and args.chunk_len % 32 == 0:
-        # B chunks per batch
-        B = int(os.environ.get("JF_INGEST_BATCH", 8))
+        # B chunks per batch, or one a shard
+        if n_shards > 1:
+            B, add = n_shards, counter.add_chunks_packed
+        else:
+            B = int(os.environ.get("JF_INGEST_BATCH", 8))
+            add = counter.add_chunks_packed_batch
         for batch in _prefetch(_batched(chunker.chunks_packed(), B)):
-            counter.add_chunks_packed_batch(
-                np.stack([b[0] for b in batch]),
-                np.stack([b[1] for b in batch]),
-            )
+            add(np.stack([b[0] for b in batch]),
+                np.stack([b[1] for b in batch]))
+            maybe_spill()
+    elif n_shards > 1:
+        for batch in _prefetch(_batched(chunker.chunks(), n_shards)):
+            counter.add_chunks(np.stack(batch))
             maybe_spill()
     else:
         for chunk in _prefetch(chunker.chunks()):

@@ -65,18 +65,23 @@ def _chunk_pipeline(chunk_u8, masks, k, lsize, canonical):
     return _premasked(mers, valid, masks, k, lsize)
 
 
-def _chunk_pipeline_dedup(chunk_u8, masks, k, lsize, canonical):
-    """The chunk's distinct sortkeys with their counts, as a masked run
-    (sorted; each count on its segment's last row, 0 on the others). The
-    PAD segment's count is corrected by the pad rows, so it holds 0, or
-    the true count when a real mer's sortkey is the PAD key."""
-    sk, n_valid = _chunk_pipeline(chunk_u8, masks, k, lsize, canonical)
+def _dedup(sk, n_valid):
+    """Premasked sortkey columns [N, Wk] -> their distinct keys with
+    their counts, as a masked run (sorted; each count on its segment's
+    last row, 0 on the others). The PAD segment's count is corrected by
+    the pad rows, so it holds 0, or the true count when a real mer's
+    sortkey is the PAD key."""
     keys, counts = consolidate_premasked(sk)
     # remove the PAD inflation: the last sorted row always ends the final
     # (PAD or maximal) segment, and pads = N - n_valid
     pads = sk.shape[0] - n_valid
     counts[-1] -= pads
     return keys, counts
+
+
+def _chunk_pipeline_dedup(chunk_u8, masks, k, lsize, canonical):
+    """An ASCII chunk's distinct sortkeys with their counts (_dedup)."""
+    return _dedup(*_chunk_pipeline(chunk_u8, masks, k, lsize, canonical))
 
 
 def _recover_mers(keys, inv_masks, k, lsize, W):
@@ -182,20 +187,25 @@ class MerCounter:
         t = torch.from_numpy(x).to(self.device)
         return t.to(torch.int64) & mw.M32
 
+    def packed_sortkeys(self, pwords, validbits):
+        """B equal-length host-packed chunks (L >= k) -> (premasked
+        sortkey columns [B * 16 * Mp, Wk], n_valid scalar) on the
+        device."""
+        pw = self._words(pwords)
+        vb = self._words(validbits)
+        L = int(pw.shape[-1]) * 16
+        mers, valid = extract_mers_packed(pw, vb, self.k, L, self.canonical)
+        return _premasked(mers.reshape(-1, self.W), valid.reshape(-1),
+                          self._A, self.k, self.lsize)
+
     def add_chunks_packed_batch(self, pwords, validbits) -> None:
         """Count the k-mers of B equal-length host-packed chunks:
         pwords [B, L/16], validbits [B, ceil(L/32)] (see
         SequenceChunker.chunks_packed). Chunks are independent: no window
         crosses from one to the next."""
-        pw = self._words(pwords)
-        vb = self._words(validbits)
-        L = int(pw.shape[-1]) * 16
-        if L < self.k:
+        if int(pwords.shape[-1]) * 16 < self.k:
             return
-        mers, valid = extract_mers_packed(pw, vb, self.k, L, self.canonical)
-        self.store.insert_raw(*_premasked(
-            mers.reshape(-1, self.W), valid.reshape(-1), self._A, self.k,
-            self.lsize))
+        self.store.insert_raw(*self.packed_sortkeys(pwords, validbits))
 
     def add_chunk_packed(self, pwords, validbits) -> None:
         """One host-packed chunk: pwords [L/16], validbits [ceil(L/32)]."""

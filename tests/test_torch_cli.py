@@ -96,7 +96,7 @@ def test_no_write_and_timing(reads, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-d", "2"], ["-d", "auto"], ["--sam", "x.sam"],
+    ["--sam", "x.sam"],
     ["--coordinator", "localhost:1234"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(reads, tmp_path, flags):

@@ -107,9 +107,9 @@ def test_bloom_path_runs_without_jax(tmp_path):
 
 
 def test_count_modes_tools_and_api_run_without_jax(tmp_path):
-    """count --packed-store, --if, --text and -g, mem, cite, generate and
-    the scripting API in a fresh interpreter leave jax and jellyfish_tpu
-    out of sys.modules."""
+    """count --packed-store, --if, --text, -g and -d, mem, cite, generate
+    and the scripting API in a fresh interpreter leave jax and
+    jellyfish_tpu out of sys.modules."""
     d = str(tmp_path)
     code = (
         "import sys, contextlib, io\n"
@@ -126,6 +126,9 @@ def test_count_modes_tools_and_api_run_without_jax(tmp_path):
         "    run('mem', '-m', '21', '-s', '4M', '--packed')\n"
         "    run('cite')\n"
         f"run('count', '-m', '15', '-s', '1k', '-o', {d!r} + '/b.jf', fq)\n"
+        f"run('count', '-m', '15', '-s', '1k', '-d', '3', '-o', {d!r} + '/c.jf',"
+        " fq)\n"
+        "assert jf.ShardedMerCounter is jf.parallel.ShardedMerCounter\n"
         f"assert sum(c for _, c in jf.ReadMerFile({d!r} + '/b.jf')) > 0\n"
         f"q = jf.QueryMerFile({d!r} + '/b.jf')\n"
         "jf.HashCounter(10, 5).add(jf.MerDNA('A' * 15), 1)\n"
@@ -162,7 +165,8 @@ def test_no_jax_imports_in_sources():
             "jellyfish_tpu_torch/kernels/sort.py",
             "jellyfish_tpu_torch/ops/packed_run.py",
             "jellyfish_tpu_torch/api.py",
-            "jellyfish_tpu_torch/memmodel.py"} <= names
+            "jellyfish_tpu_torch/memmodel.py",
+            "jellyfish_tpu_torch/parallel/sharded.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
