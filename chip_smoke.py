@@ -58,6 +58,14 @@ pass over the first 64 chunks; at the CLI k = 21 size -d 2's modes
 more partials) through cli/count._run_counting against the single-device
 counter, and count -d 1 and -d auto (the plain count's records) and -d
 N above the visible devices (dies) through the CLI (phase_sharded_modes).
+count --coordinator with one NCCL process: five CLI children (k = 21 and
+63 against the plain count, --disk -s 1M with 3 or more spills, --if and
+--bc against one device), each reporting the nccl backend
+(phase_multihost_cli), and ShardedMerCounter under the group with 2
+shards on the card, record-equal to the k = 21 table, with the device
+time of its all_gather and all_to_all_single (phase_multihost_api).
+count --sam of fastq2sam's SAM and of a BAM of the same reads against
+the FASTQ's count (phase_sam).
 Every new path must launch K1 and K2 (and K3 at k = 63, rows 9 on --disk).
 Exits nonzero, with no result line, when there is no GPU or any phase
 fails.
@@ -1785,13 +1793,7 @@ def phase_cli_modes(tmp):
 
     def same_set(path):
         """The records of path in another hash order (another -s)."""
-        _, _, want, want_c = read_records(path)
-
-        def check(p):
-            h, words, sw, sc = read_records(p)
-            return (np.array_equal(sw, want) and np.array_equal(sc, want_c)
-                    and sortkeys_ascend(h, words))
-        return check
+        return lambda p: same_records_any_order(p, path)
 
     for k in (21, 63):
         run(k, ["--packed-store"], [fq[k]], same_as(mem[k]), need[k])
@@ -2456,16 +2458,19 @@ def device_ms_by_range(prof, inner, outer):
     return ms
 
 
-def exchange_shares(counter, staged, n_chunks=SHARD_PROFILE_CHUNKS):
+def exchange_shares(counter, staged, n_chunks=SHARD_PROFILE_CHUNKS,
+                    collectives=False):
     """A sharded pass over the first n_chunks chunks, unprofiled for its
     wall time, then profiled: device ms of the chunk pipeline
     (extraction, hashing), the local deduplication (sort, segment counts,
     PAD correction, the sender's K2), the exchange proper (owners, their
     counts, the host read, the cuts and moves), the stores (insert_run:
     K2 and the level merges) and finalize, each as a share of all device
-    time. "exchange_share" is the deduplication and the exchange;
-    "device_busy_share" all device time over the unprofiled pass's
-    wall."""
+    time. With `collectives` (a counter with a process group) the
+    exchange's all_gather and all_to_all_single have ranges of their
+    own. "exchange_share" is the deduplication, the exchange and its
+    collectives; "device_busy_share" all device time over the unprofiled
+    pass's wall."""
     from jellyfish_tpu_torch.counter import MerCounter
     from jellyfish_tpu_torch.parallel import sharded
     from jellyfish_tpu_torch.store import SortedCountStore
@@ -2476,15 +2481,20 @@ def exchange_shares(counter, staged, n_chunks=SHARD_PROFILE_CHUNKS):
     inner = {"pipeline": "pipeline", "dedup": "dedup", "send_k2": "dedup",
              "store": "store"}
     outer = {"step": "exchange", "finalize": "finalize"}
+    targets = [
+        (MerCounter, "packed_sortkeys", "pipeline"),
+        (sharded, "_dedup", "dedup"), (sharded, "compact", "send_k2"),
+        (SortedCountStore, "insert_run", "store"),
+        (sharded.ShardedMerCounter, "add_chunks_packed", "step"),
+        (sharded.ShardedMerCounter, "finalize_np", "finalize")]
+    if collectives:
+        inner.update(all_gather="all_gather", all_to_all="all_to_all")
+        targets += [(sharded.dist, "all_gather", "all_gather"),
+                    (sharded.dist, "all_to_all_single", "all_to_all")]
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
-    with annotated([
-            (MerCounter, "packed_sortkeys", "pipeline"),
-            (sharded, "_dedup", "dedup"), (sharded, "compact", "send_k2"),
-            (SortedCountStore, "insert_run", "store"),
-            (sharded.ShardedMerCounter, "add_chunks_packed", "step"),
-            (sharded.ShardedMerCounter, "finalize_np", "finalize")]):
+    with annotated(targets):
         with prof:
             sharded_pass(counter, staged, n_chunks)
     ms = device_ms_by_range(prof, inner, outer)
@@ -2492,12 +2502,13 @@ def exchange_shares(counter, staged, n_chunks=SHARD_PROFILE_CHUNKS):
     if total == 0:
         log("  the profiler saw no device work: shares not measured")
         return {"profiled_chunks": n_chunks, "device_ms": None}
+    exchange = sum(ms.get(n, 0) for n in ("dedup", "exchange", "all_gather",
+                                          "all_to_all"))
     return {
         "profiled_chunks": n_chunks, "wall_s": t_count + t_final,
         "device_ms": {n: round(v, 3) for n, v in sorted(ms.items())},
         "shares": {n: round(v / total, 4) for n, v in sorted(ms.items())},
-        "exchange_share": round(
-            (ms.get("dedup", 0) + ms.get("exchange", 0)) / total, 4),
+        "exchange_share": round(exchange / total, 4),
         "device_busy_share": round(total / 1e3 / (t_count + t_final), 4)}
 
 
@@ -2561,7 +2572,9 @@ def phase_sharded_modes(tmp, dev):
     and --disk -s 1M (3 or more partials, merged). Then the CLI's -d:
     count -d 1 and -d auto write the plain CLI count's records (o21.jf),
     and -d N above the visible devices dies with the JAX package's
-    message. Returns (launches of the 2-shard runs, results)."""
+    message. Leaves its bc (d21.bc) and allowed set (d21.fa) for
+    phase_multihost_cli. Returns (launches of the 2-shard runs,
+    results)."""
     from jellyfish_tpu_torch import cli
     from jellyfish_tpu_torch.bloom import load_count_filter
     from jellyfish_tpu_torch.cli import count as cli_count
@@ -2653,10 +2666,252 @@ def phase_sharded_modes(tmp, dev):
     if not (res["cli_d_1"] and res["cli_d_auto"]
             and res[f"cli_d_{n}_dies"]):
         raise AssertionError("the CLI's -d is wrong")
-    for p in (out, bcp, allow):
+    os.unlink(out)  # phase_multihost_cli takes d21.bc and d21.fa
+    return launches, res
+
+
+
+# -- count --coordinator and count --sam -----------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def coordinator_child(argv, timeout=300):
+    """`python -m jellyfish_tpu_torch count --coordinator 127.0.0.1:<free
+    port> --num-processes 1 --process-id 0 <argv>` in a child process on
+    the card: (exit code, its standard error, wall s). The child is killed
+    if it outlives `timeout`."""
+    cmd = [sys.executable, "-m", "jellyfish_tpu_torch", "count",
+           "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes",
+           "1", "--process-id", "0", *argv]
+    t = time.perf_counter()
+    # -m finds the package in the working directory, this script's
+    p = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    try:
+        _, err = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return p.returncode, err, time.perf_counter() - t
+
+
+def same_records_any_order(path, want_path):
+    """The binary databases hold the same (mer, count) records, each in
+    its own hash order (another -s), and `path` in ascending sortkey
+    order."""
+    _, _, want, want_c = read_records(want_path)
+    h, words, got, got_c = read_records(path)
+    return (np.array_equal(got, want) and np.array_equal(got_c, want_c)
+            and sortkeys_ascend(h, words))
+
+
+def phase_multihost_cli(tmp):
+    """count --coordinator through the CLI, one process on the card, each
+    run a child process that must report the nccl backend: at k = 21
+    (r21.fq) and k = 63 (r63.fq) against the plain CLI count (o21.jf,
+    o63.jf); --disk -s 1M --no-unlink at k = 21 (3 or more spills, merged)
+    against the in-memory records; --if (d21.fa) and --bc (d21.bc, from
+    phase_sharded_modes) at k = 21 against the same runs on one device in
+    this process. Three children run at once, beside the one-device runs.
+    Returns results."""
+    from jellyfish_tpu_torch import cli
+
+    base = ["-m", "21", "-s", "4M", "-C", "--matrix-seed", "1"]
+    fq = {k: os.path.join(tmp, f"r{k}.fq") for k in (21, 63)}
+    mem = {k: os.path.join(tmp, f"o{k}.jf") for k in (21, 63)}
+    bcp, allow = os.path.join(tmp, "d21.bc"), os.path.join(tmp, "d21.fa")
+    out = {m: os.path.join(tmp, f"mh_{m}.jf")
+           for m in ("k21", "k63", "disk", "if", "bc")}
+    ref = {m: os.path.join(tmp, f"one_{m}.jf") for m in ("if", "bc")}
+    argv = {
+        "k21": [*base, "-o", out["k21"], fq[21]],
+        "k63": ["-m", "63", *base[2:], "-o", out["k63"], fq[63]],
+        "disk": ["-m", "21", "-s", "1M", "-C", "--matrix-seed", "1",
+                 "--disk", "--no-unlink", "-o", out["disk"], fq[21]],
+        "if": [*base, "--if", allow, "-o", out["if"], fq[21]],
+        "bc": [*base, "--bc", bcp, "-o", out["bc"], fq[21]],
+    }
+    t = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        futures = {m: pool.submit(coordinator_child, a)
+                   for m, a in argv.items()}
+        for m, flags in (("if", ["--if", allow]), ("bc", ["--bc", bcp])):
+            if cli.main(["count", *base, *flags, "-o", ref[m], fq[21]]) != 0:
+                raise AssertionError(f"one-device count {flags} failed")
+        runs = {m: f.result() for m, f in futures.items()}
+    wall = time.perf_counter() - t
+    res = {}
+    for m, (rc, err, dt) in runs.items():
+        backend = re.findall(r"(\w+) backend", err)
+        if rc != 0 or backend != ["nccl"]:
+            raise AssertionError(f"count --coordinator {m} exited {rc} "
+                                 f"with backend {backend}: {err[-2000:]}")
+        res[m] = dict(wall_s=dt, backend=backend[0])
+    spills = sorted(glob.glob(out["disk"] + ".mh.spill*.rank0.jf"))
+    checks = {
+        "k21": records_of(out["k21"]) == records_of(mem[21]),
+        "k63": records_of(out["k63"]) == records_of(mem[63]),
+        "disk": (same_records_any_order(out["disk"], mem[21])
+                 and len(spills) >= 3),
+        "if": records_of(out["if"]) == records_of(ref["if"]),
+        "bc": records_of(out["bc"]) == records_of(ref["bc"]),
+    }
+    for m, ok in checks.items():
+        res[m]["equal"] = ok
+    res["disk"]["spills"] = len(spills)
+    log(f"count --coordinator, 1 process on the card ({wall:.1f} s, three "
+        f"children at once): {json.dumps(res)}")
+    if not all(checks.values()):
+        raise AssertionError(f"count --coordinator differs: {checks}")
+    for p in [*out.values(), *ref.values(), *spills, bcp, allow,
+              out["disk"] + ".mh.rank0.jf"]:
+        os.unlink(p)
+    return dict(wall_s=wall, runs=res)
+
+
+# BAM 4-bit codes of "=ACMGRSVTWYHKDBN" by ASCII byte
+_BAM_CODE = np.full(256, 15, dtype=np.uint8)
+for _i, _b in enumerate(b"=ACMGRSVTWYHKDBN"):
+    _BAM_CODE[_b] = _i
+
+
+def write_bam(path, fq, read_len=150):
+    """The reads of a FASTQ of read_len-base reads (write_fastq's) as a
+    BAM file of unmapped records, in BGZF blocks of 60,000 bytes: a small
+    writer, built with numpy, so that the reader is held to a file this
+    script did not read itself."""
+    import struct
+    import zlib
+
+    with open(fq, "rb") as f:
+        lines = f.read().split(b"\n")
+    n = len(lines) // 4
+    seq = np.frombuffer(b"".join(lines[1:4 * n:4]), np.uint8)
+    qual = np.frombuffer(b"".join(lines[3:4 * n:4]), np.uint8)
+    nib = _BAM_CODE[seq.reshape(n, read_len)]
+    packed = (nib[:, 0::2] << 4) | nib[:, 1::2]
+    names = np.frombuffer(b"".join(b"r%09d\0" % i for i in range(n)),
+                          np.uint8).reshape(n, 11)
+    fixed = struct.pack("<iiBBHHHiiii", -1, -1, 11, 0, 0, 0, 4, read_len,
+                        -1, -1, 0)
+    rec_len = len(fixed) + 11 + read_len // 2 + read_len
+    head = np.frombuffer(struct.pack("<i", rec_len) + fixed, np.uint8)
+    recs = np.concatenate([np.broadcast_to(head, (n, len(head))), names,
+                           packed, qual.reshape(n, read_len) - 33], axis=1)
+    body = b"BAM\x01" + struct.pack("<ii", 0, 0) + recs.tobytes()
+    with open(path, "wb") as f:
+        for off in range(0, len(body), 60000):
+            data = body[off:off + 60000]
+            co = zlib.compressobj(1, zlib.DEFLATED, -15)
+            payload = co.compress(data) + co.flush()
+            f.write(b"\x1f\x8b\x08\x04\0\0\0\0\0\xff"
+                    + struct.pack("<H", 6) + b"BC"
+                    + struct.pack("<HH", 2, 18 + len(payload) + 8 - 1)
+                    + payload
+                    + struct.pack("<II", zlib.crc32(data), len(data)))
+        f.write(bytes.fromhex(
+            "1f8b08040000000000ff0600424302001b0003000000000000000000"))
+
+
+def phase_sam(tmp):
+    """count --sam at the CLI k = 21 size: fastq2sam of r21.fq, and a BAM
+    of the same reads (write_bam), each counted with count --sam -s 4M -C,
+    record-equal to the FASTQ's count (o21.jf). Returns (launches of the
+    BAM count, results)."""
+    from jellyfish_tpu_torch import cli
+
+    fq = os.path.join(tmp, "r21.fq")
+    fastq, sam = (os.path.join(tmp, f"s21.{e}") for e in ("fastq", "sam"))
+    bam, out = os.path.join(tmp, "s21.bam"), os.path.join(tmp, "sam.jf")
+    os.symlink(fq, fastq)
+    t = time.perf_counter()
+    if cli.main(["fastq2sam", fastq]) != 0:
+        raise AssertionError("fastq2sam failed")
+    t_sam = time.perf_counter() - t
+    t = time.perf_counter()
+    write_bam(bam, fq)
+    t_bam = time.perf_counter() - t
+    want = records_of(os.path.join(tmp, "o21.jf"))
+    res, launches = dict(fastq2sam_s=t_sam, write_bam_s=t_bam), None
+    for name, path in (("sam", sam), ("bam", bam)):
+        reset_counts()
+        t = time.perf_counter()
+        rc = cli.main(["count", "-m", "21", "-s", "4M", "-C",
+                       "--matrix-seed", "1", "--sam", path, "-o", out])
+        dt = time.perf_counter() - t
+        launches = kernel_counts()
+        same = rc == 0 and records_of(out) == want
+        res[name] = dict(wall_s=dt, bytes=os.path.getsize(path), equal=same)
+        log(f"count --sam {os.path.basename(path)} k=21: {json.dumps(res[name])}"
+            f"; launches {launches}")
+        missed = [n for n in ("merge_path", "compact") if launches[n] == 0]
+        if not same or missed:
+            raise AssertionError(f"count --sam {name} differs from the "
+                                 f"FASTQ's count or ran without {missed}")
+    for p in (fastq, sam, bam, out):
         os.unlink(p)
     return launches, res
 
+
+def phase_multihost_api(staged, table, dev):
+    """ShardedMerCounter under a process group of one process over NCCL,
+    2 local shards on the card, counts the 256 staged chunks at k = 21:
+    record-equal to phase_full's table (-s 4M, the same 22 x 42 matrix).
+    Counting s, finalize s, peak GiB, and a profiled pass over the first
+    chunks with the device time of the exchange's all_gather and
+    all_to_all_single by their own ranges (exchange_shares). Returns
+    (launches, results)."""
+    import torch.distributed as dist
+
+    from jellyfish_tpu_torch.parallel import ShardedMerCounter
+    from jellyfish_tpu_torch.parallel.multihost import (
+        init_multihost,
+        shutdown_multihost,
+    )
+
+    backend = init_multihost(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        counter = ShardedMerCounter(21, 4 << 20, mesh=[dev] * 2,
+                                    canonical=True,
+                                    rng=np.random.default_rng(42),
+                                    group=dist.group.WORLD)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        mers, counts, t_count, t_final, held = sharded_pass(counter, staged)
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        same = (np.array_equal(mers, table[0])
+                and np.array_equal(counts, table[1]))
+        n_valid = int(counts.sum(dtype=np.uint64))
+        del mers, counts
+        shares = exchange_shares(counter, staged, collectives=True)
+        del counter
+    finally:
+        shutdown_multihost()
+    torch.cuda.empty_cache()
+    row = dict(backend=backend, world=1, shards=2, counting_s=t_count,
+               mers_per_s=n_valid / t_count, finalize_s=t_final,
+               peak_gib=peak / 2**30, device_bytes_counted=held,
+               equal=same, **shares)
+    log(f"full size k=21, ShardedMerCounter under a {backend} group of 1 "
+        f"process, 2 shards on the card: {json.dumps(row)}; launches "
+        f"{launches}")
+    missed = [n for n in ("merge_path", "compact") if launches[n] == 0]
+    if backend != "nccl" or not same or missed:
+        raise AssertionError(f"the {backend} group's count differs from "
+                             f"the single-device table or ran without "
+                             f"{missed}")
+    return launches, row
 
 
 def main() -> int:
@@ -2717,6 +2972,8 @@ def main() -> int:
                                     os.path.join(tmp, "o21.jf"))
         cli_modes = phase_cli_modes(tmp)
         shard_mode_launches, shard_modes = phase_sharded_modes(tmp, dev)
+        multihost_cli = phase_multihost_cli(tmp)
+        sam_launches, sam = phase_sam(tmp)
         del seq21
         chunks, staged = stage_chunks(dev)
         # each kernel's launches are read from the full-size run of its
@@ -2754,6 +3011,10 @@ def main() -> int:
             staged, tables, dev)
         mode_launches["sharded_modes"] = shard_mode_launches
         modes["sharded_modes"] = shard_modes
+        mode_launches["multihost"], api = phase_multihost_api(
+            staged, tables[21], dev)
+        modes["multihost"] = dict(api=api, cli=multihost_cli)
+        mode_launches["sam"], modes["sam"] = sam_launches, sam
         del tables
         mode_launches["restricted"], modes["restricted"] = phase_if(
             chunks, staged, table)

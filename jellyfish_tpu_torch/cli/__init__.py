@@ -1,12 +1,13 @@
 """`jellyfish` CLI of the port: `python -m jellyfish_tpu_torch
-<count|bc|query|histo|dump|stats|merge|info|mem|cite|generate> ...`.
+<count|bc|query|histo|dump|stats|merge|info|mem|cite|generate|fastq2sam>
+...`.
 
 `count`, `bc` and `merge` run on the GPU, and so does `query` of a Bloom
 counter (a binary database is searched on the host); histo, dump, stats,
-info, mem, cite and generate run on the host. `count` and `bc` take the
-JAX package's flags; `count -d N` shards the table over N devices of one
-process. The ones whose paths are not ported (`--sam`, `--coordinator`)
-raise NotPortedError. The JAX package's fastq2sam is not ported yet.
+info, mem, cite, generate and fastq2sam run on the host. `count` and `bc`
+take the JAX package's flags; `count -d N` shards the table over N devices
+of one process, and `count --coordinator` over several processes. A CRAM
+input to `count --sam` raises NotPortedError.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     tools.add_mem_parser(sub)
     tools.add_cite_parser(sub)
     tools.add_generate_parser(sub)
+    tools.add_fastq2sam_parser(sub)
     return parser
 
 

@@ -1,10 +1,9 @@
-"""`jellyfish count` on the GPU (the single-process paths of
-jellyfish_tpu/cli/count.py: one device or `-d N` shards, with its --disk
-spill and merge and its Bloom filters).
+"""`jellyfish count` on the GPU (jellyfish_tpu/cli/count.py: one device,
+`-d N` shards, `--coordinator` processes, with the --disk spill and merge
+and the Bloom filters).
 
 The flag surface is the JAX package's (count_main_cmdline.yaggo:4-112).
-Flags whose paths are not ported yet (--sam, --coordinator) raise
-NotPortedError rather than doing something else.
+Every flag runs; a CRAM input to --sam raises NotPortedError.
 
 -d N shards the table by hash prefix over N devices
 (parallel/sharded.py); -d auto means every visible CUDA device (1 on the
@@ -12,6 +11,22 @@ CPU), and -d 0, -d 1 or one device count on one device. On the card N may
 not exceed the visible CUDA devices; with device="cpu" every shard lies
 on the CPU and N is free. Under -d each ingest step takes N chunks, one a
 shard, the tail padded with chunks that hold no mer.
+
+--coordinator HOST:PORT --num-processes N --process-id I runs one process
+of N (parallel/multihost.py): each counts the input files it was given,
+with its visible CUDA devices as its local shards (one shard on the CPU;
+-d is ignored), and the steps exchange mers between the processes over
+NCCL on the card and gloo on the CPU. The processes step in lockstep on
+one has-data flag a round; a process whose input has run out takes part
+with empty steps. Given no --matrix-seed, rank 0 draws the seed and
+broadcasts it. Each process writes its contiguous segment of the
+database (-L/-U and --text per segment) and rank 0 assembles them; with
+--disk each rank spills standalone databases, on the same steps as the
+others (the store bytes are summed over the ranks), merges its own
+locally (also under --no-merge, as in the JAX package) and rank 0 joins
+the merged ones. --timing is written by rank 0. --bc and --bf-size apply
+at finalize, on each mer's owner shard, when there is more than one
+process.
 
 Ingest: host-packed batches when no filter is given and --chunk-len is a
 multiple of 32; otherwise ASCII chunks one at a time, as the JAX package
@@ -22,7 +37,8 @@ allowed set before counting, and every dump, --disk partials included,
 holds exactly the allowed mers, each with its count or 0. --packed-store
 keeps the store's resting runs bit-packed (ops/packed_run.py). -g runs
 the generator commands of a file (-G at once, in shell -S) and counts
-their output after the files'.
+their output after the files'. --sam reads SAM and BAM files
+(io/parse.py) after the sequence files.
 
 --disk writes a partial database `{output}{i}` whenever the store holds
 twice `--size` entries (16 bytes an entry, store.device_bytes), then
@@ -39,9 +55,7 @@ import time
 
 import numpy as np
 
-from jellyfish_tpu_torch import NotPortedError
-
-__all__ = ["add_parser", "run", "NotPortedError"]
+__all__ = ["add_parser", "run"]
 
 
 def add_parser(sub):
@@ -109,19 +123,6 @@ def add_parser(sub):
     p.add_argument("file", nargs="*", help="Sequence file(s) (fasta/fastq)")
     p.set_defaults(func=run)
     return p
-
-
-def _check_ported(args) -> None:
-    unported = [
-        ("--sam", bool(args.sam)),
-        ("--coordinator", args.coordinator is not None),
-    ]
-    for flag, used in unported:
-        if used:
-            raise NotPortedError(
-                f"count {flag}: not yet ported to jellyfish_tpu_torch "
-                "(use python -m jellyfish_tpu count)"
-            )
 
 
 def _prefetch(iterable, depth: int = 4):
@@ -200,19 +201,69 @@ def _min_qual(args):
     return None
 
 
+def _check_topology(args) -> None:
+    """--coordinator's flags, checked before any process group exists."""
+    from jellyfish_tpu_torch.cli.common import die
+
+    if args.num_processes is None or args.process_id is None:
+        die("count: --coordinator requires --num-processes and "
+            "--process-id")
+    if args.num_processes < 1:
+        die(f"count: --num-processes {args.num_processes} is not positive")
+    if not 0 <= args.process_id < args.num_processes:
+        die(f"count: --process-id {args.process_id} is not in "
+            f"[0, {args.num_processes})")
+
+
+def _broadcast_seed(device) -> int:
+    """Rank 0's fresh matrix seed, the same on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from jellyfish_tpu_torch.device import resolve_device
+
+    seed = (int(np.random.default_rng().integers(0, 1 << 62))
+            if dist.get_rank() == 0 else 0)
+    t = torch.tensor([seed], dtype=torch.int64, device=resolve_device(device))
+    dist.broadcast(t, src=0)
+    return int(t.item())
+
+
 def run(args, argv, device=None):
+    import sys
+
+    from jellyfish_tpu_torch.cli.common import die
+
+    t_start = time.perf_counter()
+    if not args.file and not args.generator and not args.sam:
+        die("count: no input files given")
+    if not args.coordinator:
+        return _count(args, argv, device, t_start)
+    _check_topology(args)
+    from jellyfish_tpu_torch.parallel.multihost import (
+        init_multihost,
+        shutdown_multihost,
+    )
+
+    backend = init_multihost(args.coordinator, args.num_processes,
+                             args.process_id, device)
+    try:
+        print(f"jellyfish: count: process {args.process_id} of "
+              f"{args.num_processes}, {backend} backend", file=sys.stderr)
+        return _count(args, argv, device, t_start)
+    finally:
+        shutdown_multihost()
+
+
+def _count(args, argv, device, t_start):
     import signal
 
-    from jellyfish_tpu_torch.cli.common import die, load_generator_cmds
+    from jellyfish_tpu_torch.cli.common import load_generator_cmds
     from jellyfish_tpu_torch.counter import MerCounter
     from jellyfish_tpu_torch.device import resolve_device
     from jellyfish_tpu_torch.io.parse import SequenceChunker
 
-    t_start = time.perf_counter()
-    _check_ported(args)
     k = args.mer_len
-    if not args.file and not args.generator:
-        die("count: no input files given")
     gen_cmds = load_generator_cmds(args.generator) if args.generator else None
     filt = None
     if args.bc or args.bf_size is not None:
@@ -222,10 +273,24 @@ def run(args, argv, device=None):
             bc_path=args.bc, bf_size=args.bf_size, bf_fp=args.bf_fp, k=k,
             canonical=args.canonical, device=device,
         )
-    rng = np.random.default_rng(args.matrix_seed)
+    seed = args.matrix_seed
+    if args.coordinator and seed is None:
+        seed = _broadcast_seed(device)
+    rng = np.random.default_rng(seed)
     on_card = resolve_device(device).type == "cuda"
-    n_devices = _n_devices(args, on_card)
-    if n_devices > 1:
+    if args.coordinator:
+        import torch.distributed as dist
+
+        from jellyfish_tpu_torch.parallel import ShardedMerCounter, make_mesh
+
+        # the local shards: every visible card, or one shard on the CPU
+        counter = ShardedMerCounter(
+            k, size=args.size,
+            mesh=make_mesh() if on_card else make_mesh(1, "cpu"),
+            canonical=args.canonical, rng=rng, mer_filter=filt,
+            pack_resting=args.packed_store, group=dist.group.WORLD,
+        )
+    elif (n_devices := _n_devices(args, on_card)) > 1:
         from jellyfish_tpu_torch.parallel import ShardedMerCounter, make_mesh
 
         counter = ShardedMerCounter(
@@ -241,7 +306,7 @@ def run(args, argv, device=None):
         )
     chunker = SequenceChunker(
         list(args.file), k, chunk_len=args.chunk_len, min_qual=_min_qual(args),
-        generator_cmds=gen_cmds, shell=args.shell,
+        generator_cmds=gen_cmds, shell=args.shell, sam_paths=list(args.sam),
         nb_generators=args.nb_generators,
     )
 
@@ -256,6 +321,9 @@ def run(args, argv, device=None):
     except ValueError:
         pass  # not the main thread (library use)
     try:
+        if args.coordinator:
+            return _run_counting_multihost(args, argv, k, counter, chunker,
+                                           t_start)
         return _run_counting(args, argv, k, counter, chunker, t_start)
     finally:
         chunker.close()
@@ -342,6 +410,111 @@ def _run_counting(args, argv, k, counter, chunker, t_start):
                         os.unlink(f)
     t_write = time.perf_counter()
     if args.timing:
+        with open(args.timing, "w") as f:
+            f.write(f"Init     {t_init - t_start:.4f}\n")
+            f.write(f"Counting {t_count - t_init:.4f}\n")
+            f.write(f"Writing  {t_write - t_count:.4f}\n")
+    return 0
+
+
+def _run_counting_multihost(args, argv, k, counter, chunker, t_start):
+    """One process's part of a --coordinator count (the module
+    docstring): the lockstep counting loop, then this rank's segment (or
+    its locally merged spills) and rank 0's assembly."""
+    import torch.distributed as dist
+
+    from jellyfish_tpu_torch.io.parse import SequenceChunker
+    from jellyfish_tpu_torch.merge import merge_files
+    from jellyfish_tpu_torch.parallel.multihost import (
+        assemble_db,
+        assemble_db_full_parts,
+        write_local_segments,
+    )
+
+    rank, world = counter.rank, counter.world
+    if args.if_files:
+        # the prime pass, in lockstep: the union of every rank's --if files
+        with SequenceChunker(list(args.if_files), k,
+                             chunk_len=args.chunk_len) as allowed:
+            counter.restrict_to(allowed.chunks())
+    t_init = time.perf_counter()
+
+    prefix = args.output + ".mh"
+    spill_entries = args.size if args.disk and not args.no_write else None
+    spills = []  # this rank's spills: standalone databases
+
+    def write(path=None, **filters):
+        write_local_segments(
+            counter, prefix, counter_len_bytes=args.out_counter_len,
+            val_len_bits=args.counter_len, max_reprobe=args.reprobes,
+            cmdline=argv, text=args.text, part_path=path,
+            embed_header=path is not None, **filters)
+
+    def spill():
+        path = f"{prefix}.spill{len(spills)}.rank{rank}.jf"
+        write(path)
+        spills.append(path)
+
+    rows = counter.n_local
+    if counter.mer_filter is None and args.chunk_len % 32 == 0:
+        def add(batch):
+            counter.add_chunks_packed(np.stack([b[0] for b in batch]),
+                                      np.stack([b[1] for b in batch]))
+        batches = _batched(chunker.chunks_packed(), rows)
+    else:
+        def add(batch):
+            counter.add_chunks(np.stack(batch))
+        batches = _batched(chunker.chunks(), rows)
+    it = _prefetch(batches)
+    while True:
+        batch = next(it, None)
+        if not counter.any_rank(batch is not None):
+            break
+        if batch is None:
+            counter.empty_step()
+        else:
+            add(batch)
+        # entries the ranks' stores hold, 16 bytes each: the same on
+        # every rank, so every rank spills on the same step
+        if (spill_entries is not None
+                and counter.store.device_bytes() // 16 >= 2 * spill_entries):
+            spill()
+            counter.reset()
+    t_count = time.perf_counter()
+
+    if not args.no_write:
+        if spills:
+            spill()
+            merged = f"{prefix}.rank{rank}.jf"
+            merge_files(
+                spills, merged, min_count=args.lower_count or 0,
+                max_count=args.upper_count,
+                out_header_extra={"cmdline": list(argv)},
+                device=counter.device,
+            )
+            if not args.no_unlink:
+                for p in spills:
+                    os.unlink(p)
+            dist.barrier()
+            if rank == 0:
+                ranks = [f"{prefix}.rank{r}.jf" for r in range(world)]
+                assemble_db_full_parts(ranks, args.output)
+                if not args.no_unlink:
+                    for p in ranks:
+                        os.unlink(p)
+        else:
+            write(lower_count=args.lower_count or 0,
+                  upper_count=args.upper_count)
+            dist.barrier()
+            if rank == 0:
+                assemble_db(prefix, world, args.output)
+                if not args.no_unlink:
+                    os.unlink(f"{prefix}.header")
+                    for r in range(world):
+                        os.unlink(f"{prefix}.part{r}")
+        dist.barrier()
+    t_write = time.perf_counter()
+    if args.timing and rank == 0:
         with open(args.timing, "w") as f:
             f.write(f"Init     {t_init - t_start:.4f}\n")
             f.write(f"Counting {t_count - t_init:.4f}\n")

@@ -1,5 +1,5 @@
-"""`jellyfish bc`, `mem`, `cite` and `generate` (the counterparts of
-jellyfish_tpu/cli/tools.py).
+"""`jellyfish bc`, `mem`, `cite`, `generate` and `fastq2sam` (the
+counterparts of jellyfish_tpu/cli/tools.py).
 
 `bc` runs on the GPU (bc_main.cc:84-161): a Bloom counter of the input's
 k-mers, written as a .bc file that `count --bc` and `query` read. Each
@@ -9,7 +9,8 @@ multiplicities in one insert (bloom.BloomCounter2.insert_counts). The hash
 matrices come from an unseeded generator, as in the JAX package.
 
 `mem` (the reference's memory model, or with --packed the packed store's),
-`cite` and `generate` (seeded random FASTA/FASTQ) run on the host.
+`cite`, `generate` (seeded random FASTA/FASTQ) and `fastq2sam` (FASTQ to
+unaligned SAM, for `count --sam`) run on the host.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import numpy as np
 
 __all__ = ["add_bc_parser", "run_bc", "insert_chunks", "add_mem_parser",
            "run_mem", "add_cite_parser", "run_cite",
-           "add_generate_parser", "run_generate"]
+           "add_generate_parser", "run_generate", "add_fastq2sam_parser",
+           "run_fastq2sam"]
 
 
 def add_bc_parser(sub):
@@ -303,4 +305,54 @@ def run_generate(args, argv, device=None):
                         rid += 1
                         f.write(b">read%d\n" % rid)
                         read = 0
+    return 0
+
+
+# -- fastq2sam (jellyfish/fastq2sam.cc) ---------------------------------------
+
+
+def add_fastq2sam_parser(sub):
+    p = sub.add_parser(
+        "fastq2sam",
+        help="Convert .fastq files to unaligned .sam "
+             "(jellyfish/fastq2sam.cc equivalent)",
+    )
+    p.add_argument("fastq", nargs="+", help="Input .fastq file(s)")
+    p.set_defaults(func=run_fastq2sam)
+    return p
+
+
+def run_fastq2sam(args, argv, device=None):
+    """Each INPUT.fastq becomes INPUT.sam of unmapped records (flag 4, no
+    reference), as fastq2sam.cc:17-54 writes them:
+    'name\\t4\\t*\\t0\\t0\\t*\\t*\\t0\\t0\\tSEQ\\tQUALS'."""
+    from jellyfish_tpu_torch.cli.common import die
+
+    for path in args.fastq:
+        if not path.endswith(".fastq"):
+            die("fastq2sam: Input must have '.fastq' extension")
+        out_path = path[: -len(".fastq")] + ".sam"
+        try:
+            inf = open(path, "rb")
+        except OSError:
+            die(f"fastq2sam: Failed to open '{path}'")
+        with inf, open(out_path, "wb") as out:
+            while True:
+                at = inf.read(1)
+                if not at:
+                    break
+                if at != b"@":
+                    die("fastq2sam: Input fastq file badly formatted. "
+                        f"Unexpected characters '{at.decode(errors='replace')}'"
+                        f" at position {inf.tell()}")
+                name = inf.readline().rstrip(b"\r\n")
+                seq = inf.readline().rstrip(b"\r\n")
+                plus = inf.read(1)
+                if plus != b"+":
+                    die("fastq2sam: Input fastq file badly formatted. "
+                        f"Unexpected characters at position {inf.tell()}")
+                inf.readline()
+                quals = inf.readline().rstrip(b"\r\n")
+                out.write(name + b"\t4\t*\t0\t0\t*\t*\t0\t0\t" + seq
+                          + b"\t" + quals + b"\n")
     return 0

@@ -16,9 +16,11 @@ Turns FASTA/FASTQ files (plain or gzip) into fixed-size uint8 chunks:
 the counter's input (`pack_chunk`, the numpy version of
 jellyfish_tpu/native pack_chunk). Generator commands (`-g`, `-G`, `-S`)
 run as shell children whose standard output is read like a file; a child
-that exits nonzero raises, and close() terminates the live ones.
-SAM/BAM/CRAM input and the native chunker are not part of this package
-yet.
+that exits nonzero raises, and close() terminates the live ones. SAM and
+BAM files (`count --sam`) are read after the sequence files, as FASTA or
+FASTQ records (sam_records_to_fastx); a CRAM file raises NotPortedError.
+The JAX package's native chunker and native BAM window parser are not
+part of this package: BAM records go through the pure-python loop.
 """
 
 from __future__ import annotations
@@ -31,7 +33,10 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
-__all__ = ["SequenceChunker", "open_stream", "iter_reads", "pack_chunk"]
+from jellyfish_tpu_torch import NotPortedError
+
+__all__ = ["SequenceChunker", "open_stream", "iter_reads", "sniff_format",
+           "sam_records_to_fastx", "pack_chunk"]
 
 SEPARATOR = ord("N")  # any non-ACGT byte breaks mers; 'N' matches reference
 
@@ -103,6 +108,162 @@ def iter_reads(stream, with_quals: bool = False) -> Iterator:
         raise ValueError("unrecognized sequence format (expected '>' or '@')")
 
 
+def sniff_format(stream) -> str:
+    ch = stream.peek(1)[:1] if hasattr(stream, "peek") else b""
+    if ch == b">":
+        return "fasta"
+    if ch == b"@":
+        return "fastq"
+    raise ValueError("unrecognized sequence format (expected '>' or '@')")
+
+
+# BAM 4-bit nibble codes "=ACMGRSVTWYHKDBN": only A/C/G/T decode to
+# bases, everything else is 'N' (sam_format.hpp:76-83 decode()).
+_BAM_NIB_LUT = np.full(16, ord("N"), dtype=np.uint8)
+for _i, _b in ((1, "A"), (2, "C"), (4, "G"), (8, "T")):
+    _BAM_NIB_LUT[_i] = ord(_b)
+
+
+def _bam_records_to_fastx(stream) -> Iterator[bytes]:
+    """Parse a decompressed BAM stream (positioned after the BAM\\x01
+    magic) into FASTA/FASTQ record bytes.
+
+    BGZF is a multi-member gzip stream, so `open_stream`'s gzip layer
+    already yields the uncompressed BAM byte stream. As the reference's
+    htslib consumption (sam_format.hpp:59-86 +
+    mer_overlap_sequence_parser.hpp:220-253): every record's SEQ is used
+    as stored, non-ACGT nibbles become N, no flag filtering. Absent
+    quality (0xFF fill) yields a FASTA record; otherwise raw phred is
+    re-encoded as phred+33, like `samtools view` text output.
+    """
+    import struct
+
+    def take(n):
+        data = stream.read(n)
+        if len(data) != n:
+            raise ValueError("truncated BAM file")
+        return data
+
+    (l_text,) = struct.unpack("<i", take(4))
+    take(l_text)
+    (n_ref,) = struct.unpack("<i", take(4))
+    for _ in range(n_ref):
+        (l_name,) = struct.unpack("<i", take(4))
+        take(l_name + 4)  # name + l_ref
+
+    while True:
+        head = stream.read(4)
+        if len(head) == 0:
+            return
+        if len(head) != 4:
+            raise ValueError("truncated BAM record")
+        (block_size,) = struct.unpack("<i", head)
+        rec = take(block_size)
+        l_read_name = rec[8]
+        n_cigar_op, _flag = struct.unpack_from("<HH", rec, 12)
+        (l_seq,) = struct.unpack_from("<i", rec, 16)
+        off = 32
+        name = rec[off : off + l_read_name - 1]  # drop trailing NUL
+        off += l_read_name + 4 * n_cigar_op
+        if l_seq == 0:
+            continue
+        nbytes = (l_seq + 1) // 2
+        packed = np.frombuffer(rec, dtype=np.uint8, count=nbytes, offset=off)
+        off += nbytes
+        nib = np.empty(2 * nbytes, dtype=np.uint8)
+        nib[0::2] = packed >> 4
+        nib[1::2] = packed & 0x0F
+        seq = _BAM_NIB_LUT[nib[:l_seq]].tobytes()
+        qual = np.frombuffer(rec, dtype=np.uint8, count=l_seq, offset=off)
+        if qual[0] == 0xFF:
+            yield b">" + name + b"\n" + seq + b"\n"
+        else:
+            q33 = (np.minimum(qual, 93) + 33).astype(np.uint8).tobytes()
+            yield b"@" + name + b"\n" + seq + b"\n+\n" + q33 + b"\n"
+
+
+def sam_records_to_fastx(stream) -> Iterator[bytes]:
+    """Adapt SAM/BAM to FASTA/FASTQ record bytes (sam_format.hpp role).
+
+    Text SAM: SEQ (col 10) / QUAL (col 11) of each alignment line become
+    one record; records with SEQ '*' are skipped; QUAL '*' yields a FASTA
+    record. BAM (behind open_stream's gzip layer) is parsed by
+    _bam_records_to_fastx. CRAM raises NotPortedError.
+    """
+    first = stream.read(4)
+    if first.startswith(b"BAM\x01"):
+        yield from _bam_records_to_fastx(stream)
+        return
+    if first.startswith(b"CRAM"):
+        raise NotPortedError(
+            "CRAM input is not ported to jellyfish_tpu_torch yet (ROADMAP "
+            "item A4); use python -m jellyfish_tpu count --sam")
+    buf = first + stream.readline()
+    while True:
+        line = buf if buf is not None else stream.readline()
+        buf = None
+        if not line:
+            return
+        if line.startswith(b"@"):
+            continue
+        f = line.rstrip(b"\r\n").split(b"\t")
+        if len(f) < 11 or f[9] == b"*":
+            continue
+        if f[10] == b"*":
+            yield b">" + f[0] + b"\n" + f[9] + b"\n"
+        else:
+            yield b"@" + f[0] + b"\n" + f[9] + b"\n+\n" + f[10] + b"\n"
+
+
+class _IterStream:
+    """File-like read(n) view over an iterator of byte blocks; close()
+    closes `source`, the stream the blocks are read from."""
+
+    def __init__(self, blocks: Iterator[bytes], source=None):
+        self._blocks = blocks
+        self._source = source
+        self._pending = b""
+
+    def read(self, n: int = -1) -> bytes:
+        chunks = [self._pending]
+        have = len(self._pending)
+        self._pending = b""
+        while n < 0 or have < n:
+            try:
+                b = next(self._blocks)
+            except StopIteration:
+                break
+            chunks.append(b)
+            have += len(b)
+        data = b"".join(chunks)
+        if 0 <= n < len(data):
+            self._pending = data[n:]
+            data = data[:n]
+        return data
+
+    def readline(self) -> bytes:
+        while b"\n" not in self._pending:
+            try:
+                self._pending += next(self._blocks)
+            except StopIteration:
+                data, self._pending = self._pending, b""
+                return data
+        i = self._pending.index(b"\n") + 1
+        line, self._pending = self._pending[:i], self._pending[i:]
+        return line
+
+    def __iter__(self):
+        while True:
+            line = self.readline()
+            if not line:
+                return
+            yield line
+
+    def close(self):
+        if self._source is not None:
+            self._source.close()
+
+
 def pack_chunk(chunk: np.ndarray):
     """ASCII chunk [L] uint8 (L % 32 == 0) -> (pwords [L/16] uint32,
     validbits [L/32] uint32): 16 2-bit codes per word, big-endian within
@@ -126,9 +287,10 @@ def pack_chunk(chunk: np.ndarray):
 
 
 class SequenceChunker:
-    """Concatenate reads from many files, and from the output of generator
-    commands, into fixed-size chunks. Use it as a context manager, or call
-    close(), so that no generator child outlives it."""
+    """Concatenate reads from many files, SAM/BAM files (`sam_paths`) and
+    the output of generator commands, in that order, into fixed-size
+    chunks. Use it as a context manager, or call close(), so that no
+    generator child outlives it."""
 
     def __init__(
         self,
@@ -139,6 +301,7 @@ class SequenceChunker:
         generator_cmds: Iterable[str] | None = None,
         shell: str | None = None,
         nb_generators: int = 1,
+        sam_paths: Iterable[str] | None = None,
     ):
         self.paths = list(paths)
         self.k = int(k)
@@ -147,6 +310,7 @@ class SequenceChunker:
         self.generator_cmds = list(generator_cmds or [])
         self.shell = shell or os.environ.get("SHELL", "/bin/sh")
         self.nb_generators = max(1, int(nb_generators))
+        self.sam_paths = list(sam_paths or [])
         self._procs: set = set()
 
     def _spawn_generator(self, cmd: str):
@@ -156,12 +320,15 @@ class SequenceChunker:
         return proc
 
     def _streams(self):
-        """(stream, generator child or None) per input: the files, then
-        the generators' outputs. Up to nb_generators children run at once
+        """(stream, generator child or None) per input: the files, the
+        SAM/BAM files as FASTA/FASTQ, then the generators' outputs. Up to nb_generators children run at once
         (generator_manager.hpp:62-162): later commands start while an
         earlier one's output is read, and the pipe bounds their memory."""
         for path in self.paths:
             yield open_stream(path), None
+        for path in self.sam_paths:
+            f = open_stream(path)
+            yield _IterStream(sam_records_to_fastx(f), f), None
         pending: deque = deque()
         cmds = iter(self.generator_cmds)
 

@@ -5,7 +5,7 @@ hold the same records byte for byte (binary or text), and the same header
 apart from exe_path, pwd and cmdline; query, mem and cite print the same
 text; generate writes the same files. The Bloom hash matrices come from
 an unseeded numpy generator in both packages, so these tests seed it in
-both. Flags whose paths are not ported raise NotPortedError."""
+both. A key width above the kernels' raises NotPortedError."""
 
 import gzip
 import io
@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from jellyfish_tpu_torch import NotPortedError
 from jellyfish_tpu_torch.cli import main as torch_main
-from jellyfish_tpu_torch.cli.count import NotPortedError
 from jellyfish_tpu_torch.io.header import FileHeader
 
 torch.set_num_threads(1)
@@ -93,17 +93,6 @@ def test_no_write_and_timing(reads, tmp_path):
     assert not out.exists()
     assert [line.split()[0] for line in timing.read_text().splitlines()] == [
         "Init", "Counting", "Writing"]
-
-
-@pytest.mark.parametrize("flags", [
-    ["--sam", "x.sam"],
-    ["--coordinator", "localhost:1234"],
-], ids=lambda f: " ".join(f))
-def test_unported_flags_raise(reads, tmp_path, flags):
-    _, fq, _ = reads
-    with pytest.raises(NotPortedError, match="not yet ported"):
-        torch_main(["count", "-m", "21", "-s", "1M", *flags,
-                    "-o", str(tmp_path / "x.jf"), fq], device="cpu")
 
 
 @pytest.mark.parametrize("k", [113, 128])

@@ -143,6 +143,50 @@ def test_count_modes_tools_and_api_run_without_jax(tmp_path):
     assert (tmp_path / "a.jf").stat().st_size > 0
 
 
+def test_coordinator_and_sam_run_without_jax(tmp_path):
+    """count --coordinator with one gloo process, fastq2sam and count --sam
+    in a fresh interpreter leave jax and jellyfish_tpu out of
+    sys.modules."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    d = str(tmp_path)
+    code = (
+        "import sys\n"
+        "from jellyfish_tpu_torch.cli import main\n"
+        "def run(*a):\n"
+        "    assert main(list(a), device='cpu') == 0, a\n"
+        f"run('generate', '-m', '5k', '-r', '100', '-q', '-o', {d!r} + '/g')\n"
+        "import os\n"
+        f"os.rename({d!r} + '/g.fq', {d!r} + '/g.fastq')\n"
+        f"run('count', '-m', '15', '-s', '1k', '--matrix-seed', '3',"
+        f" '--coordinator', '127.0.0.1:{port}', '--num-processes', '1', '--process-id', '0',"
+        f" '-o', {d!r} + '/a.jf', {d!r} + '/g.fastq')\n"
+        f"run('fastq2sam', {d!r} + '/g.fastq')\n"
+        f"run('count', '-m', '15', '-s', '1k', '--matrix-seed', '3',"
+        f" '--sam', {d!r} + '/g.sam', '-o', {d!r} + '/b.jf')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'jellyfish_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    from jellyfish_tpu_torch.io.header import FileHeader
+
+    records = []
+    for name in ("a.jf", "b.jf"):
+        with open(tmp_path / name, "rb") as f:
+            f.seek(FileHeader.read(f).offset)
+            records.append(f.read())
+    assert len(records[0]) > 0
+    assert records[0] == records[1]
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -166,7 +210,8 @@ def test_no_jax_imports_in_sources():
             "jellyfish_tpu_torch/ops/packed_run.py",
             "jellyfish_tpu_torch/api.py",
             "jellyfish_tpu_torch/memmodel.py",
-            "jellyfish_tpu_torch/parallel/sharded.py"} <= names
+            "jellyfish_tpu_torch/parallel/sharded.py",
+            "jellyfish_tpu_torch/parallel/multihost.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
