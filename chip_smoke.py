@@ -3,12 +3,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from jellyfish_tpu_torch/csrc (K1 merge_path.cu,
-K2 compact.cu, K3 bitonic.cu, rows 9 and 10 window.cu) and holds each
-entry point against its plain PyTorch version at the shapes its path gives
-it and at the Pallas kernels' own shapes; row 8's fused passes of up to
-four steps (jf_exchange_group) also at Wk 2 and 7 with a payload and Wk 4
-keys only, each timed against the same steps one pass each, and row 9's
-windows inside and across either end of a run at odd and even offsets;
+K2 compact.cu, K3 bitonic.cu, rows 9 and 10 window.cu), and beside them
+the native host library (jellyfish_tpu_torch/native/chunker.cpp), and
+holds each kernel's entry point against its plain PyTorch version at the
+shapes its path gives it and at the Pallas kernels' own shapes; row 8's
+fused passes of up to four steps (jf_exchange_group) also at Wk 2 and 7
+with a payload and Wk 4 keys only, each timed against the same steps one
+pass each, and row 9's windows inside and across either end of a run at
+odd and even offsets;
 K1's merge_pass and its partition pass (merge_splits) at every key width,
 keys only and with a payload, in runs of 1, 2,048, 2^16 and 2^22 rows,
 and timed at the k = 63 grain's passes. Kernel times are device times
@@ -64,8 +66,14 @@ count --coordinator with one NCCL process: five CLI children (k = 21 and
 (phase_multihost_cli), and ShardedMerCounter under the group with 2
 shards on the card, record-equal to the k = 21 table, with the device
 time of its all_gather and all_to_all_single (phase_multihost_api).
-count --sam of fastq2sam's SAM and of a BAM of the same reads against
-the FASTQ's count (phase_sam).
+count --sam of fastq2sam's SAM, of a BAM of the same reads, and of a CRAM
+3.0 and a CRAM 3.1 of them (written here with the port's encoders), the
+CRAMs also under -Q 5, against the FASTQ's count, each through the native
+library's parsers and decoders (phase_sam). The native host library
+(phase_native): loaded from build/jellyfish_tpu_torch/, count of the FASTQ
+in a child process with the native chunker and under JF_NO_NATIVE=1,
+count -F 4 of the reads in 4 files, and libjfquery's counts of 2,000 mers
+against the port's query.
 Every new path must launch K1 and K2 (and K3 at k = 63, rows 9 on --disk).
 Exits nonzero, with no result line, when there is no GPU or any phase
 fails.
@@ -2784,6 +2792,17 @@ for _i, _b in enumerate(b"=ACMGRSVTWYHKDBN"):
     _BAM_CODE[_b] = _i
 
 
+def fastq_reads(fq, read_len=150):
+    """(reads, qualities as phred+33) of a FASTQ of read_len-base reads
+    (write_fastq's), each [n, read_len] uint8."""
+    with open(fq, "rb") as f:
+        lines = f.read().split(b"\n")
+    n = len(lines) // 4
+    seq = np.frombuffer(b"".join(lines[1:4 * n:4]), np.uint8)
+    qual = np.frombuffer(b"".join(lines[3:4 * n:4]), np.uint8)
+    return seq.reshape(n, read_len), qual.reshape(n, read_len)
+
+
 def write_bam(path, fq, read_len=150):
     """The reads of a FASTQ of read_len-base reads (write_fastq's) as a
     BAM file of unmapped records, in BGZF blocks of 60,000 bytes: a small
@@ -2792,12 +2811,9 @@ def write_bam(path, fq, read_len=150):
     import struct
     import zlib
 
-    with open(fq, "rb") as f:
-        lines = f.read().split(b"\n")
-    n = len(lines) // 4
-    seq = np.frombuffer(b"".join(lines[1:4 * n:4]), np.uint8)
-    qual = np.frombuffer(b"".join(lines[3:4 * n:4]), np.uint8)
-    nib = _BAM_CODE[seq.reshape(n, read_len)]
+    seq, qual = fastq_reads(fq, read_len)
+    n = len(seq)
+    nib = _BAM_CODE[seq]
     packed = (nib[:, 0::2] << 4) | nib[:, 1::2]
     names = np.frombuffer(b"".join(b"r%09d\0" % i for i in range(n)),
                           np.uint8).reshape(n, 11)
@@ -2806,7 +2822,7 @@ def write_bam(path, fq, read_len=150):
     rec_len = len(fixed) + 11 + read_len // 2 + read_len
     head = np.frombuffer(struct.pack("<i", rec_len) + fixed, np.uint8)
     recs = np.concatenate([np.broadcast_to(head, (n, len(head))), names,
-                           packed, qual.reshape(n, read_len) - 33], axis=1)
+                           packed, qual - 33], axis=1)
     body = b"BAM\x01" + struct.pack("<ii", 0, 0) + recs.tobytes()
     with open(path, "wb") as f:
         for off in range(0, len(body), 60000):
@@ -2822,16 +2838,201 @@ def write_bam(path, fq, read_len=150):
             "1f8b08040000000000ff0600424302001b0003000000000000000000"))
 
 
+# -- CRAM files written with the port's encoders --------------------------------
+
+# the series of an unmapped record with a quality array, one external
+# block each: (content id, name); RN is BYTE_ARRAY_STOP on NUL
+CRAM_SERIES = ((1, "BF"), (2, "CF"), (3, "RL"), (4, "AP"), (5, "RG"),
+               (6, "RN"), (7, "TL"), (8, "BA"), (9, "QS"))
+CRAM_SLICE_READS = 13_500  # 16 slices of the CLI k = 21 input
+
+
+def _itf8(v: int) -> bytes:
+    from jellyfish_tpu_torch.io.cram import write_itf8
+
+    out = bytearray()
+    write_itf8(out, v)
+    return bytes(out)
+
+
+def _ltf8(v: int) -> bytes:
+    from jellyfish_tpu_torch.io.cram import write_ltf8
+
+    out = bytearray()
+    write_ltf8(out, v)
+    return bytes(out)
+
+
+def _cram_block(method: int, ctype: int, cid: int, raw: bytes,
+                comp: bytes) -> bytes:
+    import struct
+    import zlib
+
+    payload = (bytes([method, ctype]) + _itf8(cid) + _itf8(len(comp))
+               + _itf8(len(raw)) + comp)
+    return payload + struct.pack("<I", zlib.crc32(payload))
+
+
+def _cram_container(blocks: bytes, n_blocks: int, n_records=0, counter=0,
+                    bases=0, start=0) -> bytes:
+    import struct
+    import zlib
+
+    head = (_itf8(-1) + _itf8(start) + _itf8(0) + _itf8(n_records)
+            + _ltf8(counter) + _ltf8(bases) + _itf8(n_blocks) + _itf8(0))
+    raw = struct.pack("<i", len(blocks)) + head
+    return raw + struct.pack("<I", zlib.crc32(raw)) + blocks
+
+
+def _cram_map(entries) -> bytes:
+    body = _itf8(len(entries)) + b"".join(entries)
+    return _itf8(len(body)) + body
+
+
+def _cram_compression_header() -> bytes:
+    pres = [b"RN\x01", b"AP\x01", b"RR\x01", b"SM" + b"\x1b" * 5]
+    enc = []
+    for cid, key in CRAM_SERIES:
+        codec, params = (5, b"\x00" + _itf8(cid)) if key == "RN" else (
+            1, _itf8(cid))
+        enc.append(key.encode() + _itf8(codec) + _itf8(len(params)) + params)
+    return _cram_map(pres) + _cram_map(enc) + _cram_map([])
+
+
+def encode_cram_slice(version, first, seq, qual):
+    """One slice of unmapped reads (seq and qual [n, L] uint8, qualities
+    phred+33) numbered from `first`, with every series in an external
+    block: (its blocks, how many). CRAM 3.0 compresses each block with
+    rANS 4x8 order 1; CRAM 3.1 the bases with rANS Nx16 order 1, the
+    qualities with fqzcomp, the names with tok3 and the rest with rANS
+    Nx16 order 0."""
+    from jellyfish_tpu_torch.io import fqzcomp, rans, rans16, tok3
+
+    n, L = seq.shape
+    data = {
+        "BF": b"\x04" * n, "CF": b"\x01" * n, "RL": _itf8(L) * n,
+        "AP": b"\x00" * n, "RG": _itf8(-1) * n, "TL": b"\x00" * n,
+        "RN": b"".join(b"r%d\0" % i for i in range(first, first + n)),
+        "BA": seq.tobytes(), "QS": (qual - 33).tobytes(),
+    }
+    out = []
+    for cid, key in CRAM_SERIES:
+        raw = data[key]
+        if version == (3, 0):
+            method, comp = 4, rans.encode(raw, 1)
+        elif key == "QS":
+            method, comp = 7, fqzcomp.encode([L] * n, raw)
+        elif key == "RN":
+            method, comp = 8, tok3.encode(raw)
+        else:
+            flags = rans16.F_ORDER1 if key == "BA" else 0
+            method, comp = 5, rans16.encode(raw, flags)
+        out.append(_cram_block(method, 4, cid, raw, comp))
+    cids = b"".join(_itf8(cid) for cid, _ in CRAM_SERIES)
+    header = (_itf8(-1) + _itf8(0) + _itf8(0) + _itf8(n) + _ltf8(first)
+              + _itf8(1 + len(CRAM_SERIES)) + _itf8(len(CRAM_SERIES))
+              + cids + _itf8(-1) + b"\0" * 16)
+    blocks = (_cram_block(0, 2, 0, header, header)
+              + _cram_block(0, 5, 0, b"", b"") + b"".join(out))
+    return blocks, 2 + len(CRAM_SERIES)
+
+
+def write_crams(paths, fq, read_len=150):
+    """The reads of `fq` as CRAM files, {version: path}: one container a
+    slice of CRAM_SLICE_READS reads, the slices encoded in processes of
+    their own (the encoders are pure python). Returns the seconds taken."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from jellyfish_tpu_torch.io.cram import EOF_POSITION
+
+    t = time.perf_counter()
+    seq, qual = fastq_reads(fq, read_len)
+    starts = range(0, len(seq), CRAM_SLICE_READS)
+    workers = min(8, os.cpu_count() or 1)
+    comp = _cram_compression_header()
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        # the 3.1 slices, the slower to encode, go first
+        futures = {v: [pool.submit(encode_cram_slice, v, i,
+                                   seq[i:i + CRAM_SLICE_READS],
+                                   qual[i:i + CRAM_SLICE_READS])
+                       for i in starts]
+                   for v in sorted(paths, reverse=True)}
+        for v, path in paths.items():
+            with open(path, "wb") as f:
+                f.write(b"CRAM" + bytes(v) + b"jellyfish_tpu_torch\0")
+                text = b"@HD\tVN:1.6\tSO:unsorted\n"
+                head = len(text).to_bytes(4, "little") + text
+                f.write(_cram_container(_cram_block(0, 0, 0, head, head), 1))
+                for i, fut in zip(starts, futures[v]):
+                    blocks, n_blocks = fut.result()
+                    n = min(CRAM_SLICE_READS, len(seq) - i)
+                    body = _cram_block(0, 1, 0, comp, comp) + blocks
+                    f.write(_cram_container(body, 1 + n_blocks, n, i,
+                                            n * read_len))
+                eof = _cram_map([]) * 3  # an empty compression header
+                f.write(_cram_container(_cram_block(0, 1, 0, eof, eof), 1,
+                                        start=EOF_POSITION))
+    return time.perf_counter() - t
+
+
+# the native library's entry points counted while a phase runs
+NATIVE_CALLS = ("jf_chunker_feed", "jf_pack_chunk", "jf_bam_records",
+                "jf_cram_slice", "jf_rans_decode", "jf_rans16_decode",
+                "jf_arith_decode", "jf_fqz_decode", "jf_tok3_decode")
+
+
+@contextlib.contextmanager
+def native_calls():
+    """{entry point: calls} of the port's native library while the block
+    runs, from every thread: each entry point is wrapped on the loaded
+    library, and restored after."""
+    import threading
+
+    from jellyfish_tpu_torch.native import build_error, get_lib
+
+    lib = get_lib()
+    if lib is None:
+        raise AssertionError(f"the native library did not build: "
+                             f"{build_error()}")
+    counts = dict.fromkeys(NATIVE_CALLS, 0)
+    lock = threading.Lock()
+    real = {n: getattr(lib, n) for n in NATIVE_CALLS}
+
+    def wrap(name, fn):
+        def call(*args):
+            with lock:
+                counts[name] += 1
+            return fn(*args)
+        return call
+
+    for name, fn in real.items():
+        setattr(lib, name, wrap(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in real.items():
+            setattr(lib, name, fn)
+
+
 def phase_sam(tmp):
-    """count --sam at the CLI k = 21 size: fastq2sam of r21.fq, and a BAM
-    of the same reads (write_bam), each counted with count --sam -s 4M -C,
-    record-equal to the FASTQ's count (o21.jf). Returns (launches of the
-    BAM count, results)."""
+    """count --sam at the CLI k = 21 size: fastq2sam of r21.fq, a BAM of
+    the same reads (write_bam) and two CRAMs of them (write_crams: 3.0 in
+    rANS 4x8 order-1 blocks; 3.1 with rANS Nx16 bases, fqzcomp qualities
+    and tok3 names), each counted with count --sam -s 4M -C, and each CRAM
+    again with -Q 5, which decodes its qualities: record-equal to the
+    FASTQ's count (o21.jf; every quality is I, so -Q 5 masks nothing),
+    each launching K1 and K2. The BAM goes through jf_bam_records, each
+    CRAM slice through jf_cram_slice, and the quality blocks are decoded
+    under -Q only. Returns (launches of the BAM count, results)."""
     from jellyfish_tpu_torch import cli
 
     fq = os.path.join(tmp, "r21.fq")
     fastq, sam = (os.path.join(tmp, f"s21.{e}") for e in ("fastq", "sam"))
     bam, out = os.path.join(tmp, "s21.bam"), os.path.join(tmp, "sam.jf")
+    crams = {v: os.path.join(tmp, f"s21.v{v[0]}{v[1]}.cram")
+             for v in ((3, 0), (3, 1))}
     os.symlink(fq, fastq)
     t = time.perf_counter()
     if cli.main(["fastq2sam", fastq]) != 0:
@@ -2840,26 +3041,186 @@ def phase_sam(tmp):
     t = time.perf_counter()
     write_bam(bam, fq)
     t_bam = time.perf_counter() - t
+    t_cram = write_crams(crams, fq)
+    n_slices = -(-len(fastq_reads(fq)[0]) // CRAM_SLICE_READS)
     want = records_of(os.path.join(tmp, "o21.jf"))
-    res, launches = dict(fastq2sam_s=t_sam, write_bam_s=t_bam), None
-    for name, path in (("sam", sam), ("bam", bam)):
+    res = dict(fastq2sam_s=t_sam, write_bam_s=t_bam, write_crams_s=t_cram,
+               cram_slices=n_slices)
+    log(f"SAM, BAM and CRAM writers, CLI k=21: {json.dumps(res)}")
+    runs = [("sam", sam, []), ("bam", bam, [])]
+    for v, path in crams.items():
+        runs += [(f"cram{v[0]}{v[1]}", path, []),
+                 (f"cram{v[0]}{v[1]}_Q5", path, ["-Q", "5"])]
+    bam_launches = None
+    for name, path, flags in runs:
         reset_counts()
-        t = time.perf_counter()
-        rc = cli.main(["count", "-m", "21", "-s", "4M", "-C",
-                       "--matrix-seed", "1", "--sam", path, "-o", out])
-        dt = time.perf_counter() - t
+        with native_calls() as calls:
+            t = time.perf_counter()
+            rc = cli.main(["count", "-m", "21", "-s", "4M", "-C",
+                           "--matrix-seed", "1", *flags, "--sam", path,
+                           "-o", out])
+            dt = time.perf_counter() - t
         launches = kernel_counts()
         same = rc == 0 and records_of(out) == want
-        res[name] = dict(wall_s=dt, bytes=os.path.getsize(path), equal=same)
-        log(f"count --sam {os.path.basename(path)} k=21: {json.dumps(res[name])}"
-            f"; launches {launches}")
+        res[name] = dict(wall_s=dt, bytes=os.path.getsize(path), equal=same,
+                         native_calls={k: v for k, v in calls.items() if v},
+                         launches={n: launches[n]
+                                   for n in ("merge_path", "compact")})
+        log(f"count --sam {' '.join([os.path.basename(path), *flags])} "
+            f"k=21: {json.dumps(res[name])}")
         missed = [n for n in ("merge_path", "compact") if launches[n] == 0]
         if not same or missed:
             raise AssertionError(f"count --sam {name} differs from the "
                                  f"FASTQ's count or ran without {missed}")
-    for p in (fastq, sam, bam, out):
+        quals = flags != []
+        need = {"bam": calls["jf_bam_records"] > 0,
+                "cram30": calls["jf_cram_slice"] == n_slices
+                and calls["jf_rans_decode"] == (9 if quals else 8) * n_slices,
+                "cram31": calls["jf_cram_slice"] == n_slices
+                and calls["jf_fqz_decode"] == (n_slices if quals else 0)
+                and calls["jf_tok3_decode"] == n_slices}.get(name[:6], True)
+        if not need:
+            raise AssertionError(f"count --sam {name} took another path "
+                                 f"than the native one: {calls}")
+        if name == "bam":
+            bam_launches = launches
+    for p in (fastq, sam, bam, out, *crams.values()):
         os.unlink(p)
-    return launches, res
+    return bam_launches, res
+
+
+def phase_native(tmp):
+    """The native host library at the CLI k = 21 size. It was built into
+    build/jellyfish_tpu_torch/ and is the one mapped (nothing under
+    jellyfish_tpu/ is); count -m 21 -s 4M -C of r21.fq in a child process
+    with the native chunker and again under JF_NO_NATIVE=1, each
+    record-equal to o21.jf, with the child's wall time and --timing's
+    phases; count -F 4 of r21.fq dealt into 4 files, and -F 1 of those
+    files, record-equal to o21.jf; libjfquery built and 1,000 records of
+    o21.jf and 1,000 random mers queried through ctypes, each equal to the
+    port's query. Returns results."""
+    import ctypes
+    from pathlib import Path
+
+    from jellyfish_tpu_torch import cli
+    from jellyfish_tpu_torch.native import (
+        LIB_PATH,
+        build_error,
+        build_jfquery,
+        get_lib,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lib = get_lib()
+    with open("/proc/self/maps") as f:
+        maps = {line.split()[-1] for line in f if ".so" in line}
+    loaded = (lib is not None and lib._name == str(LIB_PATH)
+              and str(LIB_PATH) in maps
+              and LIB_PATH.parent == Path(here, "build", "jellyfish_tpu_torch")
+              and not any("/jellyfish_tpu/" in m for m in maps))
+    log(f"native library: {LIB_PATH} loaded {loaded} ({build_error()})")
+    if not loaded:
+        raise AssertionError("the port's native library is not the one "
+                             "loaded from build/jellyfish_tpu_torch/")
+    fq, mem = os.path.join(tmp, "r21.fq"), os.path.join(tmp, "o21.jf")
+    want = records_of(mem)
+    base = ["count", "-m", "21", "-s", "4M", "-C", "--matrix-seed", "1"]
+    res = {}
+    for name, env in (("native", {}), ("python", {"JF_NO_NATIVE": "1"})):
+        out, timing = (os.path.join(tmp, f"nat_{name}.{e}")
+                       for e in ("jf", "txt"))
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "jellyfish_tpu_torch",
+                            *base, "--timing", timing, "-o", out, fq],
+                           cwd=here, env={**os.environ, **env},
+                           capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t
+        if r.returncode != 0:
+            raise AssertionError(f"count ({name} chunker) exited "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+        with open(timing) as f:
+            phases = {k: float(v) for k, v in
+                      (line.split() for line in f if line.strip())}
+        res[name] = dict(child_wall_s=dt, timing=phases,
+                         equal=records_of(out) == want)
+        os.unlink(out)
+        os.unlink(timing)
+    seq, qual = fastq_reads(fq)
+    parts = []
+    for i in range(4):
+        parts.append(os.path.join(tmp, f"nat_part{i}.fq"))
+        with open(parts[-1], "wb") as f:
+            f.write(b"".join(b"@r%d\n%s\n+\n%s\n" % (j, s.tobytes(),
+                                                       q.tobytes())
+                             for j, s, q in zip(range(i, len(seq), 4),
+                                                seq[i::4], qual[i::4])))
+    out = os.path.join(tmp, "nat_F.jf")
+    for nb in ("4", "1"):
+        reset_counts()
+        with native_calls() as calls:
+            t = time.perf_counter()
+            rc = cli.main([*base, "-F", nb, "-o", out, *parts])
+            dt = time.perf_counter() - t
+        launches = kernel_counts()
+        res[f"F{nb}"] = dict(wall_s=dt, equal=rc == 0
+                             and records_of(out) == want,
+                             chunker_feeds=calls["jf_chunker_feed"],
+                             launches={n: launches[n]
+                                       for n in ("merge_path", "compact")})
+    for p in (*parts, out):
+        os.unlink(p)
+    so = build_jfquery()
+    if so is None:
+        raise AssertionError("libjfquery did not build")
+    lq = ctypes.CDLL(so)
+    lq.jf_query_open.restype = ctypes.c_void_p
+    lq.jf_query_open.argtypes = [ctypes.c_char_p]
+    lq.jf_query_close.argtypes = [ctypes.c_void_p]
+    lq.jf_query_nb_records.restype = ctypes.c_uint64
+    lq.jf_query_nb_records.argtypes = [ctypes.c_void_p]
+    lq.jf_query_mer.restype = ctypes.c_int64
+    lq.jf_query_mer.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lq.jf_query_record.restype = ctypes.c_int
+    lq.jf_query_record.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                   ctypes.c_char_p,
+                                   ctypes.POINTER(ctypes.c_uint64)]
+    _, _, counts = read_db(mem)
+    q = lq.jf_query_open(mem.encode())
+    try:
+        n = lq.jf_query_nb_records(q)
+        buf, cnt = ctypes.create_string_buffer(22), ctypes.c_uint64()
+        idx = np.linspace(0, n - 1, 1000).astype(np.int64)
+        mers, rec_ok = [], n == len(counts)
+        for i in idx:
+            rec_ok &= bool(lq.jf_query_record(q, int(i), buf,
+                                              ctypes.byref(cnt)))
+            rec_ok &= cnt.value == counts[i]
+            mers.append(buf.value.decode())
+        # not seed 21: write_fastq drew r21.fq's genome from it
+        rng = np.random.default_rng(1021)
+        mers += ["".join("ACGT"[b] for b in rng.integers(0, 4, 21))
+                 for _ in range(1000)]
+        t = time.perf_counter()
+        got = [lq.jf_query_mer(q, m.encode()) for m in mers]
+        t_lib = time.perf_counter() - t
+    finally:
+        lq.jf_query_close(q)
+    qout = os.path.join(tmp, "nat_query.txt")
+    t = time.perf_counter()
+    rc = cli.main(["query", "-o", qout, mem, *mers])
+    t_cli = time.perf_counter() - t
+    with open(qout) as f:
+        port = [line.split() for line in f]
+    os.unlink(qout)
+    same = (rc == 0 and rec_ok
+            and port == [[m, str(c)] for m, c in zip(mers, got)])
+    res["jfquery"] = dict(mers=len(mers), present=int(sum(c > 0 for c in got)),
+                          equal=same, ctypes_s=t_lib, port_query_s=t_cli)
+    log(f"native host library, CLI k=21: {json.dumps(res)}")
+    bad = [k for k, v in res.items() if not v["equal"]]
+    if bad or res["F4"]["launches"]["compact"] == 0:
+        raise AssertionError(f"native phase differs: {bad}")
+    return res
 
 
 def phase_multihost_api(staged, table, dev):
@@ -2920,6 +3281,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from jellyfish_tpu_torch import native
         from jellyfish_tpu_torch.kernels import _build
     except ImportError as e:
         print(f"chip_smoke: jellyfish_tpu_torch not found ({e})",
@@ -2935,8 +3297,16 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t_script = time.perf_counter()
-    _build.build(["merge_path", "compact", "bitonic", "window"])
-    log(f"build: {time.perf_counter() - t_script:.1f} s")
+    # the native host library (g++) builds beside the kernels (nvcc), so
+    # that no CLI phase times its build
+    with ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.get_lib)
+        _build.build(["merge_path", "compact", "bitonic", "window"])
+        if host_lib.result() is None:
+            raise AssertionError(f"the native host library did not build: "
+                                 f"{native.build_error()}")
+    log(f"build: {time.perf_counter() - t_script:.1f} s (kernels and "
+        f"{native.LIB_PATH.name})")
     ptxas_report("merge_path")
     ptxas_report("bitonic")
     ptxas_report("window")
@@ -2974,6 +3344,7 @@ def main() -> int:
         shard_mode_launches, shard_modes = phase_sharded_modes(tmp, dev)
         multihost_cli = phase_multihost_cli(tmp)
         sam_launches, sam = phase_sam(tmp)
+        native = phase_native(tmp)
         del seq21
         chunks, staged = stage_chunks(dev)
         # each kernel's launches are read from the full-size run of its
@@ -3015,6 +3386,7 @@ def main() -> int:
             staged, tables[21], dev)
         modes["multihost"] = dict(api=api, cli=multihost_cli)
         mode_launches["sam"], modes["sam"] = sam_launches, sam
+        modes["native"] = native
         del tables
         mode_launches["restricted"], modes["restricted"] = phase_if(
             chunks, staged, table)

@@ -6,8 +6,8 @@
 counter (a binary database is searched on the host); histo, dump, stats,
 info, mem, cite, generate and fastq2sam run on the host. `count` and `bc`
 take the JAX package's flags; `count -d N` shards the table over N devices
-of one process, and `count --coordinator` over several processes. A CRAM
-input to `count --sam` raises NotPortedError.
+of one process, and `count --coordinator` over several processes;
+`count --sam` reads SAM, BAM and CRAM files.
 """
 
 from __future__ import annotations

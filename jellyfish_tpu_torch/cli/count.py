@@ -3,7 +3,7 @@
 and the Bloom filters).
 
 The flag surface is the JAX package's (count_main_cmdline.yaggo:4-112).
-Every flag runs; a CRAM input to --sam raises NotPortedError.
+Every flag runs, and --sam reads SAM, BAM and CRAM files.
 
 -d N shards the table by hash prefix over N devices
 (parallel/sharded.py); -d auto means every visible CUDA device (1 on the
@@ -307,7 +307,7 @@ def _count(args, argv, device, t_start):
     chunker = SequenceChunker(
         list(args.file), k, chunk_len=args.chunk_len, min_qual=_min_qual(args),
         generator_cmds=gen_cmds, shell=args.shell, sam_paths=list(args.sam),
-        nb_generators=args.nb_generators,
+        nb_files=args.nb_files, nb_generators=args.nb_generators,
     )
 
     # a SIGTERM ends the run through the finally below, which terminates

@@ -77,6 +77,7 @@ def run_bc(args, argv, device=None):
     gen_cmds = load_generator_cmds(args.generator) if args.generator else None
     with SequenceChunker(list(args.file), k, chunk_len=args.chunk_len,
                          generator_cmds=gen_cmds, shell=args.shell,
+                         nb_files=args.nb_files,
                          nb_generators=args.nb_generators) as chunker:
         t_init = time.perf_counter()
         insert_chunks(bc, chunker.chunks())

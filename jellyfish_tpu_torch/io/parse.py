@@ -1,5 +1,5 @@
-"""FASTA/FASTQ streaming chunker (host side; the pure-python path of
-jellyfish_tpu/io/parse.py, copied).
+"""FASTA/FASTQ streaming chunker (host side; jellyfish_tpu/io/parse.py,
+copied).
 
 Turns FASTA/FASTQ files (plain or gzip) into fixed-size uint8 chunks:
 
@@ -12,15 +12,17 @@ Turns FASTA/FASTQ files (plain or gzip) into fixed-size uint8 chunks:
   chunking (mer_qual_iterator.hpp:74-84 semantics);
 - the tail of the final chunk is padded with SEPARATOR bytes.
 
-`chunks_packed` packs each chunk to 2-bit codes and a validity bitstream,
-the counter's input (`pack_chunk`, the numpy version of
-jellyfish_tpu/native pack_chunk). Generator commands (`-g`, `-G`, `-S`)
-run as shell children whose standard output is read like a file; a child
-that exits nonzero raises, and close() terminates the live ones. SAM and
-BAM files (`count --sam`) are read after the sequence files, as FASTA or
-FASTQ records (sam_records_to_fastx); a CRAM file raises NotPortedError.
-The JAX package's native chunker and native BAM window parser are not
-part of this package: BAM records go through the pure-python loop.
+The C++ scanner of the native library (native/chunker.cpp) makes the
+chunks when it is built, several inputs at once under `nb_files` (-F);
+the pure-python path below is the reference and the fallback
+(JF_NO_NATIVE=1 forces it). `chunks_packed` packs each chunk to 2-bit
+codes and a validity bitstream, the counter's input (`pack_chunk`).
+Generator commands (`-g`, `-G`, `-S`) run as shell children whose
+standard output is read like a file; a child that exits nonzero raises,
+and close() terminates the live ones. SAM, BAM and CRAM files (`count
+--sam`) are read after the sequence files, as FASTA or FASTQ records
+(sam_records_to_fastx): BAM records through the native window parser,
+CRAM slices through io/cram.py.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
-from jellyfish_tpu_torch import NotPortedError
+from jellyfish_tpu_torch.native import NativeChunker, get_lib
+from jellyfish_tpu_torch.native import pack_chunk as _pack_chunk_native
 
 __all__ = ["SequenceChunker", "open_stream", "iter_reads", "sniff_format",
            "sam_records_to_fastx", "pack_chunk"]
@@ -135,11 +138,29 @@ def _bam_records_to_fastx(stream) -> Iterator[bytes]:
     as stored, non-ACGT nibbles become N, no flag filtering. Absent
     quality (0xFF fill) yields a FASTA record; otherwise raw phred is
     re-encoded as phred+33, like `samtools view` text output.
+
+    The native library parses the complete records of each 4 MB window
+    (jf_bam_records) and carries the partial tail into the next. On a
+    malformed window, or a record cut short at the end, the python loop
+    below takes over from the first record the native parser did not
+    yield and raises its own error; without the library it reads every
+    record.
     """
     import struct
 
+    pending = b""  # bytes read from the stream and not yet parsed
+
+    def read(n):
+        nonlocal pending
+        if not pending:
+            return stream.read(n)
+        part, pending = pending[:n], pending[n:]
+        if len(part) < n:
+            part += stream.read(n - len(part))
+        return part
+
     def take(n):
-        data = stream.read(n)
+        data = read(n)
         if len(data) != n:
             raise ValueError("truncated BAM file")
         return data
@@ -151,8 +172,38 @@ def _bam_records_to_fastx(stream) -> Iterator[bytes]:
         (l_name,) = struct.unpack("<i", take(4))
         take(l_name + 4)  # name + l_ref
 
+    lib = get_lib()
+    if lib is not None:
+        import ctypes
+
+        while True:
+            block = stream.read(1 << 22)
+            data = pending + block
+            if not data:
+                return
+            consumed = ctypes.c_long(0)
+            h = lib.jf_bam_records(data, len(data), ctypes.byref(consumed))
+            if not h:
+                # a malformed record: the python loop takes the window
+                # from its first record on and raises the exact error
+                pending = data
+                break
+            try:
+                n = lib.jf_cram_out_len(h)
+                if n:
+                    buf = ctypes.create_string_buffer(n)
+                    lib.jf_cram_out_copy(h, buf)
+                    yield buf.raw
+            finally:
+                lib.jf_cram_out_free(h)
+            pending = data[consumed.value:]
+            if not block:
+                if not pending:
+                    return
+                break  # a record cut short: the python loop raises
+
     while True:
-        head = stream.read(4)
+        head = read(4)
         if len(head) == 0:
             return
         if len(head) != 4:
@@ -182,22 +233,29 @@ def _bam_records_to_fastx(stream) -> Iterator[bytes]:
             yield b"@" + name + b"\n" + seq + b"\n+\n" + q33 + b"\n"
 
 
-def sam_records_to_fastx(stream) -> Iterator[bytes]:
-    """Adapt SAM/BAM to FASTA/FASTQ record bytes (sam_format.hpp role).
+def sam_records_to_fastx(stream, need_quals: bool = True) -> Iterator[bytes]:
+    """Adapt SAM/BAM/CRAM to FASTA/FASTQ record bytes (sam_format.hpp
+    role).
 
     Text SAM: SEQ (col 10) / QUAL (col 11) of each alignment line become
     one record; records with SEQ '*' are skipped; QUAL '*' yields a FASTA
     record. BAM (behind open_stream's gzip layer) is parsed by
-    _bam_records_to_fastx. CRAM raises NotPortedError.
+    _bam_records_to_fastx. CRAM 2.1-3.1 is decoded by
+    io/cram.cram_records_to_fastx; reference-compressed CRAMs find their
+    reference FASTA through JF_CRAM_REF, JF_CRAM_REF_CACHE or REF_CACHE
+    (an M5 cache), or a local-file UR: field of the @SQ header lines.
+    need_quals=False lets the CRAM reader skip the quality blocks
+    (counting without -Q never reads them).
     """
     first = stream.read(4)
     if first.startswith(b"BAM\x01"):
         yield from _bam_records_to_fastx(stream)
         return
     if first.startswith(b"CRAM"):
-        raise NotPortedError(
-            "CRAM input is not ported to jellyfish_tpu_torch yet (ROADMAP "
-            "item A4); use python -m jellyfish_tpu count --sam")
+        from jellyfish_tpu_torch.io.cram import cram_records_to_fastx
+
+        yield from cram_records_to_fastx(stream, need_quals=need_quals)
+        return
     buf = first + stream.readline()
     while True:
         line = buf if buf is not None else stream.readline()
@@ -268,10 +326,13 @@ def pack_chunk(chunk: np.ndarray):
     """ASCII chunk [L] uint8 (L % 32 == 0) -> (pwords [L/16] uint32,
     validbits [L/32] uint32): 16 2-bit codes per word, big-endian within
     the word (A0 C1 G2 T3), and one validity bit per base, little-endian
-    within the word."""
+    within the word. The native library's jf_pack_chunk when it is built,
+    else numpy."""
     L = len(chunk)
     if L % 32:
         raise ValueError("chunk length must be a multiple of 32")
+    if get_lib() is not None:
+        return _pack_chunk_native(chunk)
     t = (chunk >> 1) & 3
     code = (t ^ (t >> 1)).astype(np.uint32)
     shifts = (2 * (15 - np.arange(16, dtype=np.uint32)))[None, :]
@@ -287,10 +348,12 @@ def pack_chunk(chunk: np.ndarray):
 
 
 class SequenceChunker:
-    """Concatenate reads from many files, SAM/BAM files (`sam_paths`) and
-    the output of generator commands, in that order, into fixed-size
-    chunks. Use it as a context manager, or call close(), so that no
-    generator child outlives it."""
+    """Concatenate reads from many files, SAM/BAM/CRAM files
+    (`sam_paths`) and the output of generator commands, in that order,
+    into fixed-size chunks; under nb_files > 1 (-F) the native scanner
+    parses that many inputs at once, and their chunks interleave. `reads`
+    counts the reads once the chunks are drained. Use it as a context
+    manager, or call close(), so that no generator child outlives it."""
 
     def __init__(
         self,
@@ -302,6 +365,7 @@ class SequenceChunker:
         shell: str | None = None,
         nb_generators: int = 1,
         sam_paths: Iterable[str] | None = None,
+        nb_files: int = 1,
     ):
         self.paths = list(paths)
         self.k = int(k)
@@ -311,6 +375,8 @@ class SequenceChunker:
         self.shell = shell or os.environ.get("SHELL", "/bin/sh")
         self.nb_generators = max(1, int(nb_generators))
         self.sam_paths = list(sam_paths or [])
+        self.nb_files = max(1, int(nb_files))
+        self.reads = 0
         self._procs: set = set()
 
     def _spawn_generator(self, cmd: str):
@@ -321,14 +387,16 @@ class SequenceChunker:
 
     def _streams(self):
         """(stream, generator child or None) per input: the files, the
-        SAM/BAM files as FASTA/FASTQ, then the generators' outputs. Up to nb_generators children run at once
+        SAM/BAM/CRAM files as FASTA/FASTQ, then the generators' outputs.
+        Up to nb_generators children run at once
         (generator_manager.hpp:62-162): later commands start while an
         earlier one's output is read, and the pipe bounds their memory."""
         for path in self.paths:
             yield open_stream(path), None
+        need_quals = self.min_qual is not None
         for path in self.sam_paths:
             f = open_stream(path)
-            yield _IterStream(sam_records_to_fastx(f), f), None
+            yield _IterStream(sam_records_to_fastx(f, need_quals), f), None
         pending: deque = deque()
         cmds = iter(self.generator_cmds)
 
@@ -395,6 +463,7 @@ class SequenceChunker:
                             seq = s.tobytes()
                     else:
                         seq = item
+                    self.reads += 1
                     yield seq
                 completed = True
             finally:
@@ -404,11 +473,134 @@ class SequenceChunker:
                     stream.close()
 
     def chunks(self) -> Iterator[np.ndarray]:
-        """Yield uint8 arrays of exactly chunk_len bytes."""
+        """Yield uint8 arrays of exactly chunk_len bytes: from the native
+        scanner when the library is built (several inputs at once under
+        nb_files > 1), else from the python path. The path is chosen
+        before the first chunk, so that an error after it (a generator
+        that fails, a stream that breaks) is raised, never retried on
+        another path."""
+        if self.chunk_len <= self.k:
+            raise ValueError("chunk_len must exceed k")
+        n_inputs = (len(self.paths) + len(self.sam_paths)
+                    + len(self.generator_cmds))
+        if get_lib() is None:
+            yield from self._chunks_python()
+        elif self.nb_files > 1 and n_inputs > 1:
+            yield from self._chunks_native_concurrent(
+                min(self.nb_files, n_inputs))
+        else:
+            yield from self._chunks_native()
+
+    def _feed(self, nc, stream, proc, stop=None) -> Iterator[np.ndarray]:
+        """Feed one input to the native scanner `nc`, yield each chunk it
+        completes, then close the input (reap a generator child). A set
+        `stop` event abandons the input."""
+        completed = False
+        try:
+            while stop is None or not stop.is_set():
+                data = stream.read(1 << 20)
+                if not data:
+                    yield from nc.end_stream()
+                    completed = True
+                    break
+                yield from nc.feed(data)
+        finally:
+            if proc is not None:
+                self._finish_proc(proc, completed)
+            elif stream is not sys.stdin.buffer:
+                stream.close()
+
+    def _chunks_native(self) -> Iterator[np.ndarray]:
+        nc = NativeChunker(self.k, self.chunk_len, self.min_qual)
+        emitted = False
+        for stream, proc in self._streams():
+            for c in self._feed(nc, stream, proc):
+                emitted = True
+                yield c
+        for c in nc.finish():
+            emitted = True
+            yield c
+        self.reads = nc.reads
+        if not emitted:
+            yield np.full(self.chunk_len, SEPARATOR, dtype=np.uint8)
+
+    def _chunks_native_concurrent(self, n_workers: int
+                                  ) -> Iterator[np.ndarray]:
+        """-F: n_workers threads, each with a native scanner of its own,
+        take the inputs one at a time and parse them at once (the ctypes
+        calls release the GIL; stream_manager.hpp:76-145). Chunks come in
+        the order they complete. A worker's exception stops the others and
+        is raised here once they have ended; when the consumer stops
+        early, the workers stop and the live generator children are
+        terminated."""
+        import queue
+        import threading
+
+        streams = self._streams()
+        q: queue.Queue = queue.Queue(maxsize=4 * n_workers)
+        lock = threading.Lock()
+        stop = threading.Event()
+        state = {"reads": 0, "error": None}
+
+        def worker():
+            try:
+                nc = NativeChunker(self.k, self.chunk_len, self.min_qual)
+                while not stop.is_set():
+                    with lock:
+                        item = next(streams, None)
+                    if item is None:
+                        break
+                    for c in self._feed(nc, *item, stop=stop):
+                        q.put(c)
+                if not stop.is_set():
+                    for c in nc.finish():
+                        q.put(c)
+                with lock:
+                    state["reads"] += nc.reads
+            except BaseException as e:  # re-raised by the consumer
+                with lock:
+                    if state["error"] is None:
+                        state["error"] = e
+                stop.set()
+            finally:
+                q.put(None)
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(n_workers)]
+        for t in threads:
+            t.start()
+        done = 0
+        emitted = False
+        try:
+            while done < n_workers:
+                item = q.get()
+                if item is None:
+                    done += 1
+                    continue
+                emitted = True
+                yield item
+        finally:
+            stop.set()
+            # children still writing would hold a worker in its read
+            for proc in list(self._procs):
+                if proc.poll() is None:
+                    proc.terminate()
+            while any(t.is_alive() for t in threads):
+                try:
+                    q.get(timeout=0.05)  # a worker may wait to put
+                except queue.Empty:
+                    pass
+            with lock:
+                streams.close()
+        if state["error"] is not None:
+            raise state["error"]
+        self.reads = state["reads"]
+        if not emitted:
+            yield np.full(self.chunk_len, SEPARATOR, dtype=np.uint8)
+
+    def _chunks_python(self) -> Iterator[np.ndarray]:
         L = self.chunk_len
         k = self.k
-        if L <= k:
-            raise ValueError("chunk_len must exceed k")
         buf = np.full(L, SEPARATOR, dtype=np.uint8)
         fill = 0
         emitted_any = False

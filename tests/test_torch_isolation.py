@@ -187,6 +187,61 @@ def test_coordinator_and_sam_run_without_jax(tmp_path):
     assert records[0] == records[1]
 
 
+def test_cram_count_with_native_library_runs_without_jax(tmp_path):
+    """count --sam of a CRAM 3.1 file (rANS Nx16 bases, fqzcomp
+    qualities, tok3 names) and -F 2 of two FASTA files, with the native
+    library, in a fresh interpreter: sys.modules holds no jax and nothing
+    of jellyfish_tpu, the library mapped is the port's, under
+    build/jellyfish_tpu_torch/, and no shared object under jellyfish_tpu/
+    is mapped."""
+    import random
+
+    import cram_writer as cw
+
+    rng = random.Random(5)
+    recs = [{"name": b"r%d" % i,
+             "seq": bytes(rng.choices(b"ACGT", k=rng.randrange(40, 120))),
+             "qual": None} for i in range(30)]
+    for r in recs:
+        r["qual"] = bytes(rng.randrange(2, 41) for _ in r["seq"])
+    series = cw.default_series()
+    series["RN"] = cw.ByteArrayStop(0, 6)
+    (tmp_path / "r.cram").write_bytes(cw.simple_cram(
+        recs, series=series, version=(3, 1), block_methods={
+            6: "tok3", 8: "rans16-o1",
+            9: cw.fqz_method([len(r["qual"]) for r in recs])}))
+    for i in range(2):
+        (tmp_path / f"{i}.fa").write_text(
+            ">a\nACGTACGGTACCATGACGTTAGCNACGTAGGCATCGACTAGCATCGA\n")
+    d = str(tmp_path)
+    code = (
+        "import sys\n"
+        "from jellyfish_tpu_torch.cli import main\n"
+        "from jellyfish_tpu_torch.native import LIB_PATH, get_lib\n"
+        "assert get_lib() is not None\n"
+        f"assert main(['count', '-m', '15', '-s', '1k', '-Q', '+', '--sam',"
+        f" {d!r} + '/r.cram', '-o', {d!r} + '/c.jf'], device='cpu') == 0\n"
+        f"assert main(['count', '-m', '11', '-s', '1k', '-F', '2', '-o',"
+        f" {d!r} + '/f.jf', {d!r} + '/0.fa', {d!r} + '/1.fa'],"
+        " device='cpu') == 0\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'jellyfish_tpu'))\n"
+        "assert not bad, bad\n"
+        "maps = [line.split()[-1] for line in open('/proc/self/maps')\n"
+        "        if '.so' in line]\n"
+        "assert str(LIB_PATH) in maps, maps\n"
+        "bad = sorted({m for m in maps if '/jellyfish_tpu/' in m})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "JF_NO_NATIVE")}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert (tmp_path / "c.jf").stat().st_size > 0
+    assert (tmp_path / "f.jf").stat().st_size > 0
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -211,7 +266,10 @@ def test_no_jax_imports_in_sources():
             "jellyfish_tpu_torch/api.py",
             "jellyfish_tpu_torch/memmodel.py",
             "jellyfish_tpu_torch/parallel/sharded.py",
-            "jellyfish_tpu_torch/parallel/multihost.py"} <= names
+            "jellyfish_tpu_torch/parallel/multihost.py",
+            "jellyfish_tpu_torch/io/cram.py",
+            "jellyfish_tpu_torch/io/fqzcomp.py",
+            "jellyfish_tpu_torch/native/__init__.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

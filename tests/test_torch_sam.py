@@ -2,8 +2,8 @@
 against the JAX package: the same chunks and counts from SAM and BAM files,
 with and without -Q; the BAM reader across the JAX package's 4 MB window
 edges; `count --sam` and `fastq2sam` byte for byte, error messages
-included; and CRAM, which the port does not read, raising
-NotPortedError."""
+included; and a truncated CRAM raising the JAX package's error (the CRAM
+reader itself is held to the JAX package in test_torch_cram.py)."""
 
 import struct
 import zlib
@@ -133,9 +133,9 @@ def test_chunks_and_counts_match_jax(inputs, name, min_qual):
 
 
 def test_bam_across_window_edges_matches_jax(tmp_path):
-    """A BAM larger than the JAX package's 4 MB native window, with record
-    boundaries drifting across its edges: the port's per-record loop
-    yields the JAX reader's FASTA/FASTQ bytes."""
+    """A BAM larger than the native parser's 4 MB window, with record
+    boundaries drifting across its edges: the port's reader yields the JAX
+    reader's FASTA/FASTQ bytes."""
     from jellyfish_tpu.io.parse import open_stream as jax_open
     from jellyfish_tpu.io.parse import sam_records_to_fastx as jax_records
 
@@ -244,15 +244,24 @@ def test_fastq2sam_errors_match_jax(tmp_path, capsys, name, body):
 
 
 def test_cram_raises_not_ported(tmp_path):
-    """A CRAM file, read directly or through count --sam, raises
-    NotPortedError naming the roadmap item that will port it."""
+    """CRAM input is ported: a CRAM file, read directly or through count
+    --sam, raises no NotPortedError. A truncated one raises the JAX
+    package's CramError with its message, and so does the CLI."""
+    from jellyfish_tpu.io.parse import sam_records_to_fastx as jax_records
+
+    from jellyfish_tpu_torch.io.cram import CramError
     from jellyfish_tpu_torch.io.parse import sam_records_to_fastx
 
     p = tmp_path / "x.cram"
     p.write_bytes(b"CRAM" + b"\x03\x01" + b"\x00" * 30)
-    with open(p, "rb") as f, pytest.raises(NotPortedError, match="A4"):
+    with open(p, "rb") as f, pytest.raises(CramError) as got:
         list(sam_records_to_fastx(f))
-    with pytest.raises(NotPortedError, match="CRAM"):
+    assert not isinstance(got.value, NotPortedError)
+    with open(p, "rb") as f, pytest.raises(ValueError) as want:
+        list(jax_records(f))
+    assert type(want.value).__name__ == "CramError"
+    assert str(got.value) == str(want.value) != ""
+    with pytest.raises(CramError, match="truncated CRAM"):
         torch_main(["count", "-m", "15", "-s", "1k", "--sam", str(p),
                     "-o", str(tmp_path / "o.jf")], device="cpu")
 
