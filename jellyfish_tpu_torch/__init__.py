@@ -21,11 +21,6 @@ from jellyfish_tpu_torch.gf2 import GF2Matrix
 from jellyfish_tpu_torch.mer import MerDNA, string_canonicals, string_mers
 
 
-class NotPortedError(NotImplementedError):
-    """An option or a size whose path jellyfish_tpu_torch does not have
-    yet (the JAX package has it)."""
-
-
 def __getattr__(name):
     # lazily exported, keeping `import jellyfish_tpu_torch` light
     if name in ("HashCounter", "HashSet", "QueryMerFile", "ReadMerFile"):

@@ -22,9 +22,11 @@ weight carried on K3 (kernels/sort.sort_pairs_bitonic, kernel-table rows
 Probe arithmetic in int64. For m a power of two up to 2^32 the positions
 are (h0 + i*h1) & (m - 1) on the hashes' low words, as in the JAX
 package's device path. Otherwise the JAX package takes h0 % m, h1 % m and
-(base + i*inc) % m in uint64; a hash >= 2^63 is negative in int64, so each
-hash is reduced from its 16-bit digits, r = (r * 2^16 + d) % m, which is
-exact for m < 2^47. Larger filters raise NotPortedError.
+(base + i*inc) % m in uint64, the sum and the product wrapping mod 2^64.
+Here int64 tensors hold the same 64-bit patterns (their sums and products
+wrap alike), and `umod` takes the unsigned remainder of a pattern for any
+m < 2^64: a position >= 2^63 comes out negative, as the JAX package's
+uint64 -> int64 cast leaves it.
 
 Batch-exactness (as in the JAX package): cell updates are increment-only
 and saturate at 2, so min(2, cell + sum(increments)) equals any sequential
@@ -38,7 +40,6 @@ import math
 import numpy as np
 import torch
 
-from jellyfish_tpu_torch import NotPortedError
 from jellyfish_tpu_torch.device import resolve_device
 from jellyfish_tpu_torch.gf2 import GF2Matrix
 from jellyfish_tpu_torch.io.header import FileHeader
@@ -49,6 +50,7 @@ from jellyfish_tpu_torch.ops.hashing import gf2_apply_masks, masks_of_matrix
 __all__ = [
     "opt_m",
     "opt_k",
+    "probe_positions",
     "BloomCounter2",
     "BloomFilter",
     "load_count_filter",
@@ -58,7 +60,7 @@ __all__ = [
 
 LOG2 = 0.6931471805599453
 LOG2_SQ = 0.4804530139182014
-MAX_M = 1 << 47  # the digit-wise reduction is exact below this
+_SIGN = -(1 << 63)  # int64 bit pattern of 2^63
 
 
 def opt_m(fp: float, n: int) -> int:
@@ -78,15 +80,40 @@ def _random_hash_pair(k: int, rng: np.random.Generator):
     return m1, m2
 
 
+def _uge(a, b):
+    """Unsigned a >= b of int64 bit patterns (b a tensor or an int)."""
+    return (a ^ _SIGN) >= (b ^ _SIGN)
+
+
+def umod(x, m: int):
+    """x % m for the unsigned 64-bit values whose bit patterns the int64
+    tensor x holds, 1 <= m < 2^64, as bit patterns. For m >= 2^63, x < 2m:
+    one conditional subtraction. Otherwise floor(x / 2) < 2^63 reduces as
+    a signed value, and 2 (floor(x / 2) % m) + (x & 1) < 2m <= 2^64 takes
+    one more."""
+    if m >= 1 << 63:
+        p = m - (1 << 64)  # m's bit pattern
+        return torch.where(_uge(x, p), x - p, x)
+    t = (((x >> 1) & ~_SIGN) % m) * 2 + (x & 1)
+    return torch.where(_uge(t, m), t - m, t)
+
+
 def mod_u64(h, m: int):
     """(lo, hi) 32-bit limbs [..., 2] of unsigned 64-bit values -> value %
-    m as int64, m < 2^47: Horner steps over the four 16-bit digits, each
-    r * 2^16 + d < 2^63."""
-    lo, hi = h[..., 0], h[..., 1]
-    r = torch.zeros_like(lo)
-    for d in (hi >> 16, hi & 0xFFFF, lo >> 16, lo & 0xFFFF):
-        r = ((r << 16) + d) % m
-    return r
+    m, 1 <= m < 2^64, as int64 bit patterns."""
+    return umod(h[..., 0] | (h[..., 1] << 32), m)
+
+
+def probe_positions(h0, h1, m: int, nb_hashes: int):
+    """[nb_hashes, N] int64 probe positions of the hashes h0, h1, (lo, hi)
+    limbs [N, 2], into m cells: the JAX package's (h0 % m + i (h1 % m)) %
+    m in uint64, as bit patterns (bloom_counter2.hpp:60-66); for m a power
+    of two up to 2^32 the same on the low words."""
+    i = torch.arange(nb_hashes, device=h0.device)[:, None]
+    if m & (m - 1) == 0 and m <= 1 << 32:
+        return (h0[None, :, 0] + i * h1[None, :, 0]) & (m - 1)
+    base, inc = mod_u64(h0, m), mod_u64(h1, m)
+    return umod(base[None, :] + i * inc[None, :], m)
 
 
 class _BloomBase:
@@ -95,10 +122,6 @@ class _BloomBase:
 
     def __init__(self, m: int, nb_hashes: int, k: int, m1: GF2Matrix,
                  m2: GF2Matrix, canonical: bool = False, device=None):
-        if m >= MAX_M:
-            raise NotPortedError(
-                f"a Bloom structure of {m} >= 2^47 positions: not yet ported "
-                "to jellyfish_tpu_torch (use python -m jellyfish_tpu)")
         self.m = int(m)
         self.nb_hashes = int(nb_hashes)
         self.k = int(k)
@@ -120,11 +143,7 @@ class _BloomBase:
         from the two matrix products h0, h1, (lo, hi) limbs [N, 2]."""
         mers = self._mers(mers)
         h0, h1 = (gf2_apply_masks(mers, masks, 2) for masks in self._masks)
-        i = torch.arange(self.nb_hashes, device=self.device)[:, None]
-        if self.m & (self.m - 1) == 0 and self.m <= 1 << 32:
-            return (h0[None, :, 0] + i * h1[None, :, 0]) & (self.m - 1)
-        base, inc = mod_u64(h0, self.m), mod_u64(h1, self.m)
-        return (base[None, :] + i * inc[None, :]) % self.m
+        return probe_positions(h0, h1, self.m, self.nb_hashes)
 
 
 class BloomCounter2(_BloomBase):
@@ -276,10 +295,6 @@ def read_bloom_counter(path: str, device=None) -> BloomCounter2:
             raise ValueError(
                 f"invalid format {h.format!r}, expected 'bloomcounter'")
         m = h.size
-        if m >= MAX_M:
-            raise NotPortedError(
-                f"{path}: a Bloom counter of {m} >= 2^47 cells: not yet "
-                "ported to jellyfish_tpu_torch (use python -m jellyfish_tpu)")
         raw = np.frombuffer(f.read(m // 5 + (1 if m % 5 else 0)),
                             dtype=np.uint8)
     dev = resolve_device(device)

@@ -23,7 +23,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jellyfish_tpu_torch import NotPortedError
 from jellyfish_tpu_torch.device import resolve_device
 from jellyfish_tpu_torch.gf2 import GF2Matrix
 from jellyfish_tpu_torch.kernels.merge_path import MAX_KEY_COLS
@@ -114,9 +113,9 @@ class MerCounter:
     (distinct mers [n, W], counts [n]) to new counts, the batch
     equivalent of the reference's filter chain (count_main.cc:99-131).
     pack_resting holds the store's resting runs bit-packed
-    (`count --packed-store`). k above 16 * MAX_KEY_COLS = 112 raises
-    NotPortedError: the kernels take keys of at most MAX_KEY_COLS 32-bit
-    limbs.
+    (`count --packed-store`). Keys of any width run on the kernels, up to
+    kernels/merge_path.MAX_KEY_COLS 32-bit limbs (k <= 116,128); a wider k
+    raises ValueError.
     """
 
     def __init__(
@@ -134,10 +133,10 @@ class MerCounter:
         c = 2 * self.k
         self.W = mw.nwords(c)
         if self.W > MAX_KEY_COLS:
-            raise NotPortedError(
+            raise ValueError(
                 f"k = {self.k}: keys of {self.W} 32-bit limbs, and the "
                 f"kernels take at most {MAX_KEY_COLS} (k <= "
-                f"{16 * MAX_KEY_COLS}); use python -m jellyfish_tpu count"
+                f"{16 * MAX_KEY_COLS})"
             )
         self.device = resolve_device(device)
         # the table size rounds up to a power of two, so the identity

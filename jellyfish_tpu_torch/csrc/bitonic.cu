@@ -17,7 +17,9 @@
 //     network: phase k = 2, 4, ..., T runs steps at distances k/2, ...,
 //     1. A payload is compared after the key, so a row-index payload
 //     makes the order stable. The last tile is padded with INT64_MAX
-//     rows, which sort last, and only its real rows are written.
+//     rows, which sort last, and only its real rows are written. Above
+//     7 columns (k > 112) a wide kernel (wide_sort_kernel, below) sorts
+//     the tile's row numbers instead of the rows held in registers.
 //   jf_block_merge runs only the plain steps at distances T/2, ..., 1 on
 //     each tile, comparing the key and carrying the payload (row 8's
 //     rule): it sorts a tile that is a bitonic sequence, as the pair sort
@@ -351,6 +353,84 @@ tile_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok, int64_t* op,
   }
 }
 
+// -- tiles of wide rows ------------------------------------------------------
+
+// jf_block_sort above kNarrowCols columns (k > 112), where E rows a thread
+// would not fit in registers: one block a tile of T = 2^log_t rows. The
+// tile's rows are staged in shared memory once, at an odd row stride (the
+// rows a warp compares fall on spread banks), and the bitonic network runs
+// on their row numbers: each step, one thread a pair compares the two rows
+// it names in shared memory, from the last column down (the payload last),
+// and swaps the two numbers, not the rows. The rows go out once, in the
+// final order. Row numbers from n on stand for the last tile's pad rows,
+// which sort after every real row, as INT64_MAX rows do.
+__host__ __device__ inline int wide_stride(int wk) { return wk | 1; }
+
+__host__ __device__ inline size_t wide_tile_bytes(int wk, bool pay,
+                                                  int log_t) {
+  return ((size_t)(wide_stride(wk) + (pay ? 1 : 0)) * 8 + 4) << log_t;
+}
+
+template <bool PAY>
+__global__ void __launch_bounds__(1024, 1)
+wide_sort_kernel(const int64_t* __restrict__ ik,
+                 const int64_t* __restrict__ ip, int64_t* __restrict__ ok,
+                 int64_t* __restrict__ op, int64_t m, int wk, int log_t) {
+  extern __shared__ __align__(16) int64_t s[];
+  const int t_rows = 1 << log_t;
+  const int rs = wide_stride(wk);
+  int64_t* s_pay = s + (size_t)rs * t_rows;
+  int* s_idx = reinterpret_cast<int*>(s_pay + (PAY ? t_rows : 0));
+  const int64_t base = (int64_t)blockIdx.x << log_t;
+  const int n = (int)(m - base < t_rows ? m - base : t_rows);
+
+  for (int g = threadIdx.x; g < n * wk; g += blockDim.x) {
+    const int r = g / wk;
+    s[r * rs + (g - r * wk)] = ik[base * wk + g];
+  }
+  if constexpr (PAY) {
+    for (int r = threadIdx.x; r < n; r += blockDim.x) s_pay[r] = ip[base + r];
+  }
+  for (int r = threadIdx.x; r < t_rows; r += blockDim.x) s_idx[r] = r;
+  __syncthreads();
+
+  // row a strictly before row b
+  auto before = [&](int a, int b) {
+    if (a >= n) return false;
+    if (b >= n) return true;
+    const int64_t* x = s + a * rs;
+    const int64_t* y = s + b * rs;
+    for (int w = wk - 1; w >= 0; --w) {
+      if (x[w] != y[w]) return x[w] < y[w];
+    }
+    return PAY && s_pay[a] < s_pay[b];
+  };
+  for (int k = 2; k <= t_rows; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int p = threadIdx.x; p < t_rows / 2; p += blockDim.x) {
+        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+        const int a = s_idx[i], b = s_idx[i + j];
+        // ascending in the k-row blocks whose bit k is clear
+        if ((i & k) ? before(a, b) : before(b, a)) {
+          s_idx[i] = b;
+          s_idx[i + j] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int g = threadIdx.x; g < n * wk; g += blockDim.x) {
+    const int r = g / wk;
+    ok[base * wk + g] = s[s_idx[r] * rs + (g - r * wk)];
+  }
+  if constexpr (PAY) {
+    for (int r = threadIdx.x; r < n; r += blockDim.x) {
+      op[base + r] = s_pay[s_idx[r]];
+    }
+  }
+}
+
 // -- one step in device memory ----------------------------------------------
 
 // position x as read through the transpose of its 128 x 128 block
@@ -551,6 +631,27 @@ int group_wk(const void* keys, const void* pay, void* out_keys,
                                   mirror, s);
 }
 
+int launch_wide_sort(const void* keys, const void* pay, void* out_keys,
+                     void* out_pay, int64_t m, int wk, int log_t,
+                     cudaStream_t s) {
+  const size_t bytes = wide_tile_bytes(wk, pay != nullptr, log_t);
+  if (bytes > (size_t)kSharedBytes) return (int)cudaErrorInvalidValue;
+  auto kernel = pay ? wide_sort_kernel<true> : wide_sort_kernel<false>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t blocks = (m + ((int64_t)1 << log_t) - 1) >> log_t;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int half = (1 << log_t) / 2;
+  const int threads = half < 32 ? 32 : (half > 1024 ? 1024 : half);
+  if (blocks > 0) {
+    kernel<<<(unsigned)blocks, threads, bytes, s>>>(
+        (const int64_t*)keys, (const int64_t*)pay, (int64_t*)out_keys,
+        (int64_t*)out_pay, m, wk, log_t);
+  }
+  return (int)cudaGetLastError();
+}
+
 using TileFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
                        cudaStream_t);
 using StepFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
@@ -574,13 +675,17 @@ constexpr GroupWkFn kGroup[] = {
 }  // namespace
 
 // Sort each tile of 2^log_t rows; the tile, (wk + payload) * 8 bytes a
-// row, must fit in 96 KiB. pay and out_pay NULL: keys only; a payload is
-// compared after the key.
+// row, must fit in 96 KiB up to 7 columns; above (any width), with its
+// row numbers at the wide kernel's row stride, in 227 KB
+// (kernels/bitonic.py tile_rows). pay and out_pay NULL: keys only; a
+// payload is compared after the key.
 extern "C" int jf_block_sort(const void* keys, const void* pay,
                              void* out_keys, void* out_pay, int64_t m, int wk,
                              int log_t, void* stream) {
-  if (wk < 1 || wk > 7 || log_t < 0 || log_t > 16) {
-    return (int)cudaErrorInvalidValue;
+  if (wk < 1 || log_t < 0 || log_t > 16) return (int)cudaErrorInvalidValue;
+  if (wk > kNarrowCols) {
+    return launch_wide_sort(keys, pay, out_keys, out_pay, m, wk, log_t,
+                            (cudaStream_t)stream);
   }
   return kSort[wk](keys, pay, out_keys, out_pay, m, log_t,
                    (cudaStream_t)stream);
@@ -588,11 +693,12 @@ extern "C" int jf_block_sort(const void* keys, const void* pay,
 
 // The plain steps at distances 2^(log_t - 1), ..., 1 on each tile of
 // 2^log_t rows (m a multiple of it; the tile as for jf_block_sort); the
-// key is compared and a payload carried.
+// key is compared and a payload carried. Keys of up to 7 columns, as for
+// jf_exchange and jf_exchange_group: the pair sort's rows have 1-2.
 extern "C" int jf_block_merge(const void* keys, const void* pay,
                               void* out_keys, void* out_pay, int64_t m,
                               int wk, int log_t, void* stream) {
-  if (wk < 1 || wk > 7 || log_t < 0 || log_t > 16) {
+  if (wk < 1 || wk > kNarrowCols || log_t < 0 || log_t > 16) {
     return (int)cudaErrorInvalidValue;
   }
   return kMerge[wk](keys, pay, out_keys, out_pay, m, log_t,
@@ -606,7 +712,8 @@ extern "C" int jf_block_merge(const void* keys, const void* pay,
 extern "C" int jf_exchange(const void* keys, const void* pay, void* out_keys,
                            void* out_pay, int64_t m, int wk, int log_d,
                            int mode, int transpose, void* stream) {
-  if (wk < 1 || wk > 7 || log_d < 0 || log_d > 62 || mode < 0 || mode > 2) {
+  if (wk < 1 || wk > kNarrowCols || log_d < 0 || log_d > 62 || mode < 0 ||
+      mode > 2) {
     return (int)cudaErrorInvalidValue;
   }
   return kStep[wk](keys, pay, out_keys, out_pay, m, log_d, mode, transpose,
@@ -628,7 +735,8 @@ extern "C" int jf_exchange_group(const void* keys, const void* pay,
                                  void* out_keys, void* out_pay, int64_t m,
                                  int wk, int log_s, int g, int mirror,
                                  void* stream) {
-  if (wk < 1 || wk > 7 || log_s < 0 || g < 2 || g > 4 || log_s + g > 62) {
+  if (wk < 1 || wk > kNarrowCols || log_s < 0 || g < 2 || g > 4 ||
+      log_s + g > 62) {
     return (int)cudaErrorInvalidValue;
   }
   return kGroup[wk](keys, pay, out_keys, out_pay, m, log_s, g, mirror,

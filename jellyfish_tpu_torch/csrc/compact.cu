@@ -28,9 +28,14 @@
 //     warp, shared memory adds the ranks of the warps before it, and the
 //     row is written at tile offset + running total + rank. Neighbouring
 //     kept rows land on neighbouring addresses, so the stores coalesce.
+// The scatter has an instance for each key width of 1-7 columns, and one
+// wide instance (WK = 0, rows.cuh) that reads the width at run time, for
+// keys of any width above (k > 112).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -71,13 +76,21 @@ compact_scatter_kernel(const int64_t* __restrict__ keys,
                        const uint8_t* __restrict__ keep, int64_t m,
                        const int64_t* __restrict__ tile_off,
                        int64_t* __restrict__ out_keys,
-                       int64_t* __restrict__ out_cnt) {
+                       int64_t* __restrict__ out_cnt, int wk) {
+  const int W = width<WK>(wk);
   __shared__ int s_warp[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
   const int64_t row0 = (int64_t)blockIdx.x * kTile;
   int64_t base = tile_off[blockIdx.x];
+  // The wide instance (WK = 0) is not unrolled: its rounds copy rows in a
+  // loop of run-time length. The narrow ones run two rounds at a time,
+  // which gives the ptxas report (8 and 16 bytes spilled in <1, false> and
+  // <3, true>) and the device times of their build before the wide
+  // instance was added (kernel_ab.py); one round at a time, or 4 to 16,
+  // the keep-mask instance at Wk 1 ran 2-16% slower.
+#pragma unroll (WK == 0 ? 1 : 2)
   for (int r = 0; r < kTile; r += kThreads) {
     const int64_t i = row0 + r + threadIdx.x;
     const int64_t c = i < m ? cnt[i] : 0;
@@ -96,7 +109,7 @@ compact_scatter_kernel(const int64_t* __restrict__ keys,
       const int64_t o = base + before + __popc(ballot & below);
       out_cnt[o] = c;
 #pragma unroll
-      for (int w = 0; w < WK; ++w) out_keys[o * WK + w] = keys[i * WK + w];
+      for (int w = 0; w < W; ++w) out_keys[o * W + w] = keys[i * W + w];
     }
     base += total;
     __syncthreads();  // s_warp is rewritten by the next round
@@ -105,7 +118,7 @@ compact_scatter_kernel(const int64_t* __restrict__ keys,
 
 template <int WK>
 int scatter(const void* keys, const void* cnt, const void* keep, int64_t m,
-            const void* tile_off, void* out_keys, void* out_cnt,
+            const void* tile_off, void* out_keys, void* out_cnt, int wk,
             cudaStream_t s) {
   const int64_t tiles = (m + kTile - 1) / kTile;
   if (tiles > 0) {
@@ -113,10 +126,18 @@ int scatter(const void* keys, const void* cnt, const void* keep, int64_t m,
                                   : compact_scatter_kernel<WK, false>;
     kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
         (const int64_t*)keys, (const int64_t*)cnt, (const uint8_t*)keep, m,
-        (const int64_t*)tile_off, (int64_t*)out_keys, (int64_t*)out_cnt);
+        (const int64_t*)tile_off, (int64_t*)out_keys, (int64_t*)out_cnt, wk);
   }
   return (int)cudaGetLastError();
 }
+
+using ScatterFn = int (*)(const void*, const void*, const void*, int64_t,
+                          const void*, void*, void*, int, cudaStream_t);
+// index wk for wk <= kNarrowCols, 0 (the wide instance) above
+constexpr ScatterFn kScatter[] = {scatter<0>, scatter<1>, scatter<2>,
+                                  scatter<3>, scatter<4>, scatter<5>,
+                                  scatter<6>, scatter<7>};
+static_assert(sizeof(kScatter) / sizeof(kScatter[0]) == kNarrowCols + 1);
 
 }  // namespace
 
@@ -135,27 +156,14 @@ extern "C" int jf_compact_count(const void* cnt, const void* keep, int64_t m,
   return (int)cudaGetLastError();
 }
 
-// tile_off: exclusive scan of tile_n; out_* hold exactly the kept rows
+// tile_off: exclusive scan of tile_n; out_* hold exactly the kept rows;
+// any key width wk >= 1
 extern "C" int jf_compact_scatter(const void* keys, const void* cnt,
                                   const void* keep, int64_t m,
                                   const void* tile_off, void* out_keys,
                                   void* out_cnt, int wk, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (wk) {
-    case 1:
-      return scatter<1>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
-    case 2:
-      return scatter<2>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
-    case 3:
-      return scatter<3>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
-    case 4:
-      return scatter<4>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
-    case 5:
-      return scatter<5>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
-    case 6:
-      return scatter<6>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
-    case 7:
-      return scatter<7>(keys, cnt, keep, m, tile_off, out_keys, out_cnt, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (wk < 1) return (int)cudaErrorInvalidValue;
+  return kScatter[wk <= kNarrowCols ? wk : 0](keys, cnt, keep, m, tile_off,
+                                              out_keys, out_cnt, wk,
+                                              (cudaStream_t)stream);
 }

@@ -30,7 +30,7 @@
 //     tile boundary, so every search is in flight at once and each boundary
 //     is searched once, where merge_tile's blocks wait on two dependent
 //     chains of loads and search every boundary twice;
-//   - a block owns tiles of 1,280-4,352 output rows (PassTile: 5-17 rows a
+//   - a block owns tiles of 1,280-4,352 output rows (pass_rows: 5-17 rows a
 //     thread, so a thread's search in shared memory serves many rows) and
 //     loops over them, one or two blocks resident on each SM;
 //   - a tile's A and B windows are contiguous byte ranges, staged with
@@ -41,6 +41,14 @@
 // What the TPU version needed and this one does not: the 1024-element split
 // quantum, the pre-reversed B stream and the bitonic merger (Mosaic
 // workarounds, pallas_merge_probe.py:3-15).
+//
+// Keys of any width (k > 112): each entry has template instances for 1-7
+// columns and one wide instance (WK = 0) that reads the width at run time
+// and runs above 7 columns. Its rows are compared by a loop over the
+// columns; jf_merge_path stages its tile (512 rows, fewer once that many
+// would overflow shared memory) in dynamic shared memory; jf_merge_pass
+// takes tiles of 5, 3 or 1 rows a thread, or of fewer rows than threads,
+// whichever is the largest whose two stages fit in 227 KB (pass_rows).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,17 +66,29 @@ struct Tile {
   static constexpr int kRows = kThreads * kItems;
 };
 
+// The wide instance's tile: up to 512 rows, fewer where rows of wk
+// columns (with their count and source row) would overflow shared memory.
+__host__ __device__ inline int wide_merge_rows(int wk) {
+  const int64_t r = (kSharedBytes - 16) / ((int64_t)wk * 8 + 12);
+  return r < 2 * kThreads ? (int)r : 2 * kThreads;
+}
+
+__host__ __device__ inline size_t wide_merge_bytes(int wk) {
+  return 16 + (size_t)wide_merge_rows(wk) * ((size_t)wk * 8 + 12);
+}
+
 // Number of A rows among the first `diag` outputs of the stable merge:
 // the first i with A[i] > B[diag - 1 - i] (A[i] <= B[j] means A[i] goes
 // first, which is what keeps A's rows ahead on ties).
 template <int WK, typename I>
 __device__ __forceinline__ I split(const int64_t* a, I na, const int64_t* b,
-                                   I nb, I diag) {
+                                   I nb, I diag, int wk) {
+  const int W = width<WK>(wk);
   I lo = diag > nb ? diag - nb : 0;
   I hi = diag < na ? diag : na;
   while (lo < hi) {
     I mid = (lo + hi) >> 1;
-    if (row_le<WK>(a + mid * WK, b + (diag - 1 - mid) * WK)) {
+    if (row_le<WK>(a + mid * W, b + (diag - 1 - mid) * W, wk)) {
       lo = mid + 1;
     } else {
       hi = mid;
@@ -77,25 +97,22 @@ __device__ __forceinline__ I split(const int64_t* a, I na, const int64_t* b,
   return lo;
 }
 
-// Output rows [d0, d0 + kRows) of the stable merge of A and B (clipped to
-// na + nb). ac, bc and oc are the counts.
+// Output rows [d0, d0 + rows) of the stable merge of A and B (clipped to
+// na + nb), `items` a thread (rows <= kThreads * items). ac, bc and oc are
+// the counts; s_* the block's shared memory.
 template <int WK>
 __device__ __forceinline__ void merge_tile(
     const int64_t* __restrict__ ak, const int64_t* __restrict__ ac, int64_t na,
     const int64_t* __restrict__ bk, const int64_t* __restrict__ bc, int64_t nb,
-    int64_t* __restrict__ ok, int64_t* __restrict__ oc, int64_t d0) {
-  constexpr int kItems = Tile<WK>::kItems;
-  constexpr int kRows = Tile<WK>::kRows;
-  __shared__ int64_t s_key[kRows * WK];
-  __shared__ int64_t s_cnt[kRows];
-  __shared__ int s_src[kRows];
-  __shared__ int64_t s_split[2];
-
+    int64_t* __restrict__ ok, int64_t* __restrict__ oc, int64_t d0, int wk,
+    int rows, int items, int64_t* s_key, int64_t* s_cnt, int* s_src,
+    int64_t* s_split) {
+  const int W = width<WK>(wk);
   const int64_t total = na + nb;
-  const int64_t d1 = d0 + kRows < total ? d0 + kRows : total;
+  const int64_t d1 = d0 + rows < total ? d0 + rows : total;
   if (threadIdx.x < 2) {
     s_split[threadIdx.x] =
-        split<WK, int64_t>(ak, na, bk, nb, threadIdx.x ? d1 : d0);
+        split<WK, int64_t>(ak, na, bk, nb, threadIdx.x ? d1 : d0, wk);
   }
   __syncthreads();
   const int64_t a0 = s_split[0];
@@ -105,60 +122,106 @@ __device__ __forceinline__ void merge_tile(
   const int nB = n - nA;
 
   // A's window at rows [0, nA), B's at [nA, n)
-  for (int i = threadIdx.x; i < nA * WK; i += kThreads) s_key[i] = ak[a0 * WK + i];
-  for (int i = threadIdx.x; i < nB * WK; i += kThreads) s_key[nA * WK + i] = bk[b0 * WK + i];
+  for (int i = threadIdx.x; i < nA * W; i += kThreads) {
+    s_key[i] = ak[a0 * W + i];
+  }
+  for (int i = threadIdx.x; i < nB * W; i += kThreads) {
+    s_key[nA * W + i] = bk[b0 * W + i];
+  }
   for (int i = threadIdx.x; i < nA; i += kThreads) s_cnt[i] = ac[a0 + i];
   for (int i = threadIdx.x; i < nB; i += kThreads) s_cnt[nA + i] = bc[b0 + i];
   __syncthreads();
 
   const int64_t* sa = s_key;
-  const int64_t* sb = s_key + nA * WK;
-  const int diag = min((int)threadIdx.x * kItems, n);
-  int i = split<WK, int>(sa, nA, sb, nB, diag);
+  const int64_t* sb = s_key + nA * W;
+  const int diag = min((int)threadIdx.x * items, n);
+  int i = split<WK, int>(sa, nA, sb, nB, diag, wk);
   int j = diag - i;
-  const int end = min(diag + kItems, n);
+  const int end = min(diag + items, n);
   for (int p = diag; p < end; ++p) {
-    const bool take_a = j >= nB || (i < nA && row_le<WK>(sa + i * WK, sb + j * WK));
+    const bool take_a =
+        j >= nB || (i < nA && row_le<WK>(sa + i * W, sb + j * W, wk));
     s_src[p] = take_a ? i++ : nA + j++;
   }
   __syncthreads();
 
   for (int p = threadIdx.x; p < n; p += kThreads) oc[d0 + p] = s_cnt[s_src[p]];
-  for (int e = threadIdx.x; e < n * WK; e += kThreads) {
-    const int p = e / WK;
-    ok[d0 * WK + e] = s_key[s_src[p] * WK + (e - p * WK)];
+  for (int e = threadIdx.x; e < n * W; e += kThreads) {
+    const int p = e / W;
+    ok[d0 * W + e] = s_key[s_src[p] * W + (e - p * W)];
   }
 }
 
+// WK > 0: the tile's rows in static shared memory; WK = 0 (wide): in
+// dynamic shared memory, wide_merge_bytes(wk) of it.
 template <int WK>
 __global__ void __launch_bounds__(kThreads)
 merge_path_kernel(const int64_t* __restrict__ ak, const int64_t* __restrict__ ac,
                   int64_t na, const int64_t* __restrict__ bk,
                   const int64_t* __restrict__ bc, int64_t nb,
-                  int64_t* __restrict__ ok, int64_t* __restrict__ oc) {
-  merge_tile<WK>(ak, ac, na, bk, bc, nb, ok, oc,
-                       (int64_t)blockIdx.x * Tile<WK>::kRows);
+                  int64_t* __restrict__ ok, int64_t* __restrict__ oc, int wk) {
+  if constexpr (WK > 0) {
+    constexpr int kRows = Tile<WK>::kRows;
+    __shared__ int64_t s_key[kRows * WK];
+    __shared__ int64_t s_cnt[kRows];
+    __shared__ int s_src[kRows];
+    __shared__ int64_t s_split[2];
+    merge_tile<WK>(ak, ac, na, bk, bc, nb, ok, oc, (int64_t)blockIdx.x * kRows,
+                   WK, kRows, Tile<WK>::kItems, s_key, s_cnt, s_src, s_split);
+  } else {
+    extern __shared__ __align__(16) int64_t smem[];
+    const int rows = wide_merge_rows(wk);
+    int64_t* s_cnt = smem + 2;
+    int64_t* s_key = s_cnt + rows;
+    merge_tile<0>(ak, ac, na, bk, bc, nb, ok, oc, (int64_t)blockIdx.x * rows,
+                  wk, rows, (rows + kThreads - 1) / kThreads, s_key, s_cnt,
+                  reinterpret_cast<int*>(s_key + (size_t)rows * wk), smem);
+  }
 }
 
 // -- the merge sort's pass ----------------------------------------------------
 
-// A pass tile: kRows output rows, kItems a thread. Two stages of a tile's
-// windows (keys, then payload, each with a word of slack at either end for
-// the 16-byte alignment of the copies) and the source row of each output
-// fit in shared memory: 87-194 KB. kItems is odd: where a warp's threads
-// walk one run in step (a run of equal rows, such as the PAD rows), their
-// rows lie kItems * WK words apart, which spreads them over the banks
-// where an even stride would put most on one bank.
-template <int WK, bool PAY>
-struct PassTile {
-  static constexpr int kCols = WK + PAY;
-  static constexpr int kItems = kCols <= 2 ? 17 : (kCols <= 5 ? 9 : 5);
-  static constexpr int kRows = kThreads * kItems;
-  static constexpr int kKeyWords = kRows * WK + 4;
-  static constexpr int kStageWords = kKeyWords + (PAY ? kRows + 4 : 0);
-  static constexpr size_t kBytes =
-      2 * kStageWords * sizeof(int64_t) + kRows * sizeof(int);
+// A pass tile: `rows` output rows, `items` a thread. Two stages of a
+// tile's windows (keys, then payload, each with a word of slack at either
+// end for the 16-byte alignment of the copies) and the source row of each
+// output fit in shared memory: `bytes`, 87-227 KB. The narrow instances'
+// items are odd: where a warp's threads walk one run in step (a run of
+// equal rows, such as the PAD rows), their rows lie items * WK words
+// apart, which spreads them over the banks where an even stride would put
+// most on one bank.
+struct PassShape {
+  int items, rows, key_words, stage_words;
+  int64_t bytes;
 };
+
+__host__ __device__ constexpr PassShape pass_shape(int rows, int wk,
+                                                   bool pay) {
+  const int64_t key_words = (int64_t)rows * wk + 4;
+  const int64_t stage_words = key_words + (pay ? rows + 4 : 0);
+  return PassShape{(rows + kThreads - 1) / kThreads, rows, (int)key_words,
+                   (int)stage_words,
+                   2 * stage_words * 8 + (int64_t)rows * 4};
+}
+
+// The tile rows of a pass over rows of wk key columns (and a payload),
+// kernels/merge_path.py pass_tile_rows: 256 threads of 17, 9 or 5 rows up
+// to 7 columns; above, the most odd rows a thread of 5, 3 and 1 that fit,
+// else the most even rows below 256 (tiles start at even rows, for the
+// 16-byte stores of merge_staged); fewer than 2 rows: the width is too
+// wide.
+__host__ __device__ constexpr int pass_rows(int wk, bool pay) {
+  const int cols = wk + (pay ? 1 : 0);
+  if (wk <= kNarrowCols) {
+    return kThreads * (cols <= 2 ? 17 : (cols <= 5 ? 9 : 5));
+  }
+  for (int items = 5; items >= 1; items -= 2) {
+    if (pass_shape(kThreads * items, wk, pay).bytes <= kSharedBytes) {
+      return kThreads * items;
+    }
+  }
+  const int64_t fixed = 16 * (4 + (pay ? 4 : 0));
+  return (int)((kSharedBytes - fixed) / (16 * (int64_t)cols + 4)) & ~1;
+}
 
 // The pairs of one pass: pair p holds rows [2 p run, 2 p run + 2 run) of
 // the array (run <= m), A its first run rows; `steps` tiles serve a pair.
@@ -178,16 +241,17 @@ struct Pairs {
 template <int WK>
 __global__ void __launch_bounds__(kThreads)
 splits_kernel(const int64_t* __restrict__ keys, Pairs pr, int64_t tile,
-              int64_t entries, int64_t* __restrict__ splits) {
+              int64_t entries, int64_t* __restrict__ splits, int wk) {
+  const int W = width<WK>(wk);
   const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (e >= entries) return;
   const int64_t pair = e / (pr.steps + 1);
   int64_t base, na, nb;
   pr.of(pair, base, na, nb);
   const int64_t d = (e - pair * (pr.steps + 1)) * tile;
-  splits[e] = split<WK, int64_t>(keys + base * WK, na,
-                                 keys + (base + na) * WK, nb,
-                                 d < na + nb ? d : na + nb);
+  splits[e] = split<WK, int64_t>(keys + base * W, na,
+                                 keys + (base + na) * W, nb,
+                                 d < na + nb ? d : na + nb, wk);
 }
 
 __device__ __forceinline__ void cp_async16(int64_t* dst, const int64_t* src) {
@@ -231,67 +295,81 @@ struct Win {
   int ka, kb, pa, pb;
 };
 
+// The shape of the pass's tiles: the instance's own (WK > 0), else the
+// one the launcher computed for wk.
+template <int WK, bool PAY>
+__device__ __forceinline__ PassShape shape_of(const PassShape& wide) {
+  if constexpr (WK > 0) {
+    constexpr PassShape s = pass_shape(pass_rows(WK, PAY), WK, PAY);
+    return s;
+  } else {
+    return wide;
+  }
+}
+
 // Tile t of the pass from its splits s0, s1, with its copies started into
 // stage `st` (committed as one group).
 template <int WK, bool PAY>
 __device__ __forceinline__ Win start_tile(const Pairs& pr, int64_t t,
                                           int64_t s0, int64_t s1,
                                           const int64_t* ik, const int64_t* ip,
-                                          int64_t* st) {
-  using P = PassTile<WK, PAY>;
+                                          int64_t* st, const PassShape& P,
+                                          int wk) {
+  const int W = width<WK>(wk);
   const int64_t pair = t / pr.steps;
-  const int64_t d0 = (t - pair * pr.steps) * P::kRows;
+  const int64_t d0 = (t - pair * pr.steps) * P.rows;
   int64_t base, na, nb;
   pr.of(pair, base, na, nb);
-  const int64_t d1 = d0 + P::kRows < na + nb ? d0 + P::kRows : na + nb;
+  const int64_t d1 = d0 + P.rows < na + nb ? d0 + P.rows : na + nb;
   Win w;
   w.a = base + s0;
   w.b = base + na + (d0 - s0);
   w.o = base + d0;
   w.na = (int)(s1 - s0);
   w.nb = d1 > d0 ? (int)(d1 - d0) - w.na : 0;
-  w.ka = stage(st, ik + w.a * WK, w.na * WK, 0);
-  const int rb = (w.ka + w.na * WK + 1) & ~1;
-  w.kb = rb + stage(st + rb, ik + w.b * WK, w.nb * WK, 2);
+  w.ka = stage(st, ik + w.a * W, w.na * W, 0);
+  const int rb = (w.ka + w.na * W + 1) & ~1;
+  w.kb = rb + stage(st + rb, ik + w.b * W, w.nb * W, 2);
   if constexpr (PAY) {
-    int64_t* sp = st + P::kKeyWords;
-    w.pa = P::kKeyWords + stage(sp, ip + w.a, w.na, 4);
-    const int rp = (w.pa - P::kKeyWords + w.na + 1) & ~1;
-    w.pb = P::kKeyWords + rp + stage(sp + rp, ip + w.b, w.nb, 6);
+    int64_t* sp = st + P.key_words;
+    w.pa = P.key_words + stage(sp, ip + w.a, w.na, 4);
+    const int rp = (w.pa - P.key_words + w.na + 1) & ~1;
+    w.pb = P.key_words + rp + stage(sp + rp, ip + w.b, w.nb, 6);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   return w;
 }
 
-// Merges the staged tile (each thread kItems outputs from its own split in
-// shared memory, recording the source row) and writes it out, 16 bytes a
-// thread a store.
+// Merges the staged tile (each thread `items` outputs from its own split
+// in shared memory, recording the source row) and writes it out, 16 bytes
+// a thread a store.
 template <int WK, bool PAY>
 __device__ __forceinline__ void merge_staged(const int64_t* st, const Win& w,
                                              int* s_src, int64_t* ok,
-                                             int64_t* op) {
-  constexpr int kItems = PassTile<WK, PAY>::kItems;
+                                             int64_t* op, int items, int wk) {
+  const int W = width<WK>(wk);
   const int na = w.na, nb = w.nb, n = na + nb;
   const int64_t* sa = st + w.ka;
   const int64_t* sb = st + w.kb;
-  const int diag = min((int)threadIdx.x * kItems, n);
-  int i = split<WK, int>(sa, na, sb, nb, diag);
+  const int diag = min((int)threadIdx.x * items, n);
+  int i = split<WK, int>(sa, na, sb, nb, diag, wk);
   int j = diag - i;
-  const int end = min(diag + kItems, n);
+  const int end = min(diag + items, n);
   for (int p = diag; p < end; ++p) {
-    const bool take_a = j >= nb || (i < na && row_le<WK>(sa + i * WK, sb + j * WK));
+    const bool take_a =
+        j >= nb || (i < na && row_le<WK>(sa + i * W, sb + j * W, wk));
     s_src[p] = take_a ? i++ : na + j++;
   }
   __syncthreads();
 
   // output rows start at an even row (tiles and pairs hold even row
   // counts), so at a 16-byte boundary
-  const int words = n * WK;
-  int64_t* out = ok + w.o * WK;
+  const int words = n * W;
+  int64_t* out = ok + w.o * W;
   auto key = [&](int e) {
-    const int p = e / WK;
+    const int p = e / W;
     const int r = s_src[p];
-    return st[(r < na ? w.ka + r * WK : w.kb + (r - na) * WK) + e - p * WK];
+    return st[(r < na ? w.ka + r * W : w.kb + (r - na) * W) + e - p * W];
   };
   for (int c = threadIdx.x; 2 * c + 1 < words; c += kThreads) {
     reinterpret_cast<longlong2*>(out)[c] = make_longlong2(key(2 * c), key(2 * c + 1));
@@ -312,15 +390,17 @@ __device__ __forceinline__ void merge_staged(const int64_t* st, const Win& w,
 
 // The pairs' tiles t = blockIdx.x, blockIdx.x + gridDim.x, ...: the
 // block's k-th tile merges in stage k mod 2 while the next one's copies
-// fill the other stage. Each tile's splits are read a tile ahead.
+// fill the other stage. Each tile's splits are read a tile ahead. `wide`
+// is the wide instance's shape (WK = 0), unread by the others.
 template <int WK, bool PAY>
 __global__ void __launch_bounds__(kThreads, 2)
 pass_kernel(const int64_t* __restrict__ ik, const int64_t* __restrict__ ip,
             Pairs pr, const int64_t* __restrict__ splits, int64_t tiles,
-            int64_t* __restrict__ ok, int64_t* __restrict__ op) {
-  using P = PassTile<WK, PAY>;
+            int64_t* __restrict__ ok, int64_t* __restrict__ op, int wk,
+            PassShape wide) {
+  const PassShape P = shape_of<WK, PAY>(wide);
   extern __shared__ __align__(16) int64_t smem[];
-  int* s_src = reinterpret_cast<int*>(smem + 2 * P::kStageWords);
+  int* s_src = reinterpret_cast<int*>(smem + 2 * P.stage_words);
   const int64_t step = gridDim.x;
   int64_t t = blockIdx.x;
   if (t >= tiles) return;
@@ -334,7 +414,7 @@ pass_kernel(const int64_t* __restrict__ ik, const int64_t* __restrict__ ip,
   };
   int64_t s0, s1, n0 = 0, n1 = 0;
   splits_of(t, s0, s1);
-  Win w = start_tile<WK, PAY>(pr, t, s0, s1, ik, ip, smem);
+  Win w = start_tile<WK, PAY>(pr, t, s0, s1, ik, ip, smem, P, wk);
   splits_of(t + step, n0, n1);
   for (int buf = 0;; buf ^= 1) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -344,10 +424,11 @@ pass_kernel(const int64_t* __restrict__ ik, const int64_t* __restrict__ ip,
     Win wn;
     if (next < tiles) {
       wn = start_tile<WK, PAY>(pr, next, n0, n1, ik, ip,
-                               smem + (buf ^ 1) * P::kStageWords);
+                               smem + (buf ^ 1) * P.stage_words, P, wk);
       splits_of(next + step, n0, n1);
     }
-    merge_staged<WK, PAY>(smem + buf * P::kStageWords, w, s_src, ok, op);
+    merge_staged<WK, PAY>(smem + buf * P.stage_words, w, s_src, ok, op,
+                          P.items, wk);
     if (next >= tiles) break;
     t = next;
     w = wn;
@@ -356,16 +437,27 @@ pass_kernel(const int64_t* __restrict__ ik, const int64_t* __restrict__ ip,
 
 // -- launchers ----------------------------------------------------------------
 
+// Each launcher takes the key width wk: its instance's own (WK > 0), or
+// the wide instance's (WK = 0), read at run time.
 template <int WK>
 int launch_merge(const void* ak, const void* ac, int64_t na, const void* bk,
-                 const void* bc, int64_t nb, void* ok, void* oc,
+                 const void* bc, int64_t nb, void* ok, void* oc, int wk,
                  cudaStream_t s) {
   const int64_t total = na + nb;
+  const int rows = WK > 0 ? Tile<WK>::kRows : wide_merge_rows(wk);
+  const size_t bytes = WK > 0 ? 0 : wide_merge_bytes(wk);
+  if constexpr (WK == 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        merge_path_kernel<WK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (total > 0) {
-    const int64_t blocks = (total + Tile<WK>::kRows - 1) / Tile<WK>::kRows;
-    merge_path_kernel<WK><<<(unsigned)blocks, kThreads, 0, s>>>(
+    const int64_t blocks = (total + rows - 1) / rows;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    merge_path_kernel<WK><<<(unsigned)blocks, kThreads, bytes, s>>>(
         (const int64_t*)ak, (const int64_t*)ac, na, (const int64_t*)bk,
-        (const int64_t*)bc, nb, (int64_t*)ok, (int64_t*)oc);
+        (const int64_t*)bc, nb, (int64_t*)ok, (int64_t*)oc, wk);
   }
   return (int)cudaGetLastError();
 }
@@ -381,7 +473,7 @@ Pairs pairs_of(int64_t m, int64_t run, int64_t tile, int64_t* pairs) {
 
 template <int WK>
 int launch_splits(const void* keys, int64_t m, int64_t run, int64_t tile,
-                  void* splits, cudaStream_t s) {
+                  void* splits, int wk, cudaStream_t s) {
   if (m > 0) {
     int64_t pairs;
     const Pairs pr = pairs_of(m, run, tile, &pairs);
@@ -389,23 +481,23 @@ int launch_splits(const void* keys, int64_t m, int64_t run, int64_t tile,
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
     splits_kernel<WK><<<(unsigned)blocks, kThreads, 0, s>>>(
         (const int64_t*)keys, pr, tile, pairs * (pr.steps + 1),
-        (int64_t*)splits);
+        (int64_t*)splits, wk);
   }
   return (int)cudaGetLastError();
 }
 
 template <int WK, bool PAY>
 int launch_tiles(const void* keys, const void* pay, int64_t m, int64_t run,
-                 const void* splits, void* out_keys, void* out_pay,
+                 const void* splits, void* out_keys, void* out_pay, int wk,
                  cudaStream_t s) {
-  using P = PassTile<WK, PAY>;
+  const PassShape P = pass_shape(pass_rows(wk, PAY), wk, PAY);
   if (m == 0) return (int)cudaGetLastError();
   int64_t pairs;
-  const Pairs pr = pairs_of(m, run, P::kRows, &pairs);
+  const Pairs pr = pairs_of(m, run, P.rows, &pairs);
   const int64_t tiles = pairs * pr.steps;
   auto kernel = pass_kernel<WK, PAY>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.bytes);
   int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
@@ -413,57 +505,64 @@ int launch_tiles(const void* keys, const void* pay, int64_t m, int64_t run,
   }
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, P::kBytes);
+                                                      kThreads, P.bytes);
   }
   if (e != cudaSuccess) return (int)e;
   const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   const int64_t grid = tiles < resident ? tiles : resident;
-  kernel<<<(unsigned)grid, kThreads, P::kBytes, s>>>(
+  kernel<<<(unsigned)grid, kThreads, P.bytes, s>>>(
       (const int64_t*)keys, (const int64_t*)pay, pr, (const int64_t*)splits,
-      tiles, (int64_t*)out_keys, (int64_t*)out_pay);
+      tiles, (int64_t*)out_keys, (int64_t*)out_pay, wk, P);
   return (int)cudaGetLastError();
 }
 
 template <int WK>
 int launch_pass(const void* keys, const void* pay, int64_t m, int64_t run,
                 int64_t tile, const void* splits, void* out_keys,
-                void* out_pay, cudaStream_t s) {
-  if (tile != (pay ? PassTile<WK, true>::kRows : PassTile<WK, false>::kRows)) {
-    return (int)cudaErrorInvalidValue;
-  }
+                void* out_pay, int wk, cudaStream_t s) {
+  const int rows = pass_rows(wk, pay != nullptr);
+  if (rows < 2 || tile != rows) return (int)cudaErrorInvalidValue;
   return pay ? launch_tiles<WK, true>(keys, pay, m, run, splits, out_keys,
-                                      out_pay, s)
+                                      out_pay, wk, s)
              : launch_tiles<WK, false>(keys, nullptr, m, run, splits,
-                                       out_keys, nullptr, s);
+                                       out_keys, nullptr, wk, s);
 }
 
 using MergeFn = int (*)(const void*, const void*, int64_t, const void*,
-                        const void*, int64_t, void*, void*, cudaStream_t);
-using SplitsFn = int (*)(const void*, int64_t, int64_t, int64_t, void*,
+                        const void*, int64_t, void*, void*, int,
+                        cudaStream_t);
+using SplitsFn = int (*)(const void*, int64_t, int64_t, int64_t, void*, int,
                          cudaStream_t);
 using PassFn = int (*)(const void*, const void*, int64_t, int64_t, int64_t,
-                       const void*, void*, void*, cudaStream_t);
-constexpr MergeFn kMerge[] = {nullptr, launch_merge<1>, launch_merge<2>,
-                              launch_merge<3>, launch_merge<4>,
-                              launch_merge<5>, launch_merge<6>,
-                              launch_merge<7>};
-constexpr SplitsFn kSplits[] = {nullptr, launch_splits<1>, launch_splits<2>,
-                                launch_splits<3>, launch_splits<4>,
-                                launch_splits<5>, launch_splits<6>,
-                                launch_splits<7>};
-constexpr PassFn kPass[] = {nullptr, launch_pass<1>, launch_pass<2>,
+                       const void*, void*, void*, int, cudaStream_t);
+// index wk for wk <= kNarrowCols, 0 (the wide instance) above
+constexpr MergeFn kMerge[] = {launch_merge<0>, launch_merge<1>,
+                              launch_merge<2>, launch_merge<3>,
+                              launch_merge<4>, launch_merge<5>,
+                              launch_merge<6>, launch_merge<7>};
+constexpr SplitsFn kSplits[] = {launch_splits<0>, launch_splits<1>,
+                                launch_splits<2>, launch_splits<3>,
+                                launch_splits<4>, launch_splits<5>,
+                                launch_splits<6>, launch_splits<7>};
+constexpr PassFn kPass[] = {launch_pass<0>, launch_pass<1>, launch_pass<2>,
                             launch_pass<3>, launch_pass<4>, launch_pass<5>,
                             launch_pass<6>, launch_pass<7>};
+static_assert(sizeof(kPass) / sizeof(kPass[0]) == kNarrowCols + 1);
+
+int instance(int wk) { return wk <= kNarrowCols ? wk : 0; }
 
 }  // namespace
 
+// Key widths wk >= 1; above kNarrowCols (7) the wide instances run, up to
+// the width at which a jf_merge_pass tile still holds two rows
+// (kernels/merge_path.py MAX_KEY_COLS).
 extern "C" int jf_merge_path(const void* a_keys, const void* a_cnt, int64_t na,
                              const void* b_keys, const void* b_cnt, int64_t nb,
                              void* out_keys, void* out_cnt, int wk,
                              void* stream) {
-  if (wk < 1 || wk > 7) return (int)cudaErrorInvalidValue;
-  return kMerge[wk](a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys, out_cnt,
-                    (cudaStream_t)stream);
+  if (wk < 1 || wide_merge_rows(wk) < 1) return (int)cudaErrorInvalidValue;
+  return kMerge[instance(wk)](a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys,
+                              out_cnt, wk, (cudaStream_t)stream);
 }
 
 // The splits of a pass at tiles of `tile` rows into `splits`, pairs x
@@ -472,22 +571,23 @@ extern "C" int jf_merge_path(const void* a_keys, const void* a_cnt, int64_t na,
 extern "C" int jf_merge_splits(const void* keys, int64_t m, int64_t run,
                                int64_t tile, void* splits, int wk,
                                void* stream) {
-  if (wk < 1 || wk > 7 || run < 1 || tile < 1) return (int)cudaErrorInvalidValue;
-  return kSplits[wk](keys, m, run, tile, splits, (cudaStream_t)stream);
+  if (wk < 1 || run < 1 || tile < 1) return (int)cudaErrorInvalidValue;
+  return kSplits[instance(wk)](keys, m, run, tile, splits, wk,
+                               (cudaStream_t)stream);
 }
 
 // The pass from jf_merge_splits' splits at `tile`, which must be the
-// instance's tile rows (kernels/merge_path.py pass_tile_rows). pay and
+// width's tile rows (kernels/merge_path.py pass_tile_rows). pay and
 // out_pay NULL: keys only. out must not overlap the input; out_keys and
 // out_pay 16-byte aligned.
 extern "C" int jf_merge_pass(const void* keys, const void* pay, int64_t m,
                              int64_t run, int64_t tile, const void* splits,
                              void* out_keys, void* out_pay, int wk,
                              void* stream) {
-  if (wk < 1 || wk > 7 || run < 1) return (int)cudaErrorInvalidValue;
+  if (wk < 1 || run < 1) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)out_keys | (uintptr_t)out_pay) & 15) {
     return (int)cudaErrorInvalidValue;
   }
-  return kPass[wk](keys, pay, m, run, tile, splits, out_keys, out_pay,
-                   (cudaStream_t)stream);
+  return kPass[instance(wk)](keys, pay, m, run, tile, splits, out_keys,
+                             out_pay, wk, (cudaStream_t)stream);
 }

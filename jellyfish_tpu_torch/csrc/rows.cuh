@@ -1,20 +1,37 @@
 // Key rows as the kernels compare them.
 //
-// A key row is WK int64 columns compared lexicographically from the LAST
-// column (ops/multiword.py: WK = 1 is the packed 2k <= 64 sortkey, whose
-// signed order is the unsigned order of the key; WK > 1 are 32-bit limbs,
-// least significant first). K1 (merge_path.cu) and K3 (bitonic.cu) share
-// these definitions, so a merge and a sort order rows alike.
+// A key row is WK int64 columns (wk, read at run time, in the wide
+// instances) compared lexicographically from the LAST column
+// (ops/multiword.py: WK = 1 is the packed 2k <= 64 sortkey, whose signed
+// order is the unsigned order of the key; WK > 1 are 32-bit limbs, least
+// significant first). K1 (merge_path.cu), K2 (compact.cu) and K3
+// (bitonic.cu) share these definitions, so a merge and a sort order rows
+// alike.
 
 #pragma once
 
 #include <stdint.h>
 
+// The wide instances (WK = 0) take rows of any width, read at run time
+// (`wk`); the instances WK = 1 .. kNarrowCols have it at compile time and
+// ignore `wk`.
+constexpr int kNarrowCols = 7;
+
+// The most shared memory a block may take on sm_90 (227 KB), all of it
+// dynamic above 48 KB: the wide instances size their tiles to it.
+constexpr int kSharedBytes = 232448;
+
+template <int WK>
+__device__ __forceinline__ int width(int wk) {
+  return WK > 0 ? WK : wk;
+}
+
 // a <= b. Works on rows in device or shared memory and on register arrays.
 template <int WK>
-__device__ __forceinline__ bool row_le(const int64_t* a, const int64_t* b) {
+__device__ __forceinline__ bool row_le(const int64_t* a, const int64_t* b,
+                                       int wk = WK) {
 #pragma unroll
-  for (int w = WK - 1; w >= 0; --w) {
+  for (int w = width<WK>(wk) - 1; w >= 0; --w) {
     if (a[w] != b[w]) return a[w] < b[w];
   }
   return true;

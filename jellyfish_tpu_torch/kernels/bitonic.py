@@ -39,7 +39,11 @@ from typing import NamedTuple
 import torch
 
 from jellyfish_tpu_torch.kernels import _build
-from jellyfish_tpu_torch.kernels.merge_path import MAX_KEY_COLS
+from jellyfish_tpu_torch.kernels.merge_path import (
+    MAX_KEY_COLS,
+    NARROW_KEY_COLS,
+    SHARED_BYTES,
+)
 from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.count import row_order
 
@@ -47,9 +51,13 @@ __all__ = [
     "Pass", "block_merge", "block_merge_plain", "block_sort",
     "block_sort_plain", "exchange_plan", "exchange_stages",
     "exchange_stages_plain", "flip", "flip_plain", "tile_rows",
+    "STEP_KEY_COLS",
 ]
 
 SHARED_TILE_BYTES = 96 * 1024  # a tile's rows; csrc/bitonic.cu kTileBytes
+# block_merge, exchange_stages and flip take keys of at most 7 columns (the
+# pair sort's rows have 1-2); block_sort takes up to MAX_KEY_COLS
+STEP_KEY_COLS = NARROW_KEY_COLS
 PAD = (1 << 63) - 1            # INT64_MAX: pad rows sort last
 _SQUARE = 128                  # side of the transposed square blocks
 
@@ -67,9 +75,15 @@ _SIGNATURES = {
 
 def tile_rows(wk: int, payload: bool) -> int:
     """The tile entries' largest tile: the largest power of two T with T
-    rows of (wk + payload) int64 columns in SHARED_TILE_BYTES."""
+    rows of (wk + payload) int64 columns in SHARED_TILE_BYTES; above
+    NARROW_KEY_COLS (the wide block sort, csrc/bitonic.cu
+    wide_tile_bytes), with the rows at an odd stride of wk | 1 columns and
+    a 4-byte row number each, in SHARED_BYTES."""
     cols = wk + int(payload)
-    return 1 << ((SHARED_TILE_BYTES // (8 * cols)).bit_length() - 1)
+    if wk <= NARROW_KEY_COLS:
+        return 1 << ((SHARED_TILE_BYTES // (8 * cols)).bit_length() - 1)
+    row = 8 * ((wk | 1) + int(payload)) + 4
+    return 1 << ((SHARED_BYTES // row).bit_length() - 1)
 
 
 class Pass(NamedTuple):
@@ -109,11 +123,12 @@ def _log2(x: int, what: str) -> int:
     return x.bit_length() - 1
 
 
-def _check(keys, payload=None):
+def _check(keys, payload=None, max_cols=STEP_KEY_COLS):
     if keys.dtype != torch.int64 or not keys.is_contiguous() or keys.dim() != 2:
         raise ValueError("bitonic kernels take contiguous int64 keys [M, Wk]")
-    if not 1 <= keys.shape[1] <= MAX_KEY_COLS:
-        raise ValueError(f"bitonic kernels: key width {keys.shape[1]}")
+    if not 1 <= keys.shape[1] <= max_cols:
+        raise ValueError(f"bitonic kernels: key width {keys.shape[1]} (this "
+                         f"entry takes 1 to {max_cols} columns)")
     if keys.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bitonic kernels: unsupported device {keys.device}")
     if payload is not None and (
@@ -252,10 +267,10 @@ def _empty_like(keys, payload):
             None if payload is None else torch.empty_like(payload))
 
 
-def _tile_log(what, keys, payload, tile):
+def _tile_log(what, keys, payload, tile, max_cols):
     """log2 of a tile entry's tile (default and at most tile_rows(Wk,
     payload): one tile on chip)."""
-    _check(keys, payload)
+    _check(keys, payload, max_cols)
     cap = tile_rows(keys.shape[1], payload is not None)
     tile = tile or cap
     log_t = _log2(tile, "tile")
@@ -268,10 +283,10 @@ def _tile_log(what, keys, payload, tile):
 def block_sort(keys, payload=None, tile=None):
     """Sort each tile of `tile` rows (a power of two, at most and by
     default tile_rows(Wk, payload)), comparing the key first and then the
-    payload, so that a row-index payload gives a stable order. Returns
-    (keys, payload or None). Longer runs are
-    kernels/sort.sort_rows_blocked's work."""
-    log_t = _tile_log("block_sort", keys, payload, tile)
+    payload, so that a row-index payload gives a stable order. Keys of any
+    width up to MAX_KEY_COLS. Returns (keys, payload or None). Longer runs
+    are kernels/sort.sort_rows_blocked's work."""
+    log_t = _tile_log("block_sort", keys, payload, tile, MAX_KEY_COLS)
     if keys.device.type == "cpu":
         return block_sort_plain(keys, payload, 1 << log_t)
     out = _empty_like(keys, payload)
@@ -289,7 +304,7 @@ def block_merge(keys, payload, tile):
     tile/2, ..., 1 on each tile of `tile` rows (a power of two, at most
     tile_rows(Wk, payload); M whole tiles), the key compared and the
     payload (or None) carried. Returns (keys, payload or None)."""
-    log_t = _tile_log("block_merge", keys, payload, tile)
+    log_t = _tile_log("block_merge", keys, payload, tile, STEP_KEY_COLS)
     if keys.shape[0] % (1 << log_t):
         raise ValueError(f"block_merge: {keys.shape[0]} rows are not whole "
                          f"tiles of {1 << log_t}")

@@ -3,10 +3,10 @@ the rows a keep mask drops.
 
 `compact` launches csrc/compact.cu on CUDA tensors and runs
 `compact_plain` on CPU tensors; any other device raises. Keys are store
-key columns [M, Wk] int64, counts [M] int64, the optional keep mask [M]
-bool. The output holds exactly the n rows with a nonzero count (or a true
-keep), in input order: a sorted masked run comes out as its dense sorted
-live prefix, with no PAD rows mixed in.
+key columns [M, Wk] int64 of any width, counts [M] int64, the optional
+keep mask [M] bool. The output holds exactly the n rows with a nonzero
+count (or a true keep), in input order: a sorted masked run comes out as
+its dense sorted live prefix, with no PAD rows mixed in.
 
 On the card one call is two kernel launches (a count pass and a scatter
 pass) around a `torch.cumsum`; `compact.launches` counts calls. The
@@ -22,7 +22,6 @@ import ctypes
 import torch
 
 from jellyfish_tpu_torch.kernels import _build
-from jellyfish_tpu_torch.kernels.merge_path import MAX_KEY_COLS
 
 __all__ = ["compact", "compact_plain"]
 
@@ -65,7 +64,7 @@ def compact(keys, cnt, keep=None):
     if dev.type != "cuda":
         raise ValueError(f"compact: unsupported device {dev}")
     m, wk = keys.shape
-    if not 1 <= wk <= MAX_KEY_COLS:
+    if wk < 1:
         raise ValueError(f"compact: key width {wk}")
     lib = _build.load("compact", _SIGNATURES)
     tile = lib.jf_compact_tile()

@@ -8,6 +8,10 @@ counts [M] int64. On equal keys A's row comes first, so a merge of two
 deduplicated runs leaves each shared key on two adjacent rows, A's count
 first (ops/count.fold_adjacent sums them).
 
+Keys of 1-7 columns (k <= 112) run the kernel's template instances; wider
+keys, up to MAX_KEY_COLS, its wide instance, which reads the width at run
+time (csrc/merge_path.cu).
+
 `merge_pass` is one pass of a merge sort (kernels/sort.py): every adjacent
 pair of sorted runs of L rows merged at once, the payload optional. On the
 card a call is two kernel launches: `merge_splits` (the partition pass:
@@ -29,9 +33,11 @@ from jellyfish_tpu_torch.ops.count import sort_rows_plain
 
 __all__ = ["merge_path", "merge_path_plain", "merge_pass",
            "merge_pass_plain", "merge_splits", "merge_splits_plain",
-           "pass_tile_rows", "split_steps", "MAX_KEY_COLS"]
+           "pass_tile_rows", "split_steps", "MAX_KEY_COLS",
+           "NARROW_KEY_COLS", "SHARED_BYTES"]
 
-MAX_KEY_COLS = 7  # the kernel's WK template instances (k <= 112)
+NARROW_KEY_COLS = 7  # csrc/rows.cuh kNarrowCols: the WK template instances
+SHARED_BYTES = 232448  # csrc/rows.cuh kSharedBytes: a block's 227 KB
 
 _P, _N = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
@@ -61,7 +67,8 @@ def _check(a_keys, a_cnt, b_keys, b_cnt):
         raise ValueError("merge_path keys must be [M, Wk]")
     wk = a_keys.shape[1]
     if b_keys.shape[1] != wk or not 1 <= wk <= MAX_KEY_COLS:
-        raise ValueError(f"merge_path: key widths {wk}, {b_keys.shape[1]}")
+        raise ValueError(f"merge_path: key widths {wk}, {b_keys.shape[1]} "
+                         f"(the kernels take 1 to {MAX_KEY_COLS} columns)")
     if a_cnt.shape != (a_keys.shape[0],) or b_cnt.shape != (b_keys.shape[0],):
         raise ValueError("merge_path counts must be [M] beside keys [M, Wk]")
 
@@ -92,13 +99,42 @@ def merge_path(a_keys, a_cnt, b_keys, b_cnt):
 merge_path.launches = 0
 
 
+def _pass_bytes(rows: int, wk: int, payload: bool) -> int:
+    """Shared memory of a merge_pass tile (csrc/merge_path.cu pass_shape):
+    two stages of the key and payload windows, each with slack words, and
+    the source row of each output."""
+    stage = rows * wk + 4 + (rows + 4 if payload else 0)
+    return 16 * stage + 4 * rows
+
+
 def pass_tile_rows(wk: int, payload: bool) -> int:
-    """Output rows of one merge_pass tile (csrc/merge_path.cu PassTile):
+    """Output rows of one merge_pass tile (csrc/merge_path.cu pass_rows):
     256 threads of 17, 9 or 5 rows for rows of up to 2, 5 or 7 columns
-    (key columns and the payload), so that two stages of a tile fit in
-    shared memory."""
+    (key columns and the payload); wider, of 5, 3 or 1 rows, the most that
+    fit two stages in shared memory, else the most even rows below 256
+    that fit (fewer than 2 past MAX_KEY_COLS)."""
     cols = wk + int(payload)
-    return 256 * (17 if cols <= 2 else 9 if cols <= 5 else 5)
+    if wk <= NARROW_KEY_COLS:
+        return 256 * (17 if cols <= 2 else 9 if cols <= 5 else 5)
+    for items in (5, 3, 1):
+        if _pass_bytes(256 * items, wk, payload) <= SHARED_BYTES:
+            return 256 * items
+    fixed = 16 * (4 + 4 * int(payload))
+    return (SHARED_BYTES - fixed) // (16 * cols + 4) & ~1
+
+
+def _widest_keys() -> int:
+    """The most key columns whose merge_pass tile, with a payload, still
+    holds two rows (pass_tile_rows falls as rows widen)."""
+    lo, hi = NARROW_KEY_COLS, SHARED_BYTES // 8
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if pass_tile_rows(mid, True) >= 2 else (lo, mid - 1)
+    return lo
+
+
+# The widest keys the kernels take: 7,258 columns (k <= 116,128)
+MAX_KEY_COLS = _widest_keys()
 
 
 def split_steps(m: int, run_len: int, tile: int) -> tuple[int, int]:
@@ -115,7 +151,8 @@ def _check_pass(keys, run_len, tile=1):
     if keys.dtype != torch.int64 or not keys.is_contiguous() or keys.dim() != 2:
         raise ValueError("merge_pass takes contiguous int64 keys [M, Wk]")
     if not 1 <= keys.shape[1] <= MAX_KEY_COLS or run_len < 1 or tile < 1:
-        raise ValueError(f"merge_pass: key width {keys.shape[1]}, run "
+        raise ValueError(f"merge_pass: key width {keys.shape[1]} (the "
+                         f"kernels take 1 to {MAX_KEY_COLS} columns), run "
                          f"length {run_len}, tile {tile}")
     if keys.device.type not in ("cpu", "cuda"):
         raise ValueError(f"merge_pass: unsupported device {keys.device}")

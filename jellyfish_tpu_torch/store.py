@@ -10,10 +10,12 @@ limbs, pow2 sort groups and the asynchronous resolve):
     COUNTED runs (`insert_run`: a chunk's sorted keys with their filtered
     counts, masked), which K2 compacts straight into level 0;
   - raw rows accumulate to a grain (`consolidate_rows`, 2^27 rows for
-    W <= 3 limbs; the first grain runs at 1/8 of it). The grain is sorted
-    (ops/count.sort_rows: torch.sort for a packed key column, the K3 block
-    sort and K1 merge passes for limb columns), counted by segment length
-    and compacted by kernel K2 (kernels/compact.py) into a level-0 run;
+    W <= 3 limbs, 2^26 up to 8, and above 2^29 / W rounded to a power of
+    two, at most 4 GiB of keys; the first grain runs at 1/8 of it). The
+    grain is sorted (ops/count.sort_rows: torch.sort for a packed key
+    column, the K3 block sort and K1 merge passes for limb columns),
+    counted by segment length and compacted by kernel K2
+    (kernels/compact.py) into a level-0 run;
   - compacted runs collect in a forest of levels, `branch` runs merging
     into one run of the next level. A merge takes at most
     `merge_bytes_budget` bytes of input runs (at least two runs) and
@@ -75,7 +77,8 @@ class SortedCountStore:
         self.device = torch.device(device)
         self.branch = int(branch)
         if consolidate_rows is None:
-            consolidate_rows = (1 << 27) if W <= 3 else (1 << 26)
+            consolidate_rows = ((1 << 27) if W <= 3 else (1 << 26) if W <= 8
+                                else 1 << (29 - (W - 1).bit_length()))
         self.consolidate_rows = int(consolidate_rows)
         # cap on one merge's input bytes; the pairwise merge holds about
         # three times its input live (inputs, merged pair, compacted pair)

@@ -1,6 +1,6 @@
 """Device times of the port's kernel wrappers in several checkouts, side by side.
 
-    python3 kernel_ab.py TREE [TREE ...]
+    python3 kernel_ab.py [--only PREFIX] TREE [TREE ...]
 
 Each TREE is a directory that holds a jellyfish_tpu_torch package: a
 checkout, or an unpacked `git archive` of one (for the parent commit:
@@ -13,6 +13,8 @@ of PERF.md's kernel table: row 9's windows (eight 2^20-row windows of a
 2^24-row slab a call, 1,500,000 rows apart, Wk 1 at odd and even offsets
 and Wk 4), row 10's rotation of the slab, rows 7, 8 and 11 at the Pallas
 probes' shapes, the standalone flip, K2's keep mask at the merge's round,
+K2 at a k = 21 grain (2^27 rows, 25% live; each K2 case also by its
+kernels' device time from torch.profiler),
 at the Bloom insert's shape (2^24 rows, Wk 1 + payload) row 8's last
 phase, row 12's mirrored step, block_sort, block_merge and the whole pair
 sort; K1's merge_pass at the k = 63 grain (2^26 rows, Wk 4, keys only) in
@@ -20,6 +22,8 @@ runs of 2^22 and of 2,048 (its first pass) and at 2^24 rows of Wk 1 +
 payload in runs of 2^22, and K1's merge_path at row 1's shape (A 2^24 + B
 2^24 rows, Wk 1 with counts, 90% of keys in both). Needs a CUDA card; the
 wrappers' APIs must match across the trees.
+
+With --only, only the cases whose label starts with PREFIX run.
 
 Prints one JSON line a run, then the card's name and power limit (nvidia-smi)
 and a JSON object of each case's times (ms a call; a window for row 9), one
@@ -113,6 +117,10 @@ def cases(dev):
     keep = is_new & (vals <= 5)
     out.append(("K2 compact with a keep mask, 4 x 2^20 rows, Wk 1",
                 lambda: compact(kk, vals, keep)[:2], 1))
+    ck = torch.sort(ints(1 << 62, 1 << 27)).values[:, None]
+    cc = ints(9, 1 << 27) * (ints(4, 1 << 27) == 0)
+    out.append(("K2 compact, 2^27 rows, Wk 1, 25% live",
+                lambda: compact(ck, cc)[:2], 1))
     pos, pw = ints(1 << 32, INSERT_ROWS, 1), ints(3, INSERT_ROWS)
     last = [INSERT_ROWS >> i for i in range(1, 13)]  # 2^23 ... 4096
     out.append(("row 8 exchange_stages, the insert's last phase",
@@ -167,7 +175,7 @@ def merge_cases(dev, g, ints):
     return out
 
 
-def run_tree(tree: str) -> dict:
+def run_tree(tree: str, only: str = "") -> dict:
     """Build TREE's kernels and time every case there (this process)."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
@@ -179,27 +187,40 @@ def run_tree(tree: str) -> dict:
     if Path(tree).resolve() not in here.parents:
         raise RuntimeError(f"imported {here}, not the package of {tree}")
     _build.build(["merge_path", "compact", "bitonic", "window"])
-    cuda_ms = _smoke().cuda_ms
+    smoke = _smoke()
     dev = torch.device("cuda", 0)
     ms = {}
     for label, fn, calls in cases(dev):
-        ms[label] = cuda_ms(fn, reps=10) / calls
+        if not label.startswith(only):
+            continue
+        ms[label] = smoke.cuda_ms(fn, reps=10) / calls
+        if label.startswith("K2"):
+            # a K2 call waits on the host for its kept total, so its time
+            # follows the host's pace: its two kernels' device time too,
+            # each kernel's mean over 50 calls in one profiler window
+            prof_rows = smoke.profiled(
+                lambda f=fn: [f() for _ in range(50)])[2]
+            ms[f"{label}, kernels (profiler)"] = sum(
+                us / n for name, us, n in prof_rows
+                if "compact_" in name) / 1e3
         torch.cuda.synchronize()
     return {"tree": tree, "ms": ms}
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--run":
-        print(json.dumps(run_tree(sys.argv[2])), flush=True)
+    if len(sys.argv) == 4 and sys.argv[1] == "--run":
+        print(json.dumps(run_tree(sys.argv[2], sys.argv[3])), flush=True)
         return 0
-    trees = sys.argv[1:]
+    trees, only = sys.argv[1:], ""
+    if trees[:1] == ["--only"]:
+        only, trees = trees[1], trees[2:]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
     for tree in trees:
         p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                            "--run", tree], stdout=subprocess.PIPE,
+                            "--run", tree, only], stdout=subprocess.PIPE,
                            text=True)
         if p.returncode:
             print(p.stdout, end="")

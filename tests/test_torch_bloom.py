@@ -7,6 +7,7 @@ pairs through kernels/sort.sort_pairs_bitonic, here on the kernels' plain
 versions."""
 
 import io
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,7 +15,6 @@ import torch
 
 import jellyfish_tpu.bloom as jb
 import jellyfish_tpu_torch.bloom as tb
-from jellyfish_tpu_torch import NotPortedError
 from jellyfish_tpu_torch.io.header import FileHeader
 
 torch.set_num_threads(1)
@@ -173,8 +173,8 @@ def test_bloom_filter_insert_batch_matches_jax(k, m):
                                (1 << 47) - 1, 1 << 33])
 def test_probe_positions_of_any_m(m):
     """m not a power of two up to 2^32: h0 % m, h1 % m and (base + i*inc)
-    % m through the 16-bit-digit reduction, equal to the JAX package's
-    uint64 arithmetic (hashes >= 2^63 included)."""
+    % m through the unsigned reduction (bloom.umod), equal to the JAX
+    package's uint64 arithmetic (hashes >= 2^63 included)."""
     ref, port = _pair(21, m, 9, 70, jb._BloomBase, tb._BloomBase)
     mers = _mers(np.random.default_rng(7), 4000, 21)
     got = port.probe_positions(mers).numpy()
@@ -198,21 +198,55 @@ def test_mod_u64_near_2_46():
 
 
 def test_filters_of_2_47_cells_raise(tmp_path):
+    """Bloom structures of m >= 2^47 positions no longer raise: the probe
+    positions equal the JAX package's uint64 formula at m = 2^47, 2^47 +
+    12345, 2^52 and 2^63 + 5 (sums and products wrapping mod 2^64, and
+    positions >= 2^63 cast to int64 alike), on small hash tensors spanning
+    all 64 bits; a header-only .bc file of 2^47 cells reads as in the JAX
+    package. No filter of that size is allocated."""
+    rng = np.random.default_rng(47)
+    h = rng.integers(0, 1 << 64, (2, 3000), dtype=np.uint64, endpoint=False)
+    h[:, :3] = [[0, (1 << 64) - 1, 1 << 63], [(1 << 64) - 1, 1 << 63, 7]]
+    limbs = [torch.from_numpy(np.stack([x & np.uint64(0xFFFFFFFF),
+                                        x >> np.uint64(32)], 1)
+                              .astype(np.int64)) for x in h]
+    for m in (1 << 47, (1 << 47) + 12345, 1 << 52, (1 << 63) + 5):
+        ref = SimpleNamespace(m=m, nb_hashes=9,
+                              hashes_np=lambda _, h=h: (h[0], h[1]))
+        want = jb._BloomBase.probe_positions(ref, None)
+        got = tb.probe_positions(*limbs, m, 9).numpy()
+        np.testing.assert_array_equal(got, want)
+    assert (want < 0).any()  # positions >= 2^63 at m = 2^63 + 5
+
     m1, m2 = jb._random_hash_pair(21, np.random.default_rng(0))
-    with pytest.raises(NotPortedError, match="2\\^47"):
-        tb.BloomFilter(1 << 47, 3, 21, m1, m2, device="cpu")
-    h = FileHeader()
-    h.format = FileHeader.FORMAT_BLOOM
-    h.key_len = 42
-    h.set_matrix(m1, 1)
-    h.set_matrix(m2, 2)
-    h.size = 1 << 47
-    h.nb_hashes = 3
+    hdr = FileHeader()
+    hdr.format = FileHeader.FORMAT_BLOOM
+    hdr.key_len = 42
+    hdr.set_matrix(m1, 1)
+    hdr.set_matrix(m2, 2)
+    hdr.size = 1 << 47
+    hdr.nb_hashes = 3
     path = tmp_path / "huge.bc"
     with open(path, "wb") as f:
-        h.write(f)
-    with pytest.raises(NotPortedError, match="2\\^47"):
-        tb.read_bloom_counter(str(path), device="cpu")
+        hdr.write(f)
+
+    def outcome(read):
+        """What reading the file gives: the exception's type (the read
+        asks for m / 5 bytes at once: a MemoryError where the host does
+        not overcommit), or the structure's shape and a query's error."""
+        try:
+            bc = read()
+        except MemoryError as e:
+            return type(e)
+        mer = _mers(np.random.default_rng(1), 1, 21)
+        with pytest.raises(IndexError):
+            bc.check(mer)
+        return bc.m, bc.nb_hashes, bc.k, len(bc.cells)
+
+    want = outcome(lambda: jb.read_bloom_counter(str(path)))
+    assert outcome(lambda: tb.read_bloom_counter(str(path),
+                                                 device="cpu")) == want
+    assert want in (MemoryError, (1 << 47, 3, 21, 0))
 
 
 @pytest.mark.parametrize("kind", ["bc", "bf"])

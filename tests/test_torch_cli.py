@@ -5,7 +5,8 @@ hold the same records byte for byte (binary or text), and the same header
 apart from exe_path, pwd and cmdline; query, mem and cite print the same
 text; generate writes the same files. The Bloom hash matrices come from
 an unseeded numpy generator in both packages, so these tests seed it in
-both. A key width above the kernels' raises NotPortedError."""
+both. Keys wider than 7 limbs (k > 112) run too, and merge, --disk and
+-d at k = 128 give the JAX package's count."""
 
 import gzip
 import io
@@ -14,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from jellyfish_tpu_torch import NotPortedError
 from jellyfish_tpu_torch.cli import main as torch_main
 from jellyfish_tpu_torch.io.header import FileHeader
 
@@ -95,14 +95,88 @@ def test_no_write_and_timing(reads, tmp_path):
         "Init", "Counting", "Writing"]
 
 
-@pytest.mark.parametrize("k", [113, 128])
-def test_key_width_above_the_kernels_raises(tmp_path, k):
-    """k > 112 needs keys of more 32-bit limbs than the kernels' template
-    instances take: count refuses before it opens any input."""
-    missing = str(tmp_path / "never_read.fq")
-    with pytest.raises(NotPortedError, match="k <= 112"):
-        torch_main(["count", "-m", str(k), "-s", "1M", "-o",
-                    str(tmp_path / "x.jf"), missing], device="cpu")
+WIDE_K = (113, 128, 200)
+_EPOCH = "1700000000"
+
+
+def _wide_argv(k, *extra):
+    return ["count", "-m", str(k), "-s", "10k", "--chunk-len", "2048",
+            "--matrix-seed", "4242", *extra]
+
+
+@pytest.fixture(scope="module")
+def wide(tmp_path_factory):
+    """250-base reads (k = 200 has 51 windows a read), dealt into two
+    files, and the JAX package's count of both at each k of WIDE_K (keys
+    of 8 and 13 limbs), made once and shared by the comparisons."""
+    d = tmp_path_factory.mktemp("wide")
+    rng = np.random.default_rng(4096)
+    genome = "".join("ACGT"[c] for c in rng.integers(0, 4, 5000))
+    parts = [d / "w0.fq", d / "w1.fq"]
+    for j, path in enumerate(parts):
+        with open(path, "w") as f:
+            for i in range(60):
+                s = int(rng.integers(0, len(genome) - 250))
+                seq = list(genome[s:s + 250])
+                if i % 4 == 0:
+                    seq[int(rng.integers(0, 250))] = "N"
+                f.write(f"@w{j}_{i}\n{''.join(seq)}\n+\n{'I' * 250}\n")
+    parts = [str(p) for p in parts]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SOURCE_DATE_EPOCH", _EPOCH)
+        for k in WIDE_K:
+            assert _jax_main(_wide_argv(k, "-o", str(d / f"j{k}.jf"),
+                                        *parts)) == 0
+    return d, parts
+
+
+@pytest.mark.parametrize("k", WIDE_K)
+def test_key_width_above_the_kernels_raises(wide, monkeypatch, k):
+    """Keys wider than the kernels' 7-column template instances (k > 112,
+    8 and 13 limbs here) no longer raise: they run on the wide instances,
+    and count writes the JAX package's database byte for byte (the header
+    apart from exe_path, pwd and cmdline)."""
+    d, parts = wide
+    monkeypatch.setenv("SOURCE_DATE_EPOCH", _EPOCH)
+    out = str(d / f"t{k}.jf")
+    assert torch_main(_wide_argv(k, "-o", out, *parts), device="cpu") == 0
+    assert len(_split(out)[1]) > 10_000
+    _same_files(out, str(d / f"j{k}.jf"))
+
+
+def test_wide_merge_matches_jax_count(wide, tmp_path):
+    """k = 128: the port's counts of the two files, merged by the port's
+    merge, hold the JAX package's count of both, record for record."""
+    d, parts = wide
+    dbs = [str(tmp_path / f"p{j}.jf") for j in range(2)]
+    for db, part in zip(dbs, parts):
+        assert torch_main(_wide_argv(128, "-o", db, part),
+                          device="cpu") == 0
+    out = str(tmp_path / "m.jf")
+    assert torch_main(["merge", "-o", out, *dbs], device="cpu") == 0
+    assert _split(out)[1] == _split(str(d / "j128.jf"))[1]
+
+
+@pytest.mark.parametrize("extra", [["--disk", "--no-unlink"], ["-d", "2"]],
+                         ids=["disk", "d2"])
+def test_wide_disk_and_shards_match_jax_count(wide, tmp_path, extra):
+    """k = 128: count --disk (its partials kept, at least two) and count
+    -d 2 write the records of the JAX package's in-memory count."""
+    d, parts = wide
+    out = str(tmp_path / "x.jf")
+    assert torch_main(_wide_argv(128, *extra, "-o", out, *parts),
+                      device="cpu") == 0
+    assert _split(out)[1] == _split(str(d / "j128.jf"))[1]
+    if "--disk" in extra:
+        assert len(list(tmp_path.glob("x.jf[0-9]*"))) >= 2
+
+
+def test_wide_bc_matches_jax(wide, seeded, tmp_path):
+    """bc at k = 128 (8-limb mers into the Bloom counter's hashes): the
+    .bc file equals the JAX package's, byte for byte."""
+    _, parts = wide
+    _same_files(*_both(tmp_path, "w.bc", ["bc", "-m", "128", "-s", "64k"],
+                       parts))
 
 
 def test_bc_generator_raises(reads, tmp_path):

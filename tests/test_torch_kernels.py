@@ -17,7 +17,11 @@ import pytest
 import torch
 
 from jellyfish_tpu_torch.kernels.compact import compact, compact_plain
-from jellyfish_tpu_torch.kernels.merge_path import merge_path, merge_path_plain
+from jellyfish_tpu_torch.kernels.merge_path import (
+    MAX_KEY_COLS,
+    merge_path,
+    merge_path_plain,
+)
 from jellyfish_tpu_torch.ops import multiword as mw
 
 torch.set_num_threads(1)
@@ -149,9 +153,12 @@ def test_wrappers_reject_bad_inputs():
     c = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):
         merge_path(k, c, k.to(torch.int32), c)
+    wide = torch.zeros((4, MAX_KEY_COLS + 1), dtype=torch.int64)
+    with pytest.raises(ValueError, match=f"1 to {MAX_KEY_COLS} columns"):
+        merge_path(wide, c, wide, c)  # wider than the widest instance
     with pytest.raises(ValueError):
         merge_path(torch.zeros((4, 8), dtype=torch.int64), c,
-                   torch.zeros((4, 8), dtype=torch.int64), c)
+                   torch.zeros((4, 9), dtype=torch.int64), c)
     with pytest.raises(ValueError):
         compact(k, c[:3])
     with pytest.raises(ValueError):

@@ -5,11 +5,12 @@ pack_run's stream, bucket index, p, cbits, escape positions and the used
 prefix of the escape counts are bit-equal to the JAX function's (the
 slots past n_esc hold arbitrary counts there, so only the prefix is
 compared); unpack_run gives the run back. Cases: every key width from one
-limb to seven, 2k at a limb boundary (k = 16, 32), a run ending in the
-PAD entry (whose count, the pad total, is an escape), counts of 2^32 and
-more, escapes beyond the default capacity (the retry), n = 1, rows past
-n, slices that end inside a stream word, and a run that holds both a real
-all-ones key and the PAD key, which the port keeps apart."""
+limb to seven and three wider (k = 127, 128 and 200: 8 and 13 limbs), 2k
+at a limb boundary (k = 16, 32), a run ending in the PAD entry (whose
+count, the pad total, is an escape), counts of 2^32 and more, escapes
+beyond the default capacity (the retry), n = 1, rows past n, slices that
+end inside a stream word, and a run that holds both a real all-ones key
+and the PAD key, which the port keeps apart."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -71,6 +72,9 @@ CASES = [  # (k, n, pad, escapes, rows past n)
     (33, 3000, False, 1500, 0),   # escapes overflow 1024 slots: retry
     (63, 2000, True, 15, 2),
     (100, 1500, True, 12, 0),
+    (127, 1200, True, 10, 0),     # W = 8 and up: a record of 8-13 pieces
+    (128, 900, False, 8, 1),
+    (200, 800, True, 9, 0),
     (21, 1, False, 1, 0),
     (63, 1, True, 1, 0),
 ]

@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from jellyfish_tpu_torch import NotPortedError
 from jellyfish_tpu_torch.cli import main as torch_main
 from jellyfish_tpu_torch.io.header import FileHeader
 
@@ -244,9 +243,9 @@ def test_fastq2sam_errors_match_jax(tmp_path, capsys, name, body):
 
 
 def test_cram_raises_not_ported(tmp_path):
-    """CRAM input is ported: a CRAM file, read directly or through count
-    --sam, raises no NotPortedError. A truncated one raises the JAX
-    package's CramError with its message, and so does the CLI."""
+    """CRAM input is ported: a truncated CRAM file, read directly or
+    through count --sam, raises the JAX package's CramError with its
+    message."""
     from jellyfish_tpu.io.parse import sam_records_to_fastx as jax_records
 
     from jellyfish_tpu_torch.io.cram import CramError
@@ -256,7 +255,6 @@ def test_cram_raises_not_ported(tmp_path):
     p.write_bytes(b"CRAM" + b"\x03\x01" + b"\x00" * 30)
     with open(p, "rb") as f, pytest.raises(CramError) as got:
         list(sam_records_to_fastx(f))
-    assert not isinstance(got.value, NotPortedError)
     with open(p, "rb") as f, pytest.raises(ValueError) as want:
         list(jax_records(f))
     assert type(want.value).__name__ == "CramError"

@@ -35,6 +35,7 @@ from jellyfish_tpu_torch.kernels.bitonic import (
     tile_rows,
 )
 from jellyfish_tpu_torch.kernels.merge_path import (
+    MAX_KEY_COLS,
     merge_pass,
     merge_pass_plain,
     merge_splits,
@@ -400,8 +401,13 @@ def test_wrappers_reject_bad_inputs():
         block_sort(k, tile=24)                       # not a power of two
     with pytest.raises(ValueError):
         block_sort(k, tile=1 << 14)                  # above shared memory
+    with pytest.raises(ValueError):   # wider than the widest instance
+        block_sort(torch.zeros((4, MAX_KEY_COLS + 1), dtype=torch.int64))
+    with pytest.raises(ValueError):   # the step entries take 1-7 columns
+        block_merge(torch.zeros((4, 8), dtype=torch.int64), None, 4)
     with pytest.raises(ValueError):
-        block_sort(torch.zeros((4, 8), dtype=torch.int64))
+        exchange_stages(torch.zeros((4, 8), dtype=torch.int64),
+                        distances=[1])
     with pytest.raises(ValueError):
         block_sort(k, torch.zeros(63, dtype=torch.int64))
     with pytest.raises(ValueError):
