@@ -76,14 +76,16 @@ in a child process with the native chunker and under JF_NO_NATIVE=1,
 count -F 4 of the reads in 4 files, and libjfquery's counts of 2,000 mers
 against the port's query.
 Keys wider than 7 columns (k > 112), which run the kernels' wide
-instances (the width read at run time): K1's merge_path, merge_pass and
-merge_splits, K2 with and without its keep mask and K3's block_sort held
-against their plain versions at Wk 8, 13, 16 and 32 (k = 127, 200, 256
-and 512), keys only and with a row-index payload, merge_pass in runs of
-1, 2,048 and 2^16 rows, block_sort with a ragged last tile, each
-again at the smallest tiles, at Wk 64 and at the widest keys taken
-(MAX_KEY_COLS, 7,258 columns; wide_branches), and each timed at the k =
-127 grain's shape (phase_wide); count through the CLI
+instances: K1's merge_path, merge_pass and merge_splits, K2 with and
+without its keep mask and K3's block_sort held against their plain
+versions at Wk 8, 13, 16 and 32 (k = 127, 200, 256 and 512), keys only
+and with a row-index payload (block_sort also with a shuffled one), on
+grains of 40% and 84% PAD rows and on rows that tie on the top column,
+merge_pass in runs of 1, 2,048 and 2^16 rows, block_sort with a ragged
+last tile, each again at the smallest tiles, at Wk 64 and at the widest
+keys taken (MAX_KEY_COLS, 7,261 columns; wide_branches), and each timed
+at the k = 127 grain's shape, block_sort and merge_pass (its first pass
+and a pass of runs of 2^22) at 40% and 84% PAD (phase_wide); count through the CLI
 at k = 127 (12 Mbase of 150-base reads) and at k = 200 (10 Mbase of
 250-base reads) against the numpy oracle; a 4-part merge at k = 127 in
 small windows (every slab rotated), count --disk at k = 127 (4 or more
@@ -938,12 +940,17 @@ def phase_wide(dev):
     entries, K2 (with and without a keep mask) and K3's block_sort against
     their plain versions at Wk 8, 13, 16 and 32, keys only and with a
     row-index payload (so a tie out of order shows): block_sort on
-    (1 << 18) + 777 rows (a ragged last tile); merge_pass and its splits in
-    runs of 1 (1,025 rows), 2,048 and 2^16 rows; merge_path of two runs
-    that share most keys; compact of a sorted run, 25% live; and
+    (1 << 18) + 777 rows (a ragged last tile), also with a shuffled
+    payload; merge_pass and its splits in runs of 1 (1,025 rows), 2,048
+    and 2^16 rows; each on a grain of 40% PAD rows, on one of 84% (a
+    full-size k = 127 count's share), and on rows that tie on the top
+    column and differ below it, with many exact duplicates; merge_path of
+    two runs that share most keys; compact of a sorted run, 25% live; and
     wide_branches' smallest tiles, at Wk 64 and MAX_KEY_COLS. Then each
     timed at the k = 127 grain's shape (2^26 rows of Wk 8, keys only; the
-    keep mask at a merge round's 4 x 2^20 rows). Returns the kernels
+    keep mask at a merge round's 4 x 2^20 rows), block_sort and
+    merge_pass at 40% and at 84% PAD, merge_pass on its first pass (runs
+    of one block_sort tile) and on runs of 2^22. Returns the kernels
     line's rows."""
     from jellyfish_tpu_torch.kernels.bitonic import (
         block_sort,
@@ -966,13 +973,23 @@ def phase_wide(dev):
 
     g = torch.Generator(device=dev).manual_seed(127)
 
-    def grain(n, wk, distinct):
-        """n rows of wk limbs drawn from `distinct` pooled rows, 40% of
-        them the all-ones PAD row (phase_k3's grain)."""
+    def grain(n, wk, distinct, pad=0.4):
+        """n rows of wk limbs drawn from `distinct` pooled rows, a share
+        `pad` of them the all-ones PAD row (phase_k3's grain at 40%)."""
         pool = torch.randint(0, 1 << 32, (distinct, wk), device=dev,
                              generator=g)
         x = pool[torch.randint(0, distinct, (n,), device=dev, generator=g)]
-        x[torch.rand(n, device=dev, generator=g) < 0.4] = M32
+        x[torch.rand(n, device=dev, generator=g) < pad] = M32
+        return x.contiguous()
+
+    def ties(n, wk):
+        """n rows drawn from 256 pooled rows whose top column takes 3
+        values and whose other columns 4 each: most rows tie on the top
+        column and differ below it, many are exact duplicates; 10% PAD."""
+        pool = torch.randint(0, 4, (256, wk), device=dev, generator=g)
+        pool[:, -1] = torch.randint(0, 3, (256,), device=dev, generator=g)
+        x = pool[torch.randint(0, 256, (n,), device=dev, generator=g)]
+        x[torch.rand(n, device=dev, generator=g) < 0.1] = M32
         return x.contiguous()
 
     def merge_inputs(n, wk):
@@ -996,29 +1013,42 @@ def phase_wide(dev):
         cnt *= torch.rand(m, device=dev, generator=g) < 0.25
         return keys, cnt
 
-    for wk in WIDE_WK:
-        m = (1 << 18) + 777
-        x = grain(m, wk, m >> 2)
-        idx = torch.arange(m, device=dev)
-        hold(f"wide K3 block_sort {m} rows, Wk {wk} (+ payload), tiles of "
-             f"{tile_rows(wk, False)} (and {tile_rows(wk, True)})",
-             lambda: block_sort(x) + block_sort(x, idx),
-             lambda: block_sort_plain(x) + block_sort_plain(x, idx))
-        for n, run_lens in ((1025, (1,)), (m, (2048, 1 << 16))):
+    def hold_passes(x, idx, wk, label, runs_of):
+        """merge_pass and its splits on x's first n rows in sorted runs,
+        keys only and with the row index, for each (n, runs) given."""
+        for n, run_lens in runs_of:
             y = x[:n].contiguous()
             iy = idx[:n].contiguous()
             for run in run_lens:
                 runs = y if run == 1 else block_sort_plain(y, tile=run)[0]
                 for pay in (None, iy):
                     tile = pass_tile_rows(wk, pay is not None)
-                    hold(f"wide K1 merge_pass {n} rows, Wk {wk}"
+                    hold(f"wide K1 merge_pass {n} rows ({label}), Wk {wk}"
                          f"{' + payload' if pay is not None else ''}, runs "
                          f"of {run}; its splits at tiles of {tile}",
                          lambda: merge_pass(runs, run, pay)
                          + (merge_splits(runs, run, tile),),
                          lambda: merge_pass_plain(runs, run, pay)
                          + (merge_splits_plain(runs, run, tile),))
-        del x, idx, y, iy, runs
+
+    for wk in WIDE_WK:
+        m = (1 << 18) + 777
+        idx = torch.arange(m, device=dev)
+        shuffled = torch.randperm(m, device=dev, generator=g)
+        for label, x in (("40% PAD", grain(m, wk, m >> 2)),
+                         ("84% PAD", grain(m, wk, m >> 2, pad=0.84)),
+                         ("top-column ties", ties(m, wk))):
+            hold(f"wide K3 block_sort {m} rows ({label}), Wk {wk} (+ "
+                 f"payload, + shuffled payload), tiles of "
+                 f"{tile_rows(wk, False)} (and {tile_rows(wk, True)})",
+                 lambda: (block_sort(x) + block_sort(x, idx)
+                          + block_sort(x, shuffled)),
+                 lambda: (block_sort_plain(x) + block_sort_plain(x, idx)
+                          + block_sort_plain(x, shuffled)))
+            hold_passes(x, idx, wk, label,
+                        ((1025, (1,)), (m, (2048, 1 << 16)))
+                        if label == "40% PAD" else ((m, (2048, 1 << 16)),))
+        del x, idx, shuffled
         a, ac, b, bc = merge_inputs(1 << 16, wk)
         hold(f"wide K1 merge_path 2 x {1 << 16} rows, Wk {wk}",
              lambda: merge_path(a, ac, b, bc),
@@ -1035,35 +1065,48 @@ def phase_wide(dev):
     torch.cuda.empty_cache()
     wide_branches(dev, g)
 
-    # timed at the k = 127 grain's shape: 2^26 rows of 8 limbs, keys only
+    # timed at the k = 127 grain's shape: 2^26 rows of 8 limbs, keys only,
+    # at 40% PAD rows (the table's rows) and at 84% (a count's share)
     wk, m = 8, 1 << 26
-    x = grain(m, wk, 1 << 24)
     row_bytes = m * wk * 8
-    rows = {}
-    rows["block_sort_wide"] = hold(
-        f"wide K3 block_sort {m} rows, Wk {wk}, keys only (a k=127 grain)",
-        lambda: block_sort(x), lambda: block_sort_plain(x), 2 * row_bytes,
-        library=lambda: sort_rows_plain(x))
-    runs = block_sort(x)[0]
-    rows["merge_pass_wide"] = hold(
-        f"wide K1 merge_pass {m} rows, Wk {wk}, keys only, runs of 2048 "
-        "(the grain's first pass)",
-        lambda: merge_pass(runs, 2048)[0],
-        lambda: block_sort_plain(runs, tile=4096)[0], 2 * row_bytes)
-    # the splits of 8 pairs (a pass's plain version loops over its pairs);
-    # the least bytes a boundary's search reads are the two rows either
-    # side of its split
-    runs = block_sort_plain(x, tile=1 << 22)[0]
-    tile = pass_tile_rows(wk, False)
-    pairs, steps = split_steps(m, 1 << 22, tile)
-    n_splits = pairs * (steps + 1)
-    rows["merge_splits_wide"] = hold(
-        f"wide K1 merge_splits {m} rows, Wk {wk}, runs of 2^22, tiles of "
-        f"{tile}",
-        lambda: merge_splits(runs, 1 << 22, tile),
-        lambda: merge_splits_plain(runs, 1 << 22, tile),
-        n_splits * (8 + 2 * wk * 8))
-    del x, runs
+    tile = tile_rows(wk, False)
+    rows, at84 = {}, {}
+    for pad, out in ((0.4, rows), (0.84, at84)):
+        x = grain(m, wk, 1 << 24, pad)
+        tag = f"{m} rows, Wk {wk}, keys only, {round(100 * pad)}% PAD"
+        out["block_sort_wide"] = hold(
+            f"wide K3 block_sort {tag} (a k=127 grain)",
+            lambda: block_sort(x), lambda: block_sort_plain(x),
+            2 * row_bytes, library=lambda: sort_rows_plain(x))
+        runs = block_sort(x)[0]
+        out["merge_pass_wide"] = hold(
+            f"wide K1 merge_pass {tag}, runs of {tile} (the grain's first "
+            "pass)",
+            lambda: merge_pass(runs, tile)[0],
+            lambda: block_sort_plain(runs, tile=2 * tile)[0], 2 * row_bytes)
+        # a later pass: runs of 2^22; the plain version loops over the pairs
+        runs = block_sort_plain(x, tile=1 << 22)[0]
+        out["merge_pass_wide_later"] = hold(
+            f"wide K1 merge_pass {tag}, runs of 2^22 (a later pass)",
+            lambda: merge_pass(runs, 1 << 22)[0],
+            lambda: merge_pass_plain(runs, 1 << 22)[0], 2 * row_bytes)
+        if pad == 0.4:
+            # the splits of 8 pairs (a pass's plain version loops over its
+            # pairs); the least bytes a boundary's search reads are the two
+            # rows either side of its split
+            ptile = pass_tile_rows(wk, False)
+            pairs, steps = split_steps(m, 1 << 22, ptile)
+            n_splits = pairs * (steps + 1)
+            rows["merge_splits_wide"] = hold(
+                f"wide K1 merge_splits {tag}, runs of 2^22, tiles of "
+                f"{ptile}",
+                lambda: merge_splits(runs, 1 << 22, ptile),
+                lambda: merge_splits_plain(runs, 1 << 22, ptile),
+                n_splits * (8 + 2 * wk * 8))
+        del x, runs
+        torch.cuda.empty_cache()
+    for key, row in at84.items():
+        rows[key].update(pad84_ms=row["ms"], pad84_plain_ms=row["plain_ms"])
     torch.cuda.empty_cache()
     a, ac, b, bc = merge_inputs(1 << 22, wk)
     rows["merge_path_wide"] = hold(
@@ -1111,6 +1154,8 @@ def phase_wide(dev):
                             "experiments/pallas_sort_proto.py:65"),
         "merge_pass_wide": ("merge_path.merge_pass.wide", k1,
                             "experiments/pallas_merge_probe.py:492"),
+        "merge_pass_wide_later": ("merge_path.merge_pass.wide.later", k1,
+                                  "experiments/pallas_merge_probe.py:492"),
         "merge_splits_wide": ("merge_path.merge_splits.wide", k1,
                               "experiments/pallas_merge_probe.py:492"),
         "merge_path_wide": ("merge_path.wide", k1,
@@ -1591,9 +1636,13 @@ def phase_full(k, chunks, staged, need, compare_lsd=False):
         f"device kernels {busy:.3f} s = {100 * busy_share:.1f}% of the "
         f"unprofiled pass's {t_count + t_final:.3f} s; device kernels by "
         "time:")
-    for key, us, n in sorted(rows, key=lambda r: -r[1])[:15]:
-        log(f"  {us / 1e3:10.1f} ms {100 * us / 1e6 / busy:5.1f}% "
-            f"{n:6d}x  {key[:100]}")
+    # the 15 longest, and below them the kernels in an anonymous
+    # namespace: the port's own (csrc/), and a few of PyTorch's
+    ranked = sorted(rows, key=lambda r: -r[1])
+    for i, (key, us, n) in enumerate(ranked):
+        if i < 15 or key.startswith("void (anonymous namespace)::"):
+            log(f"  {us / 1e3:10.1f} ms {100 * us / 1e6 / busy:5.1f}% "
+                f"{n:6d}x  {key[:100]}")
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(8) as pool:
@@ -3760,6 +3809,7 @@ def main() -> int:
         path = {"merge_path": 21, "compact": 21, "block_sort": 63,
                 "merge_pass": 63, "merge_splits": 63,
                 "block_sort_wide": 127, "merge_pass_wide": 127,
+                "merge_pass_wide_later": 127,
                 "merge_splits_wide": 127, "merge_path_wide": 127,
                 "compact_wide": 127, "compact_keep_wide": "merge127",
                 "block_sort_bloom": "bloom",
@@ -3771,6 +3821,7 @@ def main() -> int:
         counter = {"compact_keep": "compact",
                    "block_sort_bloom": "block_sort",
                    **{f"{n}_wide": n for n in WIDE_NEED},
+                   "merge_pass_wide_later": "merge_pass",
                    "compact_keep_wide": "compact",
                    "exchange_stages": "exchange_stages.passes",
                    "exchange_stages_mirror": "exchange_stages.mirror"}

@@ -114,7 +114,7 @@ class MerCounter:
     equivalent of the reference's filter chain (count_main.cc:99-131).
     pack_resting holds the store's resting runs bit-packed
     (`count --packed-store`). Keys of any width run on the kernels, up to
-    kernels/merge_path.MAX_KEY_COLS 32-bit limbs (k <= 116,128); a wider k
+    kernels/merge_path.MAX_KEY_COLS 32-bit limbs (k <= 116,176); a wider k
     raises ValueError.
     """
 

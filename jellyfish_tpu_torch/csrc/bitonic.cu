@@ -19,7 +19,8 @@
 //     makes the order stable. The last tile is padded with INT64_MAX
 //     rows, which sort last, and only its real rows are written. Above
 //     7 columns (k > 112) a wide kernel (wide_sort_kernel, below) sorts
-//     the tile's row numbers instead of the rows held in registers.
+//     a proxy of each row (its top column and row number) in registers
+//     and checks the ties on the top column against the whole row.
 //   jf_block_merge runs only the plain steps at distances T/2, ..., 1 on
 //     each tile, comparing the key and carrying the payload (row 8's
 //     rule): it sorts a tile that is a bitonic sequence, as the pair sort
@@ -356,46 +357,68 @@ tile_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok, int64_t* op,
 // -- tiles of wide rows ------------------------------------------------------
 
 // jf_block_sort above kNarrowCols columns (k > 112), where E rows a thread
-// would not fit in registers: one block a tile of T = 2^log_t rows. The
-// tile's rows are staged in shared memory once, at an odd row stride (the
-// rows a warp compares fall on spread banks), and the bitonic network runs
-// on their row numbers: each step, one thread a pair compares the two rows
-// it names in shared memory, from the last column down (the payload last),
-// and swaps the two numbers, not the rows. The rows go out once, in the
-// final order. Row numbers from n on stand for the last tile's pad rows,
-// which sort after every real row, as INT64_MAX rows do.
+// would not fit in registers: one block a tile of T = 2^log_t rows, staged
+// once in shared memory at an odd row stride (wk | 1 words), so that the
+// rows a warp reads at once fall on spread banks. The network does not
+// compare rows. It sorts one int64 proxy a row, the row's top column
+// above its row number, with tile_kernel's network on rows of one column
+// (E = 8 a thread in registers, moved between layouts through an 8-byte
+// slot a row). Rows that tie on the top column come out in row-number
+// order; one pass over the sorted tile then checks each adjacent pair
+// that ties on the top column against the full order (the lower columns,
+// then the payload). A tile whose pairs all hold is sorted: the PAD rows
+// and repeated mers of a count, equal in every column, cost one such
+// check each instead of a walk over every column at each of the network's
+// 66 steps (T = 2048). A tile with a pair out of order (rows that tie on
+// the top column and differ below it, in the wrong order, or equal keys
+// whose payloads are out of order), or with a top column the proxy cannot
+// hold (outside [0, 2^47)), runs the network again on the row numbers,
+// comparing whole rows (wide_full_network): exact, as slow as the design
+// before the proxies, and rare in a count. Tiles below 32 E rows (keys of
+// some 110 columns or more) take that network alone. The rows go out once, in
+// the final order. Row numbers from n on stand for the last tile's pad
+// rows, which sort after every real row.
+//
+// Bound on this card: bytes, 2 (wk + payload) 8 bytes a row. A block, with
+// its tile of up to 227 KB, holds its SM alone, so its copies do not
+// overlap another tile's network: the copies in and out alone take about
+// 1.1 times the bound, and the network (66 steps of E / 2 compares a
+// thread at T = 2048, 26 layout moves) comes on top.
+constexpr int kWideLogE = 3;
+constexpr int kWideE = 1 << kWideLogE;
+
 __host__ __device__ inline int wide_stride(int wk) { return wk | 1; }
 
+// the tile's rows at the odd stride, the payload, and an 8-byte slot a
+// row for the proxies the layouts move
 __host__ __device__ inline size_t wide_tile_bytes(int wk, bool pay,
                                                   int log_t) {
-  return ((size_t)(wide_stride(wk) + (pay ? 1 : 0)) * 8 + 4) << log_t;
+  return ((size_t)(wide_stride(wk) + (pay ? 1 : 0) + 1) * 8) << log_t;
 }
 
+// threads of a wide tile: one a pair of rows below 32 E rows (at least a
+// warp), else one per E proxies
+__host__ __device__ inline int wide_threads(int log_t) {
+  const int t = 1 << log_t;
+  if (t >= 32 * kWideE) return t >> kWideLogE;
+  return t / 2 < 32 ? 32 : t / 2;
+}
+
+// The staged tile as the wide kernel reads it: row r at s + r rs, its
+// payload at pay[r], position p's row number in slot[swizzled(p)].
 template <bool PAY>
-__global__ void __launch_bounds__(1024, 1)
-wide_sort_kernel(const int64_t* __restrict__ ik,
-                 const int64_t* __restrict__ ip, int64_t* __restrict__ ok,
-                 int64_t* __restrict__ op, int64_t m, int wk, int log_t) {
-  extern __shared__ __align__(16) int64_t s[];
-  const int t_rows = 1 << log_t;
-  const int rs = wide_stride(wk);
-  int64_t* s_pay = s + (size_t)rs * t_rows;
-  int* s_idx = reinterpret_cast<int*>(s_pay + (PAY ? t_rows : 0));
-  const int64_t base = (int64_t)blockIdx.x << log_t;
-  const int n = (int)(m - base < t_rows ? m - base : t_rows);
+struct WideTile {
+  const int64_t* s;
+  const int64_t* pay;
+  int64_t* slot;
+  int rs, wk, n;
 
-  for (int g = threadIdx.x; g < n * wk; g += blockDim.x) {
-    const int r = g / wk;
-    s[r * rs + (g - r * wk)] = ik[base * wk + g];
+  __device__ __forceinline__ int64_t& at(int p) const {
+    return slot[swizzled<kWideLogE>(p)];
   }
-  if constexpr (PAY) {
-    for (int r = threadIdx.x; r < n; r += blockDim.x) s_pay[r] = ip[base + r];
-  }
-  for (int r = threadIdx.x; r < t_rows; r += blockDim.x) s_idx[r] = r;
-  __syncthreads();
-
-  // row a strictly before row b
-  auto before = [&](int a, int b) {
+  // row a strictly before row b in the full order: the key from the last
+  // column down, then the payload; pad rows last
+  __device__ __forceinline__ bool before(int a, int b) const {
     if (a >= n) return false;
     if (b >= n) return true;
     const int64_t* x = s + a * rs;
@@ -403,30 +426,125 @@ wide_sort_kernel(const int64_t* __restrict__ ik,
     for (int w = wk - 1; w >= 0; --w) {
       if (x[w] != y[w]) return x[w] < y[w];
     }
-    return PAY && s_pay[a] < s_pay[b];
-  };
+    return PAY && pay[a] < pay[b];
+  }
+};
+
+// A proxy packs the row's top column above its 16-bit row number, while
+// the top column lies in [0, kProxyTop] (32-bit limbs do); pad rows take
+// kProxyTop, and sort after every real row by their numbers.
+constexpr int kProxyBits = 16;
+constexpr int64_t kProxyTop = ((int64_t)1 << (63 - kProxyBits)) - 1;
+
+// The bitonic network of tile_kernel's sort on the tile's proxies, one
+// int64 each, moved between layouts through the slots: leaves position
+// p's row number in t.at(p). Returns false, having sorted nothing, when a
+// top column of the tile lies outside [0, kProxyTop].
+template <bool PAY>
+__device__ __forceinline__ bool proxy_network(const WideTile<PAY>& t,
+                                              int log_t) {
+  using R = Row<1, false, true>;
+  int64_t v[kWideE][1];
+  bool outside = false;
+  int base = layout_base<kWideLogE>(0);
+#pragma unroll
+  for (int e = 0; e < kWideE; ++e) {
+    const int r = base | e;
+    const int64_t top = r < t.n ? t.s[(int64_t)r * t.rs + t.wk - 1]
+                                : kProxyTop;
+    outside |= (uint64_t)top > (uint64_t)kProxyTop;
+    v[e][0] = (int64_t)(((uint64_t)top << kProxyBits) | (uint64_t)r);
+  }
+  if (__syncthreads_or(outside)) return false;
+  int j = 0;
+  for (int lk = 1; lk <= log_t; ++lk) {
+    steps_down<R, kWideE, kWideLogE>(v, t.slot, j, lk - 1,
+                                     lk < log_t ? lk : -1);
+  }
+  __syncthreads();
+  base = layout_base<kWideLogE>(j);
+#pragma unroll
+  for (int e = 0; e < kWideE; ++e) {
+    t.at(base | (e << j)) = v[e][0] & ((1 << kProxyBits) - 1);
+  }
+  return true;
+}
+
+// The bitonic network on the row numbers in the slots, whole rows
+// compared, one thread a pair each step.
+template <bool PAY>
+__device__ void wide_full_network(const WideTile<PAY>& t, int log_t) {
+  const int t_rows = 1 << log_t;
   for (int k = 2; k <= t_rows; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int p = threadIdx.x; p < t_rows / 2; p += blockDim.x) {
         const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int a = s_idx[i], b = s_idx[i + j];
+        const int a = (int)t.at(i), b = (int)t.at(i + j);
         // ascending in the k-row blocks whose bit k is clear
-        if ((i & k) ? before(a, b) : before(b, a)) {
-          s_idx[i] = b;
-          s_idx[i + j] = a;
+        if ((i & k) ? t.before(a, b) : t.before(b, a)) {
+          t.at(i) = b;
+          t.at(i + j) = a;
         }
       }
       __syncthreads();
     }
   }
+}
 
-  for (int g = threadIdx.x; g < n * wk; g += blockDim.x) {
-    const int r = g / wk;
-    ok[base * wk + g] = s[s_idx[r] * rs + (g - r * wk)];
+template <bool PAY>
+__global__ void __launch_bounds__(256, 1)
+wide_sort_kernel(const int64_t* __restrict__ ik,
+                 const int64_t* __restrict__ ip, int64_t* __restrict__ ok,
+                 int64_t* __restrict__ op, int64_t m, int wk, uint32_t wk_inv,
+                 int log_t) {
+  extern __shared__ __align__(16) int64_t s[];
+  const int t_rows = 1 << log_t;
+  const int rs = wide_stride(wk);
+  int64_t* s_pay = s + (size_t)rs * t_rows;
+  const int64_t base = (int64_t)blockIdx.x << log_t;
+  const int n = (int)(m - base < t_rows ? m - base : t_rows);
+  const WideTile<PAY> t{s, s_pay, s_pay + (PAY ? t_rows : 0), rs, wk, n};
+
+  // word e of the tile is column e mod wk of row e / wk
+  const int64_t* src = ik + base * wk;
+  for (int e = threadIdx.x; e < n * wk; e += blockDim.x) {
+    const int r = divide(e, wk_inv);
+    cp_async8(s + r * rs + (e - r * wk), src + e);
   }
   if constexpr (PAY) {
     for (int r = threadIdx.x; r < n; r += blockDim.x) {
-      op[base + r] = s_pay[s_idx[r]];
+      cp_async8(s_pay + r, ip + base + r);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  const bool check = t_rows >= 32 * kWideE && proxy_network<PAY>(t, log_t);
+  if (!check) {
+    for (int p = threadIdx.x; p < t_rows; p += blockDim.x) t.at(p) = p;
+  }
+  __syncthreads();
+  // a pair out of order among the real rows (pads follow them all)
+  bool unsorted = !check;
+  if (check) {
+    for (int p = threadIdx.x + 1; p < n; p += blockDim.x) {
+      const int a = (int)t.at(p - 1), b = (int)t.at(p);
+      if (s[a * rs + wk - 1] == s[b * rs + wk - 1] && t.before(b, a)) {
+        unsorted = true;
+      }
+    }
+  }
+  if (__syncthreads_or(unsorted)) wide_full_network<PAY>(t, log_t);
+
+  int64_t* dst = ok + base * wk;
+  for (int e = threadIdx.x; e < n * wk; e += blockDim.x) {
+    const int p = divide(e, wk_inv);
+    dst[e] = s[t.at(p) * rs + (e - p * wk)];
+  }
+  if constexpr (PAY) {
+    for (int p = threadIdx.x; p < n; p += blockDim.x) {
+      op[base + p] = s_pay[t.at(p)];
     }
   }
 }
@@ -635,19 +753,19 @@ int launch_wide_sort(const void* keys, const void* pay, void* out_keys,
                      void* out_pay, int64_t m, int wk, int log_t,
                      cudaStream_t s) {
   const size_t bytes = wide_tile_bytes(wk, pay != nullptr, log_t);
-  if (bytes > (size_t)kSharedBytes) return (int)cudaErrorInvalidValue;
+  if (bytes > (size_t)kSharedBytes || wide_threads(log_t) > 256) {
+    return (int)cudaErrorInvalidValue;
+  }
   auto kernel = pay ? wide_sort_kernel<true> : wide_sort_kernel<false>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const int64_t blocks = (m + ((int64_t)1 << log_t) - 1) >> log_t;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int half = (1 << log_t) / 2;
-  const int threads = half < 32 ? 32 : (half > 1024 ? 1024 : half);
   if (blocks > 0) {
-    kernel<<<(unsigned)blocks, threads, bytes, s>>>(
+    kernel<<<(unsigned)blocks, wide_threads(log_t), bytes, s>>>(
         (const int64_t*)keys, (const int64_t*)pay, (int64_t*)out_keys,
-        (int64_t*)out_pay, m, wk, log_t);
+        (int64_t*)out_pay, m, wk, recip(wk), log_t);
   }
   return (int)cudaGetLastError();
 }
@@ -675,8 +793,8 @@ constexpr GroupWkFn kGroup[] = {
 }  // namespace
 
 // Sort each tile of 2^log_t rows; the tile, (wk + payload) * 8 bytes a
-// row, must fit in 96 KiB up to 7 columns; above (any width), with its
-// row numbers at the wide kernel's row stride, in 227 KB
+// row, must fit in 96 KiB up to 7 columns; above (any width), at the
+// wide kernel's row stride with a slot a row (wide_tile_bytes), in 227 KB
 // (kernels/bitonic.py tile_rows). pay and out_pay NULL: keys only; a
 // payload is compared after the key.
 extern "C" int jf_block_sort(const void* keys, const void* pay,

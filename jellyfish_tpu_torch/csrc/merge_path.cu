@@ -43,12 +43,15 @@
 // workarounds, pallas_merge_probe.py:3-15).
 //
 // Keys of any width (k > 112): each entry has template instances for 1-7
-// columns and one wide instance (WK = 0) that reads the width at run time
+// columns and a wide instance (WK = 0) that reads the width at run time
 // and runs above 7 columns. Its rows are compared by a loop over the
 // columns; jf_merge_path stages its tile (512 rows, fewer once that many
-// would overflow shared memory) in dynamic shared memory; jf_merge_pass
-// takes tiles of 5, 3 or 1 rows a thread, or of fewer rows than threads,
-// whichever is the largest whose two stages fit in 227 KB (pass_rows).
+// would overflow shared memory) in dynamic shared memory. jf_merge_pass
+// runs its own wide kernel (wide_pass_kernel: rows staged at an odd
+// stride, below), with instances at Wk 8 and 13 beside the run-time
+// width, on tiles of 5, 3 or 1 rows a thread, or of fewer rows than
+// threads, whichever is the largest whose two stages fit in 227 KB
+// (pass_rows).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -203,24 +206,39 @@ __host__ __device__ constexpr PassShape pass_shape(int rows, int wk,
                    2 * stage_words * 8 + (int64_t)rows * 4};
 }
 
+// The wide pass's tile (wide_pass_kernel, below): two stages of rows at
+// the odd stride wk | 1 words (and the payload), and the source row of
+// each output.
+struct WideShape {
+  int items, rows, stride, stage_words;
+  int64_t bytes;
+};
+
+__host__ __device__ constexpr WideShape wide_shape(int rows, int wk,
+                                                   bool pay) {
+  const int64_t stage = (int64_t)rows * ((wk | 1) + (pay ? 1 : 0));
+  return WideShape{(rows + kThreads - 1) / kThreads, rows, wk | 1,
+                   (int)stage, 2 * stage * 8 + (int64_t)rows * 4};
+}
+
 // The tile rows of a pass over rows of wk key columns (and a payload),
 // kernels/merge_path.py pass_tile_rows: 256 threads of 17, 9 or 5 rows up
-// to 7 columns; above, the most odd rows a thread of 5, 3 and 1 that fit,
-// else the most even rows below 256 (tiles start at even rows, for the
-// 16-byte stores of merge_staged); fewer than 2 rows: the width is too
-// wide.
+// to 7 columns; above, the most odd rows a thread of 5, 3 and 1 whose
+// wide_shape fits, else the most even rows below 256 (tiles start at even
+// rows, for the 16-byte stores of the write-out); fewer than 2 rows: the
+// width is too wide.
 __host__ __device__ constexpr int pass_rows(int wk, bool pay) {
   const int cols = wk + (pay ? 1 : 0);
   if (wk <= kNarrowCols) {
     return kThreads * (cols <= 2 ? 17 : (cols <= 5 ? 9 : 5));
   }
   for (int items = 5; items >= 1; items -= 2) {
-    if (pass_shape(kThreads * items, wk, pay).bytes <= kSharedBytes) {
+    if (wide_shape(kThreads * items, wk, pay).bytes <= kSharedBytes) {
       return kThreads * items;
     }
   }
-  const int64_t fixed = 16 * (4 + (pay ? 4 : 0));
-  return (int)((kSharedBytes - fixed) / (16 * (int64_t)cols + 4)) & ~1;
+  const int64_t row = 16 * (int64_t)((wk | 1) + (pay ? 1 : 0)) + 4;
+  return (int)(kSharedBytes / row) & ~1;
 }
 
 // The pairs of one pass: pair p holds rows [2 p run, 2 p run + 2 run) of
@@ -254,19 +272,6 @@ splits_kernel(const int64_t* __restrict__ keys, Pairs pr, int64_t tile,
                                  d < na + nb ? d : na + nb, wk);
 }
 
-__device__ __forceinline__ void cp_async16(int64_t* dst, const int64_t* src) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(int64_t* dst, const int64_t* src) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
 // Starts copying words src[0, n) to dst[off, off + n), off = 1 when src is
 // 8 bytes past a 16-byte boundary, else 0, so that 16-byte copies line up
 // on both sides (dst is 16-byte aligned); the word at a misaligned end goes
@@ -294,18 +299,6 @@ struct Win {
   int na, nb;
   int ka, kb, pa, pb;
 };
-
-// The shape of the pass's tiles: the instance's own (WK > 0), else the
-// one the launcher computed for wk.
-template <int WK, bool PAY>
-__device__ __forceinline__ PassShape shape_of(const PassShape& wide) {
-  if constexpr (WK > 0) {
-    constexpr PassShape s = pass_shape(pass_rows(WK, PAY), WK, PAY);
-    return s;
-  } else {
-    return wide;
-  }
-}
 
 // Tile t of the pass from its splits s0, s1, with its copies started into
 // stage `st` (committed as one group).
@@ -390,15 +383,14 @@ __device__ __forceinline__ void merge_staged(const int64_t* st, const Win& w,
 
 // The pairs' tiles t = blockIdx.x, blockIdx.x + gridDim.x, ...: the
 // block's k-th tile merges in stage k mod 2 while the next one's copies
-// fill the other stage. Each tile's splits are read a tile ahead. `wide`
-// is the wide instance's shape (WK = 0), unread by the others.
+// fill the other stage. Each tile's splits are read a tile ahead. WK is
+// 1-7 (wider keys run wide_pass_kernel, below).
 template <int WK, bool PAY>
 __global__ void __launch_bounds__(kThreads, 2)
 pass_kernel(const int64_t* __restrict__ ik, const int64_t* __restrict__ ip,
             Pairs pr, const int64_t* __restrict__ splits, int64_t tiles,
-            int64_t* __restrict__ ok, int64_t* __restrict__ op, int wk,
-            PassShape wide) {
-  const PassShape P = shape_of<WK, PAY>(wide);
+            int64_t* __restrict__ ok, int64_t* __restrict__ op, int wk) {
+  constexpr PassShape P = pass_shape(pass_rows(WK, PAY), WK, PAY);
   extern __shared__ __align__(16) int64_t smem[];
   int* s_src = reinterpret_cast<int*>(smem + 2 * P.stage_words);
   const int64_t step = gridDim.x;
@@ -429,6 +421,198 @@ pass_kernel(const int64_t* __restrict__ ik, const int64_t* __restrict__ ip,
     }
     merge_staged<WK, PAY>(smem + buf * P.stage_words, w, s_src, ok, op,
                           P.items, wk);
+    if (next >= tiles) break;
+    t = next;
+    w = wn;
+  }
+}
+
+// -- the wide pass ------------------------------------------------------------
+
+// jf_merge_pass above kNarrowCols columns (k > 112): pass_kernel's scheme
+// (the partition pass's splits, persistent blocks, the next tile's copies
+// in flight in the other of two stages) with rows staged for rows of any
+// width. What the narrow instances get from a compile-time width, and
+// what the wide rows lacked:
+//   - a tile's rows are staged at an odd stride of wk | 1 words (8-byte
+//     cp.async, the row and column of each word by a multiply, `divide`),
+//     so that the rows a warp reads at once (its threads walking one run
+//     in step, or rows at random) fall on spread banks; at the even
+//     stride of 8 words, the rows of a warp's compares met on 2 of the
+//     16 8-byte bank slots;
+//   - compares run from the top column down and stop at the first
+//     difference (row_le), the width unrolled in the compile-time
+//     instances for Wk 8 (k 113-128) and Wk 13 (k 193-208), the widths
+//     of 150- and 250-base reads' assembly k;
+//   - the merged tile is written out as 16-byte vectors whose row comes
+//     from a multiply, not a division, and whose source row is recorded
+//     once an output row.
+// Bound on this card: bytes, as the narrow pass; a block takes 87-227 KB
+// of shared memory, so one runs on each SM.
+template <int WK>
+__device__ __forceinline__ int wide_div(int x, uint32_t inv) {
+  if constexpr (WK > 0) {
+    return (int)((unsigned)x / (unsigned)WK);
+  } else {
+    return divide(x, inv);
+  }
+}
+
+// split's rule on A and B staged at `stride` words a row
+template <int WK>
+__device__ __forceinline__ int split_staged(const int64_t* a, int na,
+                                            const int64_t* b, int nb,
+                                            int diag, int stride, int wk) {
+  int lo = diag > nb ? diag - nb : 0;
+  int hi = diag < na ? diag : na;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (row_le<WK>(a + mid * stride, b + (diag - 1 - mid) * stride, wk)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// A wide tile's windows: rows a, b of the array start A's and B's, row o
+// the output's; staged A then B, row r of the stage at r stride words.
+struct WideWin {
+  int64_t a, b, o;
+  int na, nb;
+};
+
+// Tile t of the pass from its splits s0, s1, with its copies started into
+// stage `st` (committed as one group).
+template <int WK, bool PAY>
+__device__ __forceinline__ WideWin wide_start(const Pairs& pr, int64_t t,
+                                              int64_t s0, int64_t s1,
+                                              const int64_t* ik,
+                                              const int64_t* ip, int64_t* st,
+                                              const WideShape& P, int W,
+                                              int S, uint32_t inv) {
+  const int64_t pair = t / pr.steps;
+  const int64_t d0 = (t - pair * pr.steps) * P.rows;
+  int64_t base, na, nb;
+  pr.of(pair, base, na, nb);
+  const int64_t d1 = d0 + P.rows < na + nb ? d0 + P.rows : na + nb;
+  WideWin w;
+  w.a = base + s0;
+  w.b = base + na + (d0 - s0);
+  w.o = base + d0;
+  w.na = (int)(s1 - s0);
+  w.nb = d1 > d0 ? (int)(d1 - d0) - w.na : 0;
+  // word e of the window is A's word e, then B's word e - na W
+  const int words_a = w.na * W;
+  const int64_t* ka = ik + w.a * W;
+  const int64_t* kb = ik + w.b * W;
+  for (int e = threadIdx.x; e < (w.na + w.nb) * W; e += kThreads) {
+    const int r = wide_div<WK>(e, inv);
+    cp_async8(st + r * S + (e - r * W),
+              e < words_a ? ka + e : kb + (e - words_a));
+  }
+  if constexpr (PAY) {
+    int64_t* sp = st + P.rows * S;
+    for (int r = threadIdx.x; r < w.na + w.nb; r += kThreads) {
+      cp_async8(sp + r, r < w.na ? ip + w.a + r : ip + w.b + (r - w.na));
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  return w;
+}
+
+// Merges the staged tile (each thread `items` outputs from its own split,
+// recording each output's source row) and writes it out, 16 bytes a thread
+// a store.
+template <int WK, bool PAY>
+__device__ __forceinline__ void wide_merge(const int64_t* st, const WideWin& w,
+                                           int* s_src, int64_t* ok,
+                                           int64_t* op, const WideShape& P,
+                                           int W, int S, uint32_t inv) {
+  const int na = w.na, nb = w.nb, n = na + nb;
+  const int64_t* sa = st;
+  const int64_t* sb = st + na * S;
+  const int diag = min((int)threadIdx.x * P.items, n);
+  int i = split_staged<WK>(sa, na, sb, nb, diag, S, W);
+  int j = diag - i;
+  const int end = min(diag + P.items, n);
+  for (int p = diag; p < end; ++p) {
+    const bool take_a =
+        j >= nb || (i < na && row_le<WK>(sa + i * S, sb + j * S, W));
+    s_src[p] = take_a ? i++ : na + j++;
+  }
+  __syncthreads();
+
+  // the tile starts at an even row (tiles and pairs hold even row
+  // counts), so its words at a 16-byte boundary; with W odd a vector's
+  // second word may start the next row
+  const int words = n * W;
+  int64_t* out = ok + w.o * W;
+  for (int c = threadIdx.x; 2 * c + 1 < words; c += kThreads) {
+    const int p = wide_div<WK>(2 * c, inv);
+    const int col = 2 * c - p * W;
+    const int64_t* row = st + s_src[p] * S;
+    const int64_t y = col + 1 < W ? row[col + 1] : st[s_src[p + 1] * S];
+    reinterpret_cast<longlong2*>(out)[c] = make_longlong2(row[col], y);
+  }
+  if (words & 1 && threadIdx.x == 0) {
+    out[words - 1] = st[s_src[n - 1] * S + W - 1];
+  }
+  if constexpr (PAY) {
+    const int64_t* sp = st + P.rows * S;
+    int64_t* po = op + w.o;
+    for (int c = threadIdx.x; 2 * c + 1 < n; c += kThreads) {
+      reinterpret_cast<longlong2*>(po)[c] =
+          make_longlong2(sp[s_src[2 * c]], sp[s_src[2 * c + 1]]);
+    }
+    if (n & 1 && threadIdx.x == 0) po[n - 1] = sp[s_src[n - 1]];
+  }
+}
+
+// pass_kernel's loop over the pairs' tiles on the wide stages. WK: 8 or
+// 13 at compile time, or 0, the width wk read at run time.
+template <int WK, bool PAY>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_pass_kernel(const int64_t* __restrict__ ik,
+                 const int64_t* __restrict__ ip, Pairs pr,
+                 const int64_t* __restrict__ splits, int64_t tiles,
+                 int64_t* __restrict__ ok, int64_t* __restrict__ op, int wk,
+                 uint32_t inv, WideShape P) {
+  const int W = width<WK>(wk);
+  const int S = WK > 0 ? (WK | 1) : P.stride;
+  extern __shared__ __align__(16) int64_t smem[];
+  int* s_src = reinterpret_cast<int*>(smem + 2 * P.stage_words);
+  const int64_t step = gridDim.x;
+  int64_t t = blockIdx.x;
+  if (t >= tiles) return;
+  // tile u's splits are entries e and e + 1, e = u + its pair
+  auto splits_of = [&](int64_t u, int64_t& s0, int64_t& s1) {
+    if (u < tiles) {
+      const int64_t e = u + u / pr.steps;
+      s0 = splits[e];
+      s1 = splits[e + 1];
+    }
+  };
+  int64_t s0, s1, n0 = 0, n1 = 0;
+  splits_of(t, s0, s1);
+  WideWin w =
+      wide_start<WK, PAY>(pr, t, s0, s1, ik, ip, smem, P, W, S, inv);
+  splits_of(t + step, n0, n1);
+  for (int buf = 0;; buf ^= 1) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // tile t is staged; every thread is done with the other stage
+    __syncthreads();
+    const int64_t next = t + step;
+    WideWin wn;
+    if (next < tiles) {
+      wn = wide_start<WK, PAY>(pr, next, n0, n1, ik, ip,
+                               smem + (buf ^ 1) * P.stage_words, P, W, S,
+                               inv);
+      splits_of(next + step, n0, n1);
+    }
+    wide_merge<WK, PAY>(smem + buf * P.stage_words, w, s_src, ok, op, P, W,
+                        S, inv);
     if (next >= tiles) break;
     t = next;
     w = wn;
@@ -512,7 +696,7 @@ int launch_tiles(const void* keys, const void* pay, int64_t m, int64_t run,
   const int64_t grid = tiles < resident ? tiles : resident;
   kernel<<<(unsigned)grid, kThreads, P.bytes, s>>>(
       (const int64_t*)keys, (const int64_t*)pay, pr, (const int64_t*)splits,
-      tiles, (int64_t*)out_keys, (int64_t*)out_pay, wk, P);
+      tiles, (int64_t*)out_keys, (int64_t*)out_pay, wk);
   return (int)cudaGetLastError();
 }
 
@@ -526,6 +710,65 @@ int launch_pass(const void* keys, const void* pay, int64_t m, int64_t run,
                                       out_pay, wk, s)
              : launch_tiles<WK, false>(keys, nullptr, m, run, splits,
                                        out_keys, nullptr, wk, s);
+}
+
+template <int WK, bool PAY>
+int launch_wide_tiles(const void* keys, const void* pay, int64_t m,
+                      int64_t run, const void* splits, void* out_keys,
+                      void* out_pay, int wk, cudaStream_t s) {
+  const WideShape P = wide_shape(pass_rows(wk, PAY), wk, PAY);
+  if (m == 0) return (int)cudaGetLastError();
+  int64_t pairs;
+  const Pairs pr = pairs_of(m, run, P.rows, &pairs);
+  const int64_t tiles = pairs * pr.steps;
+  auto kernel = wide_pass_kernel<WK, PAY>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.bytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, P.bytes);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t grid = tiles < resident ? tiles : resident;
+  kernel<<<(unsigned)grid, kThreads, P.bytes, s>>>(
+      (const int64_t*)keys, (const int64_t*)pay, pr, (const int64_t*)splits,
+      tiles, (int64_t*)out_keys, (int64_t*)out_pay, wk, recip(wk), P);
+  return (int)cudaGetLastError();
+}
+
+template <int WK>
+int launch_wide_pass(const void* keys, const void* pay, int64_t m,
+                     int64_t run, const void* splits, void* out_keys,
+                     void* out_pay, int wk, cudaStream_t s) {
+  return pay ? launch_wide_tiles<WK, true>(keys, pay, m, run, splits,
+                                           out_keys, out_pay, wk, s)
+             : launch_wide_tiles<WK, false>(keys, nullptr, m, run, splits,
+                                            out_keys, nullptr, wk, s);
+}
+
+// the wide pass: its compile-time instances at Wk 8 and 13, else the
+// width at run time
+int wide_pass(const void* keys, const void* pay, int64_t m, int64_t run,
+              int64_t tile, const void* splits, void* out_keys, void* out_pay,
+              int wk, cudaStream_t s) {
+  const int rows = pass_rows(wk, pay != nullptr);
+  if (rows < 2 || tile != rows) return (int)cudaErrorInvalidValue;
+  switch (wk) {
+    case 8:
+      return launch_wide_pass<8>(keys, pay, m, run, splits, out_keys,
+                                 out_pay, wk, s);
+    case 13:
+      return launch_wide_pass<13>(keys, pay, m, run, splits, out_keys,
+                                  out_pay, wk, s);
+  }
+  return launch_wide_pass<0>(keys, pay, m, run, splits, out_keys, out_pay,
+                             wk, s);
 }
 
 using MergeFn = int (*)(const void*, const void*, int64_t, const void*,
@@ -544,7 +787,7 @@ constexpr SplitsFn kSplits[] = {launch_splits<0>, launch_splits<1>,
                                 launch_splits<2>, launch_splits<3>,
                                 launch_splits<4>, launch_splits<5>,
                                 launch_splits<6>, launch_splits<7>};
-constexpr PassFn kPass[] = {launch_pass<0>, launch_pass<1>, launch_pass<2>,
+constexpr PassFn kPass[] = {wide_pass,      launch_pass<1>, launch_pass<2>,
                             launch_pass<3>, launch_pass<4>, launch_pass<5>,
                             launch_pass<6>, launch_pass<7>};
 static_assert(sizeof(kPass) / sizeof(kPass[0]) == kNarrowCols + 1);

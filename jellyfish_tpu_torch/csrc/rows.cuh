@@ -37,6 +37,33 @@ __device__ __forceinline__ bool row_le(const int64_t* a, const int64_t* b,
   return true;
 }
 
+// x / d for the wide instances' word and row indices, d >= 2 read at run
+// time: x * ceil(2^32 / d) >> 32 (`recip` on the host, `divide` on the
+// device), exact while x * d < 2^32: a tile holds at most kSharedBytes / 8
+// words and d is at most a few thousand columns.
+__host__ __device__ inline uint32_t recip(int d) {
+  return (uint32_t)((((uint64_t)1 << 32) + (uint64_t)d - 1) / (uint64_t)d);
+}
+
+__device__ __forceinline__ int divide(int x, uint32_t r) {
+  return (int)__umulhi((uint32_t)x, r);
+}
+
+// Asynchronous copies from device memory to shared memory (cp.async),
+// committed and awaited by the caller.
+__device__ __forceinline__ void cp_async16(int64_t* dst, const int64_t* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(int64_t* dst, const int64_t* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
 // a < b, the same order without branches (row_lt(a, b) == !row_le(b, a)):
 // from the lowest column up, a < b holds when it holds at this column, or
 // the column ties and it held below.

@@ -77,12 +77,13 @@ def tile_rows(wk: int, payload: bool) -> int:
     """The tile entries' largest tile: the largest power of two T with T
     rows of (wk + payload) int64 columns in SHARED_TILE_BYTES; above
     NARROW_KEY_COLS (the wide block sort, csrc/bitonic.cu
-    wide_tile_bytes), with the rows at an odd stride of wk | 1 columns and
-    a 4-byte row number each, in SHARED_BYTES."""
+    wide_tile_bytes), with the rows at an odd stride of wk | 1 columns,
+    the payload and an 8-byte slot for each row's number, in
+    SHARED_BYTES."""
     cols = wk + int(payload)
     if wk <= NARROW_KEY_COLS:
         return 1 << ((SHARED_TILE_BYTES // (8 * cols)).bit_length() - 1)
-    row = 8 * ((wk | 1) + int(payload)) + 4
+    row = 8 * ((wk | 1) + int(payload) + 1)
     return 1 << ((SHARED_BYTES // row).bit_length() - 1)
 
 

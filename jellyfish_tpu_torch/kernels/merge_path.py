@@ -10,7 +10,7 @@ first (ops/count.fold_adjacent sums them).
 
 Keys of 1-7 columns (k <= 112) run the kernel's template instances; wider
 keys, up to MAX_KEY_COLS, its wide instance, which reads the width at run
-time (csrc/merge_path.cu).
+time, or merge_pass's instances at 8 and 13 columns (csrc/merge_path.cu).
 
 `merge_pass` is one pass of a merge sort (kernels/sort.py): every adjacent
 pair of sorted runs of L rows merged at once, the payload optional. On the
@@ -100,9 +100,13 @@ merge_path.launches = 0
 
 
 def _pass_bytes(rows: int, wk: int, payload: bool) -> int:
-    """Shared memory of a merge_pass tile (csrc/merge_path.cu pass_shape):
-    two stages of the key and payload windows, each with slack words, and
-    the source row of each output."""
+    """Shared memory of a merge_pass tile: two stages of the key and
+    payload windows and the source row of each output. Up to 7 columns
+    (csrc/merge_path.cu pass_shape) the keys are packed, with slack words
+    for the 16-byte copies; above (wide_shape), rows sit at the odd stride
+    of wk | 1 words."""
+    if wk > NARROW_KEY_COLS:
+        return 16 * rows * ((wk | 1) + int(payload)) + 4 * rows
     stage = rows * wk + 4 + (rows + 4 if payload else 0)
     return 16 * stage + 4 * rows
 
@@ -119,8 +123,7 @@ def pass_tile_rows(wk: int, payload: bool) -> int:
     for items in (5, 3, 1):
         if _pass_bytes(256 * items, wk, payload) <= SHARED_BYTES:
             return 256 * items
-    fixed = 16 * (4 + 4 * int(payload))
-    return (SHARED_BYTES - fixed) // (16 * cols + 4) & ~1
+    return SHARED_BYTES // _pass_bytes(1, wk, payload) & ~1
 
 
 def _widest_keys() -> int:
@@ -133,7 +136,7 @@ def _widest_keys() -> int:
     return lo
 
 
-# The widest keys the kernels take: 7,258 columns (k <= 116,128)
+# The widest keys the kernels take: 7,261 columns (k <= 116,176)
 MAX_KEY_COLS = _widest_keys()
 
 

@@ -20,10 +20,17 @@ phase, row 12's mirrored step, block_sort, block_merge and the whole pair
 sort; K1's merge_pass at the k = 63 grain (2^26 rows, Wk 4, keys only) in
 runs of 2^22 and of 2,048 (its first pass) and at 2^24 rows of Wk 1 +
 payload in runs of 2^22, and K1's merge_path at row 1's shape (A 2^24 + B
-2^24 rows, Wk 1 with counts, 90% of keys in both). Needs a CUDA card; the
-wrappers' APIs must match across the trees.
+2^24 rows, Wk 1 with counts, 90% of keys in both). The wide cases (labels
+from "wide", keys above 7 columns) time the grain sort of k = 127 (2^26
+rows of Wk 8, keys only) at 40% and at 84% PAD rows (the share of a
+full-size k = 127 count): K3's block_sort, K1's merge_pass on its first
+pass (runs of one block_sort tile) and on runs of 2^22, merge_splits of
+the latter, and the whole sort_rows_blocked; and sort_rows_blocked of the
+k = 200 grain (2^25 rows of Wk 13, 80% PAD, as 250-base reads give). Needs
+a CUDA card; the wrappers' APIs must match across the trees.
 
-With --only, only the cases whose label starts with PREFIX run.
+With --only, only the cases whose label starts with PREFIX run (and only
+their inputs are made: `--only wide` makes none of the narrow cases').
 
 Prints one JSON line a run, then the card's name and power limit (nvidia-smi)
 and a JSON object of each case's times (ms a call; a window for row 9), one
@@ -33,6 +40,7 @@ a run in the order given; writes the same to chiprun_out/kernel_ab.json.
 from __future__ import annotations
 
 import importlib.util
+import itertools
 import json
 import os
 import subprocess
@@ -54,9 +62,10 @@ def _smoke():
     return mod
 
 
-def cases(dev):
-    """(label, fn, calls a timed call makes) for every case, on inputs made
-    from fixed seeds."""
+def cases(dev, only=""):
+    """(label, fn, calls a timed call makes) for every narrow case, on
+    inputs made from fixed seeds; none when `only` selects the wide
+    cases."""
     import torch
 
     from jellyfish_tpu_torch.kernels.bitonic import (
@@ -69,6 +78,8 @@ def cases(dev):
     from jellyfish_tpu_torch.kernels.sort import sort_pairs_bitonic
     from jellyfish_tpu_torch.kernels.window import roll_lanes, window_rows
 
+    if only.startswith("wide"):
+        return []
     cycle = _smoke()._cycle
     g = torch.Generator(device=dev).manual_seed(88)
 
@@ -175,6 +186,69 @@ def merge_cases(dev, g, ints):
     return out
 
 
+def wide_cases(dev, only=""):
+    """The wide instances' cases, made one grain at a time (a grain of
+    2^26 rows of Wk 8 is 4 GiB) and yielded as they are made, so that a
+    grain is freed before the next is drawn. A grain's rows come from a
+    pool of 2^24 random rows of 32-bit limbs (few repeat), a share of them
+    the all-ones PAD row, as in a count's grain."""
+    if not ("wide".startswith(only) or only.startswith("wide")):
+        return
+    import torch
+
+    from jellyfish_tpu_torch.kernels.bitonic import block_sort, tile_rows
+    from jellyfish_tpu_torch.kernels.merge_path import (
+        merge_pass,
+        merge_splits,
+        pass_tile_rows,
+    )
+    from jellyfish_tpu_torch.kernels.sort import sort_rows_blocked
+
+    g = torch.Generator(device=dev).manual_seed(127)
+
+    def grain(m, wk, pad):
+        pool = torch.randint(0, 1 << 32, (1 << 24, wk), device=dev,
+                             generator=g)
+        x = pool[torch.randint(0, 1 << 24, (m,), device=dev, generator=g)]
+        x[torch.rand(m, device=dev, generator=g) < pad] = (1 << 32) - 1
+        return x
+
+    def runs_of(x, run):
+        return torch.cat([sort_rows_blocked(x[s:s + run].contiguous())[0]
+                          for s in range(0, len(x), run)])
+
+    def wanted(*labels):
+        return any(label.startswith(only) for label in labels)
+
+    m, wk, run = 1 << 26, 8, 1 << 22
+    tile = tile_rows(wk, False)
+    for pad in (40, 84):
+        x = grain(m, wk, pad / 100)
+        tag = f"2^26 rows, Wk {wk}, keys only, {pad}% PAD"
+        yield f"wide K3 block_sort {tag}", lambda: block_sort(x), 1
+        label = (f"wide K1 merge_pass {tag}, the first pass (runs of one "
+                 "block_sort tile)")
+        if wanted(label):
+            first = block_sort(x)[0]
+            yield label, lambda: merge_pass(first, tile), 1
+            del first
+        labels = (f"wide K1 merge_pass {tag}, runs of 2^22",
+                  f"wide K1 merge_splits {tag}, runs of 2^22, the pass's "
+                  "tiles")
+        if wanted(*labels):
+            long_runs = runs_of(x, run)
+            yield labels[0], lambda: merge_pass(long_runs, run), 1
+            yield (labels[1], lambda: merge_splits(
+                long_runs, run, pass_tile_rows(wk, False)), 1)
+            del long_runs
+        yield f"wide sort_rows_blocked {tag}", lambda: sort_rows_blocked(x), 1
+        del x
+        torch.cuda.empty_cache()
+    x = grain(1 << 25, 13, 0.8)
+    yield ("wide sort_rows_blocked 2^25 rows, Wk 13, keys only, 80% PAD "
+           "(the k = 200 grain)", lambda: sort_rows_blocked(x), 1)
+
+
 def run_tree(tree: str, only: str = "") -> dict:
     """Build TREE's kernels and time every case there (this process)."""
     sys.path.insert(0, str(Path(tree).resolve()))
@@ -190,7 +264,8 @@ def run_tree(tree: str, only: str = "") -> dict:
     smoke = _smoke()
     dev = torch.device("cuda", 0)
     ms = {}
-    for label, fn, calls in cases(dev):
+    for label, fn, calls in itertools.chain(cases(dev, only),
+                                            wide_cases(dev, only)):
         if not label.startswith(only):
             continue
         ms[label] = smoke.cuda_ms(fn, reps=10) / calls

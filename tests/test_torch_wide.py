@@ -53,6 +53,18 @@ def _rows(seed, m, wk):
     return torch.from_numpy(x)
 
 
+def _ties(seed, m, wk):
+    """m rows whose top column takes 3 values and every other column 4:
+    most rows tie on the top column and differ below it, many are exact
+    duplicates; 10% PAD rows."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 4, (256, wk), dtype=np.int64)
+    pool[:, -1] = rng.integers(0, 3, 256)
+    x = pool[rng.integers(0, 256, m)]
+    x[rng.random(m) < 0.1] = M32
+    return torch.from_numpy(x)
+
+
 def _sorted_runs(keys, run):
     keys = keys.clone()
     for s in range(0, len(keys), run):
@@ -60,14 +72,17 @@ def _sorted_runs(keys, run):
     return keys
 
 
+@pytest.mark.parametrize("rows", [_rows, _ties])
 @pytest.mark.parametrize("payload", [False, True])
 @pytest.mark.parametrize("wk", WIDE)
-def test_block_sort_wide(wk, payload):
-    """Each tile sorted (the key, then the payload), at the width's
-    default tile and at 64 rows, the last tile ragged."""
+def test_block_sort_wide(wk, payload, rows):
+    """Each tile sorted (the key, then the payload, shuffled so that row
+    order is no guide), at the width's default tile and at 64 rows, the
+    last tile ragged; on pooled rows and on rows that mostly tie on the
+    top column (what the wide kernel's check holds a tile to)."""
     tile = tile_rows(wk, payload)
     m = 2 * tile + 37
-    keys = _rows(100 + wk, m, wk)
+    keys = rows(100 + wk, m, wk)
     pay = torch.arange(m) * 7 % m if payload else None
     for t in (tile, 64):
         got, gp = block_sort(keys, pay, t)
@@ -79,14 +94,16 @@ def test_block_sort_wide(wk, payload):
                                                               pay[seg][o])
 
 
+@pytest.mark.parametrize("rows", [_rows, _ties])
 @pytest.mark.parametrize("run", [1, 5, 64])
 @pytest.mark.parametrize("wk", WIDE)
-def test_merge_pass_wide(wk, run):
+def test_merge_pass_wide(wk, run, rows):
     """Every adjacent pair of sorted runs merged stably (the earlier run
     first on ties), with a row-index payload and keys only; a short last
-    pair and a lone last run."""
+    pair and a lone last run; on pooled rows and on rows that mostly tie
+    on the top column."""
     m = 7 * run + run // 2 + 1
-    keys = _sorted_runs(_rows(200 + wk + run, m, wk), run)
+    keys = _sorted_runs(rows(200 + wk + run, m, wk), run)
     pay = torch.arange(m)
     got, gp = merge_pass(keys, run, pay)
     for s in range(0, m, 2 * run):
@@ -148,29 +165,43 @@ def test_sort_rows_blocked_wide(wk):
 def test_tile_geometry_of_every_width():
     """merge_pass tiles: the narrow instances' unchanged; above 7 columns
     5, 3 or 1 rows a thread of 256, else the most even rows that fit, two
-    stages in the block's 227 KB, at least 2 rows up to MAX_KEY_COLS and
-    fewer past it. block_sort tiles: a power of two whose rows, at the odd
-    stride wk | 1 with a 4-byte row number, fit the same."""
+    stages of rows at the odd stride wk | 1 (and the payload) in the
+    block's 227 KB, at least 2 rows up to MAX_KEY_COLS and fewer past it.
+    block_sort tiles: a power of two whose rows, at the odd stride wk | 1
+    with the payload and an 8-byte slot for the row number, fit the
+    same."""
     assert [pass_tile_rows(wk, True) for wk in range(1, 8)] == [
         4352, 2304, 2304, 2304, 1280, 1280, 1280]
     assert [pass_tile_rows(wk, False) for wk in (8, 13, 16, 32, 56)] == [
-        1280, 768, 768, 256, 256]
+        1280, 768, 768, 256, 252]
     for wk in [*range(8, 200), 1000, 4096, MAX_KEY_COLS]:
         for payload in (False, True):
             rows = pass_tile_rows(wk, payload)
             assert rows >= 2 and rows % 2 == 0
             assert _pass_bytes(rows, wk, payload) <= SHARED_BYTES
+            assert _pass_bytes(rows, wk, payload) == (
+                16 * rows * ((wk | 1) + payload) + 4 * rows)
             if rows < 256:
                 assert _pass_bytes(rows + 2, wk, payload) > SHARED_BYTES
             t = tile_rows(wk, payload)
             assert t & (t - 1) == 0
-            assert t * (8 * ((wk | 1) + payload) + 4) <= SHARED_BYTES
-            assert 2 * t * (8 * ((wk | 1) + payload) + 4) > SHARED_BYTES
-    assert MAX_KEY_COLS == 7258  # k <= 116,128, as the README states
+            assert t * 8 * ((wk | 1) + payload + 1) <= SHARED_BYTES
+            assert 2 * t * 8 * ((wk | 1) + payload + 1) > SHARED_BYTES
+    assert MAX_KEY_COLS == 7261  # k <= 116,176, as the README states
     assert pass_tile_rows(MAX_KEY_COLS + 1, True) < 2
     assert tile_rows(NARROW_KEY_COLS, False) == 1024
     assert [tile_rows(wk, False) for wk in WIDE] == [2048, 2048, 2048,
                                                      1024, 512]
+
+
+@pytest.mark.parametrize("wk", [8, 13, 64, MAX_KEY_COLS])
+def test_wide_division_is_exact(wk):
+    """The wide kernels find a word's row as x * ceil(2^32 / wk) >> 32
+    (csrc/rows.cuh recip and divide): exact for every word index of a
+    tile, which holds at most SHARED_BYTES / 8 words."""
+    x = np.arange(SHARED_BYTES // 8 + 1, dtype=np.uint64)
+    r = np.uint64(-(-(1 << 32) // wk))
+    assert np.array_equal((x * r) >> np.uint64(32), x // np.uint64(wk))
 
 
 def test_counter_width_limit():
