@@ -80,10 +80,11 @@ instances: K1's merge_path, merge_pass and merge_splits, K2 with and
 without its keep mask and K3's block_sort held against their plain
 versions at Wk 8, 13, 16 and 32 (k = 127, 200, 256 and 512), keys only
 and with a row-index payload (block_sort also with a shuffled one), on
-grains of 40% and 84% PAD rows and on rows that tie on the top column,
-merge_pass in runs of 1, 2,048 and 2^16 rows, block_sort with a ragged
-last tile, each again at the smallest tiles, at Wk 64 and at the widest
-keys taken (MAX_KEY_COLS, 7,261 columns; wide_branches), and each timed
+grains of 40% and 84% PAD rows (the top limb of a count's bits) and on
+rows that tie on the top column, block_sort also at Wk 8 and 13 on top
+columns below 0 and from 2^47 up (wild_tops), merge_pass in runs of 1,
+2,048 and 2^16 rows, block_sort with a ragged last tile, each again at
+the smallest tiles, at Wk 64 and at the widest keys taken (MAX_KEY_COLS, 7,261 columns; wide_branches), and each timed
 at the k = 127 grain's shape, block_sort and merge_pass (its first pass
 and a pass of runs of 2^22) at 40% and 84% PAD (phase_wide); count through the CLI
 at k = 127 (12 Mbase of 150-base reads) and at k = 200 (10 Mbase of
@@ -930,6 +931,8 @@ def phase_k3(dev):
 
 
 WIDE_WK = (8, 13, 16, 32)  # phase_wide's key widths: k = 127, 200, 256, 512
+# the bits a count's sortkey leaves in the top limb at those k: 2k - 32 (wk - 1)
+WIDE_TOP_BITS = {8: 30, 13: 16, 16: 32, 32: 32}
 # the kernels every count of wide keys must launch (the wide instances)
 WIDE_NEED = ("block_sort", "merge_pass", "merge_splits", "merge_path",
              "compact")
@@ -944,7 +947,9 @@ def phase_wide(dev):
     payload; merge_pass and its splits in runs of 1 (1,025 rows), 2,048
     and 2^16 rows; each on a grain of 40% PAD rows, on one of 84% (a
     full-size k = 127 count's share), and on rows that tie on the top
-    column and differ below it, with many exact duplicates; merge_path of
+    column and differ below it, with many exact duplicates (the top limb
+    of each grain holding the bits a count's sortkey leaves there);
+    block_sort at Wk 8 and 13 also on wild_tops' columns; merge_path of
     two runs that share most keys; compact of a sorted run, 25% live; and
     wide_branches' smallest tiles, at Wk 64 and MAX_KEY_COLS. Then each
     timed at the k = 127 grain's shape (2^26 rows of Wk 8, keys only; the
@@ -974,10 +979,12 @@ def phase_wide(dev):
     g = torch.Generator(device=dev).manual_seed(127)
 
     def grain(n, wk, distinct, pad=0.4):
-        """n rows of wk limbs drawn from `distinct` pooled rows, a share
-        `pad` of them the all-ones PAD row (phase_k3's grain at 40%)."""
+        """n rows of wk limbs drawn from `distinct` pooled rows, their top
+        limb of WIDE_TOP_BITS[wk] bits, a share `pad` of them the all-ones
+        PAD row (phase_k3's grain at 40%)."""
         pool = torch.randint(0, 1 << 32, (distinct, wk), device=dev,
                              generator=g)
+        pool[:, -1] >>= 32 - WIDE_TOP_BITS[wk]
         x = pool[torch.randint(0, distinct, (n,), device=dev, generator=g)]
         x[torch.rand(n, device=dev, generator=g) < pad] = M32
         return x.contiguous()
@@ -1048,6 +1055,12 @@ def phase_wide(dev):
             hold_passes(x, idx, wk, label,
                         ((1025, (1,)), (m, (2048, 1 << 16)))
                         if label == "40% PAD" else ((m, (2048, 1 << 16)),))
+        if wk in (8, 13):
+            x = wild_tops(m, wk, g)
+            hold(f"wide K3 block_sort {m} rows (wild_tops), Wk {wk} (+ "
+                 "shuffled payload)",
+                 lambda: block_sort(x) + block_sort(x, shuffled),
+                 lambda: block_sort_plain(x) + block_sort_plain(x, shuffled))
         del x, idx, shuffled
         a, ac, b, bc = merge_inputs(1 << 16, wk)
         hold(f"wide K1 merge_path 2 x {1 << 16} rows, Wk {wk}",
@@ -1168,6 +1181,35 @@ def phase_wide(dev):
     return {key: dict(name=name, route="cuda", source=src, replaces=rep,
                       **rows[key])
             for key, (name, src, rep) in meta.items()}
+
+
+def wild_tops(m, wk, g):
+    """m rows of wk columns, tile by tile (2,048 rows) of three kinds, for
+    the wide block sort's proxy (its top b bits, then 47 - b bits of the
+    two columns below): a third of the tiles with top columns anywhere in
+    int64 (below 0 and from 2^47 up among them) over random 32-bit limbs;
+    a third with the top three columns drawn from values either side of
+    0, 2^32 and 2^47, so that most rows tie on the proxy and the saturated
+    columns order them; a third of 32-bit limbs whose top column takes 8
+    values, a few rows' top column negative or at 2^47 + 1."""
+    dev = g.device
+    x = torch.randint(0, 1 << 32, (m, wk), device=dev, generator=g)
+    kind = (torch.arange(m, device=dev) >> 11) % 3
+    a = kind == 0
+    x[a, -1] = torch.randint(-(1 << 62), 1 << 62, (int(a.sum()),),
+                             device=dev, generator=g) << 1
+    edges = torch.tensor([-(1 << 63), -2, -1, 0, 1, 5, (1 << 32) - 1,
+                          1 << 32, (1 << 47) - 1, 1 << 47, (1 << 63) - 1],
+                         device=dev)
+    b = kind == 1
+    x[b, -3:] = edges[torch.randint(0, len(edges), (int(b.sum()), 3),
+                                    device=dev, generator=g)]
+    c = kind == 2
+    x[c, -1] = torch.randint(0, 8, (int(c.sum()),), device=dev, generator=g)
+    odd = c & (torch.rand(m, device=dev, generator=g) < 0.02)
+    x[odd, -1] = torch.tensor([-1, (1 << 47) + 1], device=dev)[
+        torch.randint(0, 2, (int(odd.sum()),), device=dev, generator=g)]
+    return x.contiguous()
 
 
 def wide_branches(dev, g):

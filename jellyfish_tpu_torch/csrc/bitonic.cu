@@ -19,8 +19,8 @@
 //     makes the order stable. The last tile is padded with INT64_MAX
 //     rows, which sort last, and only its real rows are written. Above
 //     7 columns (k > 112) a wide kernel (wide_sort_kernel, below) sorts
-//     a proxy of each row (its top column and row number) in registers
-//     and checks the ties on the top column against the whole row.
+//     a proxy of each row (its top 47 bits and row number) in registers
+//     and checks the ties on the proxy against the whole row.
 //   jf_block_merge runs only the plain steps at distances T/2, ..., 1 on
 //     each tile, comparing the key and carrying the payload (row 8's
 //     rule): it sorts a tile that is a bitonic sequence, as the pair sort
@@ -360,24 +360,28 @@ tile_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok, int64_t* op,
 // would not fit in registers: one block a tile of T = 2^log_t rows, staged
 // once in shared memory at an odd row stride (wk | 1 words), so that the
 // rows a warp reads at once fall on spread banks. The network does not
-// compare rows. It sorts one int64 proxy a row, the row's top column
-// above its row number, with tile_kernel's network on rows of one column
-// (E = 8 a thread in registers, moved between layouts through an 8-byte
-// slot a row). Rows that tie on the top column come out in row-number
-// order; one pass over the sorted tile then checks each adjacent pair
-// that ties on the top column against the full order (the lower columns,
-// then the payload). A tile whose pairs all hold is sorted: the PAD rows
-// and repeated mers of a count, equal in every column, cost one such
-// check each instead of a walk over every column at each of the network's
-// 66 steps (T = 2048). A tile with a pair out of order (rows that tie on
-// the top column and differ below it, in the wrong order, or equal keys
-// whose payloads are out of order), or with a top column the proxy cannot
-// hold (outside [0, 2^47)), runs the network again on the row numbers,
-// comparing whole rows (wide_full_network): exact, as slow as the design
-// before the proxies, and rare in a count. Tiles below 32 E rows (keys of
-// some 110 columns or more) take that network alone. The rows go out once, in
-// the final order. Row numbers from n on stand for the last tile's pad
-// rows, which sort after every real row.
+// compare rows. It sorts one int64 a row, the row's proxy above its row
+// number, with tile_kernel's network on rows of one column (E = 8 a
+// thread in registers, T / E threads, moved between layouts through an
+// 8-byte slot a row). The proxy is a 47-bit summary of the row that never
+// decreases along the full order (wide_proxy): the tile's top b bits, then
+// the next 47 - b bits of the two columns below, b being what the tile's
+// top column needs (wide_top_bits). Rows that tie on it come out in
+// row-number order; one pass over the sorted tile then checks each
+// adjacent pair that ties on the proxy against the full order (the lower
+// columns, then the payload). A tile whose pairs all hold is sorted: the
+// PAD rows and repeated mers of a count, equal in every column, cost one
+// such check each instead of a walk over every column at each of the
+// network's 66 steps (T = 2048), and distinct mers of any k share 47
+// bits rarely. A tile with a pair out of order (rows that tie on the
+// proxy and differ below it, in the wrong order, or equal keys whose
+// payloads are out of order) runs the network again on its slots, on
+// every thread of the block, one a pair (wide_full_network): a compare
+// orders two slots by their proxies and reads the rows only when the
+// proxies tie. Tiles below 32 E rows (keys of some 110 columns or more)
+// take that network alone, every proxy 0. The rows go out once, in the
+// final order. Row numbers from n on stand for the last tile's pad rows,
+// which sort after every real row.
 //
 // Bound on this card: bytes, 2 (wk + payload) 8 bytes a row. A block, with
 // its tile of up to 227 KB, holds its SM alone, so its copies do not
@@ -386,6 +390,7 @@ tile_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok, int64_t* op,
 // thread at T = 2048, 26 layout moves) comes on top.
 constexpr int kWideLogE = 3;
 constexpr int kWideE = 1 << kWideLogE;
+constexpr int kWideThreads = 1024;
 
 __host__ __device__ inline int wide_stride(int wk) { return wk | 1; }
 
@@ -396,16 +401,24 @@ __host__ __device__ inline size_t wide_tile_bytes(int wk, bool pay,
   return ((size_t)(wide_stride(wk) + (pay ? 1 : 0) + 1) * 8) << log_t;
 }
 
-// threads of a wide tile: one a pair of rows below 32 E rows (at least a
-// warp), else one per E proxies
+// threads of a wide tile: one a pair of rows (the whole-row network's), at
+// least a warp, at most kWideThreads; the proxy network runs on the first
+// T / E of them
 __host__ __device__ inline int wide_threads(int log_t) {
-  const int t = 1 << log_t;
-  if (t >= 32 * kWideE) return t >> kWideLogE;
-  return t / 2 < 32 ? 32 : t / 2;
+  const int half = (1 << log_t) / 2;
+  return half < 32 ? 32 : half > kWideThreads ? kWideThreads : half;
 }
 
+// A slot packs a proxy of 47 bits above its 16-bit row number; pad rows
+// take kProxyTop, and sort after every real row by their numbers.
+constexpr int kProxyBits = 16;
+constexpr int64_t kProxyTop = ((int64_t)1 << (63 - kProxyBits)) - 1;
+constexpr int64_t kRowMask = (1 << kProxyBits) - 1;
+constexpr int64_t kLimb = 0xffffffffLL;
+
 // The staged tile as the wide kernel reads it: row r at s + r rs, its
-// payload at pay[r], position p's row number in slot[swizzled(p)].
+// payload at pay[r], position p's slot (proxy, row number) at
+// slot[swizzled(p)].
 template <bool PAY>
 struct WideTile {
   const int64_t* s;
@@ -415,6 +428,9 @@ struct WideTile {
 
   __device__ __forceinline__ int64_t& at(int p) const {
     return slot[swizzled<kWideLogE>(p)];
+  }
+  __device__ __forceinline__ int64_t top(int r) const {
+    return s[r * rs + wk - 1];
   }
   // row a strictly before row b in the full order: the key from the last
   // column down, then the payload; pad rows last
@@ -428,50 +444,128 @@ struct WideTile {
     }
     return PAY && pay[a] < pay[b];
   }
+  // slot x strictly before slot y: the proxies, then, when they tie, the
+  // rows (the same order, as a proxy never decreases along it)
+  __device__ __forceinline__ bool slot_before(int64_t x, int64_t y) const {
+    if ((x >> kProxyBits) != (y >> kProxyBits)) return x < y;
+    return before((int)(x & kRowMask), (int)(y & kRowMask));
+  }
 };
 
-// A proxy packs the row's top column above its 16-bit row number, while
-// the top column lies in [0, kProxyTop] (32-bit limbs do); pad rows take
-// kProxyTop, and sort after every real row by their numbers.
-constexpr int kProxyBits = 16;
-constexpr int64_t kProxyTop = ((int64_t)1 << (63 - kProxyBits)) - 1;
+// The largest of x over the block, through *cell (INT64_MIN beforehand);
+// every thread arrives.
+__device__ __forceinline__ int64_t block_max(int64_t x, int64_t* cell) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int64_t y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = y > x ? y : x;
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(reinterpret_cast<long long*>(cell), (long long)x);
+  }
+  __syncthreads();
+  return *cell;
+}
 
-// The bitonic network of tile_kernel's sort on the tile's proxies, one
-// int64 each, moved between layouts through the slots: leaves position
-// p's row number in t.at(p). Returns false, having sorted nothing, when a
-// top column of the tile lies outside [0, kProxyTop].
+// b, the bits the proxy gives the top column: the bit length of the second
+// largest of the real rows' top columns (the largest when they all tie),
+// at most 47. In a count the largest is the PAD row's all-ones limb, and
+// the second the largest real top column, which holds 2k - 32 (wk - 1)
+// bits. A choice for speed only: any b leaves the proxy order-preserving.
+// Uses slot[0] and slot[1] as scratch; every thread arrives.
 template <bool PAY>
-__device__ __forceinline__ bool proxy_network(const WideTile<PAY>& t,
-                                              int log_t) {
+__device__ int wide_top_bits(const WideTile<PAY>& t) {
+  int64_t hi = INT64_MIN;
+  for (int r = threadIdx.x; r < t.n; r += blockDim.x) {
+    hi = t.top(r) > hi ? t.top(r) : hi;
+  }
+  hi = block_max(hi, t.slot);
+  int64_t next = INT64_MIN;
+  for (int r = threadIdx.x; r < t.n; r += blockDim.x) {
+    const int64_t x = t.top(r);
+    next = x < hi && x > next ? x : next;
+  }
+  next = block_max(next, t.slot + 1);
+  const int64_t v = next == INT64_MIN ? hi : next;
+  const int b = v <= 0 ? 0 : 64 - __clzll(v);
+  return b < 47 ? b : 47;
+}
+
+// Row r's proxy: 0 below a top column of 0; kProxyTop from a top column
+// of 2^b up (and for the pad rows from n on); else the top column's b
+// bits above the next 47 - b bits of the two columns below, each read as
+// a 32-bit limb (a column below 0 reads as zeros from there down, one
+// above 2^32 - 1 as ones). Every map here keeps the order, so the proxy
+// never decreases along the full order, whatever the columns hold.
+template <bool PAY>
+__device__ __forceinline__ int64_t wide_proxy(const WideTile<PAY>& t, int r,
+                                              int b) {
+  if (r >= t.n) return kProxyTop;
+  const int64_t* x = t.s + r * t.rs + t.wk;
+  const int64_t top = x[-1];
+  if (top < 0) return 0;
+  if ((top >> b) != 0) return kProxyTop;
+  const int64_t c2 = x[-2], c3 = x[-3];
+  uint64_t low;
+  if (c2 < 0) {
+    low = 0;
+  } else if (c2 > kLimb) {
+    low = ~(uint64_t)0;
+  } else {
+    low = ((uint64_t)c2 << 32) |
+          (uint64_t)(c3 < 0 ? 0 : c3 > kLimb ? kLimb : c3);
+  }
+  const int sh = 47 - b;
+  return (top << sh) | (sh ? (int64_t)(low >> (64 - sh)) : 0);
+}
+
+// the T / E threads of the proxy network meet at barrier 1 without the
+// rest of the block
+__device__ __forceinline__ void network_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// The bitonic network of tile_kernel's sort on the tile's slots (a
+// proxy above a row number, one int64 each), run by threads 0 .. T / E - 1
+// and moved between layouts through the slots: leaves position p's slot
+// in t.at(p).
+template <bool PAY>
+__device__ __forceinline__ void proxy_network(const WideTile<PAY>& t,
+                                              int log_t, int b) {
   using R = Row<1, false, true>;
+  const int threads = 1 << (log_t - kWideLogE);
   int64_t v[kWideE][1];
-  bool outside = false;
-  int base = layout_base<kWideLogE>(0);
+  int j = 0;
+  int base = layout_base<kWideLogE>(j);
 #pragma unroll
   for (int e = 0; e < kWideE; ++e) {
     const int r = base | e;
-    const int64_t top = r < t.n ? t.s[(int64_t)r * t.rs + t.wk - 1]
-                                : kProxyTop;
-    outside |= (uint64_t)top > (uint64_t)kProxyTop;
-    v[e][0] = (int64_t)(((uint64_t)top << kProxyBits) | (uint64_t)r);
+    v[e][0] = (wide_proxy<PAY>(t, r, b) << kProxyBits) | r;
   }
-  if (__syncthreads_or(outside)) return false;
-  int j = 0;
   for (int lk = 1; lk <= log_t; ++lk) {
-    steps_down<R, kWideE, kWideLogE>(v, t.slot, j, lk - 1,
-                                     lk < log_t ? lk : -1);
-  }
-  __syncthreads();
-  base = layout_base<kWideLogE>(j);
+    const int dir = lk < log_t ? lk : -1;
+    for (int top = lk - 1; top >= 0; top = j - 1) {
+      const int to = top >= kWideLogE ? top - kWideLogE + 1 : 0;
+      if (to != j) {  // tile_kernel's relayout, on this barrier
+        network_sync(threads);
 #pragma unroll
-  for (int e = 0; e < kWideE; ++e) {
-    t.at(base | (e << j)) = v[e][0] & ((1 << kProxyBits) - 1);
+        for (int e = 0; e < kWideE; ++e) t.at(base | (e << j)) = v[e][0];
+        network_sync(threads);
+        j = to;
+        base = layout_base<kWideLogE>(j);
+#pragma unroll
+        for (int e = 0; e < kWideE; ++e) v[e][0] = t.at(base | (e << j));
+      }
+      register_steps<R, kWideE, kWideLogE>(v, j, top, dir);
+    }
   }
-  return true;
+  network_sync(threads);
+#pragma unroll
+  for (int e = 0; e < kWideE; ++e) t.at(base | (e << j)) = v[e][0];
 }
 
-// The bitonic network on the row numbers in the slots, whole rows
-// compared, one thread a pair each step.
+// The bitonic network on the slots by slot_before, one thread a pair each
+// step.
 template <bool PAY>
 __device__ void wide_full_network(const WideTile<PAY>& t, int log_t) {
   const int t_rows = 1 << log_t;
@@ -479,9 +573,9 @@ __device__ void wide_full_network(const WideTile<PAY>& t, int log_t) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int p = threadIdx.x; p < t_rows / 2; p += blockDim.x) {
         const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int a = (int)t.at(i), b = (int)t.at(i + j);
+        const int64_t a = t.at(i), b = t.at(i + j);
         // ascending in the k-row blocks whose bit k is clear
-        if ((i & k) ? t.before(a, b) : t.before(b, a)) {
+        if ((i & k) ? t.slot_before(a, b) : t.slot_before(b, a)) {
           t.at(i) = b;
           t.at(i + j) = a;
         }
@@ -492,7 +586,7 @@ __device__ void wide_full_network(const WideTile<PAY>& t, int log_t) {
 }
 
 template <bool PAY>
-__global__ void __launch_bounds__(256, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
 wide_sort_kernel(const int64_t* __restrict__ ik,
                  const int64_t* __restrict__ ip, int64_t* __restrict__ ok,
                  int64_t* __restrict__ op, int64_t m, int wk, uint32_t wk_inv,
@@ -504,6 +598,7 @@ wide_sort_kernel(const int64_t* __restrict__ ik,
   const int64_t base = (int64_t)blockIdx.x << log_t;
   const int n = (int)(m - base < t_rows ? m - base : t_rows);
   const WideTile<PAY> t{s, s_pay, s_pay + (PAY ? t_rows : 0), rs, wk, n};
+  const bool proxied = t_rows >= 32 * kWideE;
 
   // word e of the tile is column e mod wk of row e / wk
   const int64_t* src = ik + base * wk;
@@ -517,22 +612,22 @@ wide_sort_kernel(const int64_t* __restrict__ ik,
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (proxied && threadIdx.x < 2) t.slot[threadIdx.x] = INT64_MIN;
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  const bool check = t_rows >= 32 * kWideE && proxy_network<PAY>(t, log_t);
-  if (!check) {
+  if (proxied) {
+    const int b = wide_top_bits<PAY>(t);
+    if (threadIdx.x < t_rows >> kWideLogE) proxy_network<PAY>(t, log_t, b);
+  } else {
     for (int p = threadIdx.x; p < t_rows; p += blockDim.x) t.at(p) = p;
   }
   __syncthreads();
   // a pair out of order among the real rows (pads follow them all)
-  bool unsorted = !check;
-  if (check) {
+  bool unsorted = !proxied;
+  if (proxied) {
     for (int p = threadIdx.x + 1; p < n; p += blockDim.x) {
-      const int a = (int)t.at(p - 1), b = (int)t.at(p);
-      if (s[a * rs + wk - 1] == s[b * rs + wk - 1] && t.before(b, a)) {
-        unsorted = true;
-      }
+      if (t.slot_before(t.at(p), t.at(p - 1))) unsorted = true;
     }
   }
   if (__syncthreads_or(unsorted)) wide_full_network<PAY>(t, log_t);
@@ -540,11 +635,11 @@ wide_sort_kernel(const int64_t* __restrict__ ik,
   int64_t* dst = ok + base * wk;
   for (int e = threadIdx.x; e < n * wk; e += blockDim.x) {
     const int p = divide(e, wk_inv);
-    dst[e] = s[t.at(p) * rs + (e - p * wk)];
+    dst[e] = s[(t.at(p) & kRowMask) * rs + (e - p * wk)];
   }
   if constexpr (PAY) {
     for (int p = threadIdx.x; p < n; p += blockDim.x) {
-      op[base + p] = s_pay[t.at(p)];
+      op[base + p] = s_pay[t.at(p) & kRowMask];
     }
   }
 }
@@ -753,7 +848,8 @@ int launch_wide_sort(const void* keys, const void* pay, void* out_keys,
                      void* out_pay, int64_t m, int wk, int log_t,
                      cudaStream_t s) {
   const size_t bytes = wide_tile_bytes(wk, pay != nullptr, log_t);
-  if (bytes > (size_t)kSharedBytes || wide_threads(log_t) > 256) {
+  if (bytes > (size_t)kSharedBytes ||
+      ((1 << log_t) >> kWideLogE) > kWideThreads) {
     return (int)cudaErrorInvalidValue;
   }
   auto kernel = pay ? wide_sort_kernel<true> : wide_sort_kernel<false>;

@@ -78,7 +78,7 @@ def tile_rows(wk: int, payload: bool) -> int:
     rows of (wk + payload) int64 columns in SHARED_TILE_BYTES; above
     NARROW_KEY_COLS (the wide block sort, csrc/bitonic.cu
     wide_tile_bytes), with the rows at an odd stride of wk | 1 columns,
-    the payload and an 8-byte slot for each row's number, in
+    the payload and an 8-byte slot for each row's proxy and number, in
     SHARED_BYTES."""
     cols = wk + int(payload)
     if wk <= NARROW_KEY_COLS:

@@ -25,8 +25,12 @@ from "wide", keys above 7 columns) time the grain sort of k = 127 (2^26
 rows of Wk 8, keys only) at 40% and at 84% PAD rows (the share of a
 full-size k = 127 count): K3's block_sort, K1's merge_pass on its first
 pass (runs of one block_sort tile) and on runs of 2^22, merge_splits of
-the latter, and the whole sort_rows_blocked; and sort_rows_blocked of the
-k = 200 grain (2^25 rows of Wk 13, 80% PAD, as 250-base reads give). Needs
+the latter, and the whole sort_rows_blocked; block_sort and
+sort_rows_blocked of the k = 113 and k = 120 grains (84% PAD) and of the
+k = 200 grain (2^25 rows of Wk 13, 80% PAD, as 250-base reads give);
+block_sort of a grain whose rows tie on their top three columns; and
+merge_pass's first pass at Wk 16 (k = 250, its run-time instance). Each
+grain's top column holds the bits a count's sortkey leaves there. Needs
 a CUDA card; the wrappers' APIs must match across the trees.
 
 With --only, only the cases whose label starts with PREFIX run (and only
@@ -189,9 +193,11 @@ def merge_cases(dev, g, ints):
 def wide_cases(dev, only=""):
     """The wide instances' cases, made one grain at a time (a grain of
     2^26 rows of Wk 8 is 4 GiB) and yielded as they are made, so that a
-    grain is freed before the next is drawn. A grain's rows come from a
-    pool of 2^24 random rows of 32-bit limbs (few repeat), a share of them
-    the all-ones PAD row, as in a count's grain."""
+    grain is freed before the next is drawn. A grain of k's rows comes
+    from a pool of 2^24 random rows of 32-bit limbs whose top limb holds
+    the 2k - 32 (Wk - 1) bits a count's sortkey leaves there
+    (ops/hashing.sortkey_of_mers; few rows repeat), a share of them the
+    all-ones PAD row, as in a count's grain."""
     if not ("wide".startswith(only) or only.startswith("wide")):
         return
     import torch
@@ -206,9 +212,11 @@ def wide_cases(dev, only=""):
 
     g = torch.Generator(device=dev).manual_seed(127)
 
-    def grain(m, wk, pad):
+    def grain(m, k, pad):
+        wk = (2 * k + 31) // 32
         pool = torch.randint(0, 1 << 32, (1 << 24, wk), device=dev,
                              generator=g)
+        pool[:, -1] >>= 32 * wk - 2 * k
         x = pool[torch.randint(0, 1 << 24, (m,), device=dev, generator=g)]
         x[torch.rand(m, device=dev, generator=g) < pad] = (1 << 32) - 1
         return x
@@ -223,8 +231,8 @@ def wide_cases(dev, only=""):
     m, wk, run = 1 << 26, 8, 1 << 22
     tile = tile_rows(wk, False)
     for pad in (40, 84):
-        x = grain(m, wk, pad / 100)
-        tag = f"2^26 rows, Wk {wk}, keys only, {pad}% PAD"
+        x = grain(m, 127, pad / 100)
+        tag = f"k = 127, 2^26 rows, Wk {wk}, keys only, {pad}% PAD"
         yield f"wide K3 block_sort {tag}", lambda: block_sort(x), 1
         label = (f"wide K1 merge_pass {tag}, the first pass (runs of one "
                  "block_sort tile)")
@@ -244,9 +252,34 @@ def wide_cases(dev, only=""):
         yield f"wide sort_rows_blocked {tag}", lambda: sort_rows_blocked(x), 1
         del x
         torch.cuda.empty_cache()
-    x = grain(1 << 25, 13, 0.8)
-    yield ("wide sort_rows_blocked 2^25 rows, Wk 13, keys only, 80% PAD "
-           "(the k = 200 grain)", lambda: sort_rows_blocked(x), 1)
+    # the other widths of a count's top limb: 2 bits (k = 113), 16 (k =
+    # 120 and 200)
+    for k, m, pad in ((113, 1 << 26, 84), (120, 1 << 26, 84),
+                      (200, 1 << 25, 80)):
+        x = grain(m, k, pad / 100)
+        tag = (f"k = {k}, 2^{m.bit_length() - 1} rows, Wk {x.shape[1]}, "
+               f"keys only, {pad}% PAD")
+        yield f"wide K3 block_sort {tag}", lambda: block_sort(x), 1
+        yield f"wide sort_rows_blocked {tag}", lambda: sort_rows_blocked(x), 1
+        del x
+        torch.cuda.empty_cache()
+    # rows that tie on their top three columns and differ below (few in a
+    # count): every tile's proxies tie out of order
+    x = grain(1 << 26, 127, 0)
+    x[:, -3:] = torch.randint(0, 4, (1 << 26, 3), device=dev, generator=g)
+    x[torch.rand(1 << 26, device=dev, generator=g) < 0.1] = (1 << 32) - 1
+    yield ("wide K3 block_sort 2^26 rows, Wk 8, keys only, 10% PAD, top "
+           "three columns of 4 values each (ties below them)",
+           lambda: block_sort(x), 1)
+    del x
+    torch.cuda.empty_cache()
+    # the pass's run-time instance (no compile-time one at Wk 16)
+    x = block_sort(grain(1 << 25, 250, 0.8))[0]
+    yield ("wide K1 merge_pass k = 250, 2^25 rows, Wk 16, keys only, 80% "
+           f"PAD, the first pass (runs of {tile_rows(16, False)})",
+           lambda: merge_pass(x, tile_rows(16, False)), 1)
+    del x
+    torch.cuda.empty_cache()
 
 
 def run_tree(tree: str, only: str = "") -> dict:

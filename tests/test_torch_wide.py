@@ -65,6 +65,19 @@ def _ties(seed, m, wk):
     return torch.from_numpy(x)
 
 
+def _wild(seed, m, wk):
+    """m rows whose top three columns are drawn from values either side of
+    0, 2^32 and 2^47 and the int64 extremes (the wide kernel's proxy
+    saturates there), the rest 32-bit limbs of 2 values: most rows tie
+    on the proxy and differ below it."""
+    rng = np.random.default_rng(seed)
+    edges = np.array([-(1 << 63), -2, -1, 0, 1, 5, (1 << 32) - 1, 1 << 32,
+                      (1 << 47) - 1, 1 << 47, (1 << 63) - 1], dtype=np.int64)
+    x = rng.integers(0, 2, (m, wk), dtype=np.int64)
+    x[:, -3:] = edges[rng.integers(0, len(edges), (m, 3))]
+    return torch.from_numpy(x)
+
+
 def _sorted_runs(keys, run):
     keys = keys.clone()
     for s in range(0, len(keys), run):
@@ -72,14 +85,15 @@ def _sorted_runs(keys, run):
     return keys
 
 
-@pytest.mark.parametrize("rows", [_rows, _ties])
+@pytest.mark.parametrize("rows", [_rows, _ties, _wild])
 @pytest.mark.parametrize("payload", [False, True])
 @pytest.mark.parametrize("wk", WIDE)
 def test_block_sort_wide(wk, payload, rows):
     """Each tile sorted (the key, then the payload, shuffled so that row
     order is no guide), at the width's default tile and at 64 rows, the
-    last tile ragged; on pooled rows and on rows that mostly tie on the
-    top column (what the wide kernel's check holds a tile to)."""
+    last tile ragged; on pooled rows, on rows that mostly tie on the top
+    column, and on columns at the edges of the wide kernel's proxy (what
+    its check holds a tile to)."""
     tile = tile_rows(wk, payload)
     m = 2 * tile + 37
     keys = rows(100 + wk, m, wk)
