@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from jellyfish_tpu_torch/csrc (K1 merge_path.cu,
-K2 compact.cu, K3 bitonic.cu, rows 9 and 10 window.cu), and beside them
+K2 compact.cu, K3 bitonic.cu, rows 9 and 10 window.cu, the Bloom insert's
+radix sort radix.cu), and beside them
 the native host library (jellyfish_tpu_torch/native/chunker.cpp), and
 holds each kernel's entry point against its plain PyTorch version at the
 shapes its path gives it and at the Pallas kernels' own shapes; row 8's
@@ -34,10 +35,14 @@ bc -> count --bc -> query (a .bc and a binary database) against numpy, and
 count --chunk-len 1000 (the ASCII path) against the packed path; at full
 size, bc -s 64M of the 256 chunks (m = 2^30 cells) against a numpy oracle
 after 8 chunks and with no false negative among the k = 21 count's mers,
-then count --bc and count --bf-size 512M of the first 64 chunks against
-their exact count, and the pair sort of kernels/sort.py (kernel-table rows
-6, 8 and 12) held against its plain version and timed beside K1's merge
-passes and torch.sort at the insert's shape. count --packed-store at full
+its 256 inserts each one radix sort (kernels/radix.py) and no bitonic
+launch, then count --bc and count --bf-size 512M of the first 64 chunks
+against their exact count, and the radix sort held against its plain
+version and timed beside the bitonic route of
+kernels/sort.py (kernel-table rows 6, 8 and 12, held too), K1's merge
+passes and torch.sort at the insert's shape; that route on its remaining
+path, a BitsArray batch, against a numpy oracle (phase_radix holds the
+radix sort alone at its edge cases). count --packed-store at full
 size (phase_packed): the k = 21 count with the grain cut to 2^21 rows,
 so that runs reach level 2, rest packed and are unpacked by the merges
 that take them, and the same count dense at the same cut, both
@@ -364,6 +369,7 @@ def _wrappers() -> dict:
         merge_path,
         merge_splits,
     )
+    from jellyfish_tpu_torch.kernels.radix import radix_sort_pairs
     from jellyfish_tpu_torch.kernels.window import roll_lanes, window_rows
 
     return {"merge_path": merge_path, "merge_pass": merge_pass,
@@ -371,7 +377,8 @@ def _wrappers() -> dict:
             "compact": compact, "block_sort": block_sort,
             "block_merge": block_merge,
             "exchange_stages": exchange_stages, "flip": flip,
-            "window_rows": window_rows, "roll_lanes": roll_lanes}
+            "window_rows": window_rows, "roll_lanes": roll_lanes,
+            "radix_sort_pairs": radix_sort_pairs}
 
 
 def kernel_counts() -> dict:
@@ -1532,6 +1539,54 @@ def phase_window(dev):
     return rows, table
 
 
+
+
+def radix_pairs(dev, m, key_bits, g, distinct=0):
+    """m seeded (key [m, 1], payload [m]) int64 pairs: keys below
+    2^key_bits (any int64 at 64 bits, negative ones included), drawn from
+    `distinct` keys when given; payloads over all 64 bits."""
+    def full(n):
+        return torch.randint(-(1 << 63), (1 << 63) - 1, (n,), device=dev,
+                             generator=g)
+
+    keys = full(distinct or m)
+    if key_bits < 64:
+        keys &= (1 << key_bits) - 1
+    if distinct:
+        keys = keys[torch.randint(0, distinct, (m,), device=dev,
+                                  generator=g)]
+    return keys[:, None].contiguous(), full(m)
+
+
+def phase_radix(dev):
+    """The Bloom insert's radix sort (kernels/radix.py, csrc/radix.cu)
+    against its plain version, keys and payloads exact, at its edge cases:
+    M = 0, 1, 2 and ragged sizes across a tile, all keys equal, few
+    distinct keys, key_bits 1, 30, 31, 33, 47 and 64 (negative keys).
+    phase_bloom holds and times it at one insert's shape. Returns the
+    number of holds."""
+    from jellyfish_tpu_torch.kernels.radix import (
+        radix_sort_pairs,
+        radix_sort_pairs_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    edges = ((30, 0, 0), (30, 1, 0), (30, 2, 0), (30, 4095, 0),
+             (30, 4097, 0), (30, 1_000_003, 0), (30, 100_000, 1),
+             (30, 300_001, 37), (1, 50_001, 0), (31, 200_003, 0),
+             (33, 200_003, 0), (47, 200_003, 0), (64, 200_003, 0),
+             (64, 100_000, 5))
+    for key_bits, m, distinct in edges:
+        k, p = radix_pairs(dev, m, key_bits, g, distinct)
+        hold(f"radix_sort_pairs {m} pairs, key_bits {key_bits}, "
+             f"{distinct or 'any'} distinct keys",
+             lambda: radix_sort_pairs(k, p, key_bits),
+             lambda: radix_sort_pairs_plain(k, p, key_bits))
+    del k, p
+    torch.cuda.empty_cache()
+    return dict(holds=len(edges))
+
+
 def phase_cli(tmp, k, n_bases, genome_len, seed, need, read_len=150):
     """`count -m k -s 4M -C` through the CLI on a seeded FASTQ of
     `read_len`-base reads; every record against the numpy oracle, the dump
@@ -2458,15 +2513,21 @@ def phase_bloom(chunks, staged, table, dev):
     3. count --bf-size 512M --bf-fp 0.01 of the same chunks: each record's
        count is its exact count or one less, and at most 1% keep the
        exact count.
-    4. The pair sort at an insert's shape: the route against its plain
-       version and timed beside K1's merge passes and torch.sort + gather;
-       the cross-tile exchange call and the mirrored step held and timed;
-       the route at BitsArray's shape (Wk 2 + payload); one insert
-       profiled. Returns (launches of the bc run, the kernel rows, the
-       numbers)."""
+    4. The pair sort at an insert's shape (chunk 0's probe pairs): the
+       radix sort (kernels/radix.py), which every insert of step 1 ran,
+       against its plain version and a stable torch.sort + gather, timed
+       beside the bitonic route it replaced
+       (sort_pairs_bitonic), K1's merge passes and torch.sort + gather;
+       that route's kernels (rows 6, 8 and 12, block_merge) held and timed
+       there as before; the route at BitsArray's shape (Wk 2 + payload),
+       then one BitsArray.set batch of that shape against numpy, the run
+       whose launches the route's kernel rows report; one insert
+       profiled. Returns (launches of the bc run, launches of the
+       BitsArray run, the kernel rows, the numbers)."""
     from jellyfish_tpu_torch.bloom import (
         BloomCounter2,
         load_count_filter,
+        position_bits,
         write_bloom_counter,
     )
     from jellyfish_tpu_torch.cli.common import suffix_int
@@ -2481,11 +2542,16 @@ def phase_bloom(chunks, staged, table, dev):
         exchange_stages_plain,
         tile_rows,
     )
+    from jellyfish_tpu_torch.kernels.radix import (
+        radix_sort_pairs,
+        radix_sort_pairs_plain,
+    )
     from jellyfish_tpu_torch.kernels.sort import (
         sort_pairs_bitonic,
         sort_pairs_plain,
         sort_rows_blocked,
     )
+    from jellyfish_tpu_torch.ops.bitsarray import BitsArray
 
     k, out = 21, {}
     dchunks = torch.from_numpy(chunks).to(dev)
@@ -2538,10 +2604,14 @@ def phase_bloom(chunks, staged, table, dev):
         f"launches {launches}")
     if missed:
         raise AssertionError("the Bloom counter has false negatives")
+    # every chunk's insert sorts once, on the radix sort alone
+    if launches["radix_sort_pairs"] != len(chunks):
+        raise AssertionError(f"bc made {launches['radix_sort_pairs']} "
+                             f"radix sorts for {len(chunks)} inserts")
     for name in ("block_sort", "block_merge", "exchange_stages",
                  "exchange_stages.passes", "exchange_stages.mirror"):
-        if not launches[name]:
-            raise AssertionError(f"bc ran without {name}")
+        if launches[name]:
+            raise AssertionError(f"bc launched {name}")
     # the exact count of the chunks that steps 2 and 3 filter
     exact = MerCounter(k, 4 << 20, canonical=True,
                        rng=np.random.default_rng(42), device=dev)
@@ -2623,26 +2693,38 @@ def phase_bloom(chunks, staged, table, dev):
     wb = w.expand(nb, w.shape[0]).reshape(-1).contiguous()
     n = pos.shape[0]
     size = 1 << (n - 1).bit_length()
-    label = f"{n} probe pairs (padded to {size}), Wk 1 + payload"
+    key_bits = position_bits(m)
 
     def library():
-        s, perm = torch.sort(pos[:, 0])
-        return s, wb[perm]
+        s, perm = torch.sort(pos[:, 0], stable=True)
+        return s[:, None], wb[perm]
 
+    if max_abs_err(radix_sort_pairs(pos, wb, key_bits), library()):
+        raise AssertionError("radix_sort_pairs differs from a stable "
+                             "torch.sort + gather at the insert's shape")
+    radix_row = hold(f"radix_sort_pairs {n} probe pairs below 2^{key_bits}",
+                     lambda: radix_sort_pairs(pos, wb, key_bits),
+                     lambda: radix_sort_pairs_plain(pos, wb, key_bits),
+                     2 * n * 16, library=library)
+    label = f"{n} probe pairs (padded to {size}), Wk 1 + payload"
     route = hold(f"sort_pairs_bitonic {label}",
                  lambda: sort_pairs_bitonic(pos, wb),
                  lambda: sort_pairs_plain(pos, wb), 2 * n * 16,
                  library=library)
-    if not torch.equal(sort_pairs_bitonic(pos, wb)[0], library()[0][:, None]):
+    if not torch.equal(sort_pairs_bitonic(pos, wb)[0], library()[0]):
         raise AssertionError("sort_pairs_bitonic: keys out of order")
-    routes = {"sort_pairs_bitonic": route["ms"],
+    routes = {"radix_sort_pairs": radix_row["ms"],
+              "sort_pairs_bitonic": route["ms"],
               "sort_rows_blocked": cuda_ms(lambda: sort_rows_blocked(pos, wb)),
-              "torch_sort_gather": route["library_ms"]}
+              "torch_sort_gather": radix_row["library_ms"]}
+    routes["radix_sort_pairs_again"] = cuda_ms(
+        lambda: radix_sort_pairs(pos, wb, key_bits))
     routes["sort_rows_blocked_again"] = cuda_ms(
         lambda: sort_rows_blocked(pos, wb))
     routes["sort_pairs_bitonic_again"] = cuda_ms(
         lambda: sort_pairs_bitonic(pos, wb))
-    log(f"sort routes at the insert's shape ({label}), ms: {routes}")
+    routes["torch_sort_gather_again"] = cuda_ms(library)
+    log(f"sort routes at the insert's shape ({n} pairs), ms: {routes}")
     padded = torch.cat([pos, pos.new_full((size - n, 1), (1 << 63) - 1)])
     pw = torch.cat([wb, wb.new_zeros(size - n)])
     tile = tile_rows(1, True)
@@ -2696,19 +2778,40 @@ def phase_bloom(chunks, staged, table, dev):
                 "payload (BitsArray's sort)",
                 lambda: sort_pairs_bitonic(bkeys, bvals),
                 lambda: sort_pairs_plain(bkeys, bvals), 2 * nb_rows * 24)
-    del bkeys, bvals, ids, padded, pw
+    del bkeys, bvals, padded, pw
+    # the route's remaining path: one BitsArray.set batch of those ids (2
+    # bits an entry), the last value of each id against numpy
+    reset_counts()
+    bits_array = BitsArray(2, 1 << 32, device=dev)
+    bits_array.set(ids, ids >> 7)
+    torch.cuda.synchronize()
+    bits_launches = kernel_counts()
+    ids_np = ids.cpu().numpy()
+    uniq, last = np.unique(ids_np[::-1], return_index=True)
+    want_v = ((ids_np[::-1][last] >> 7) & 3).astype(np.uint32)
+    same_bits = np.array_equal(bits_array.get(uniq), want_v)
+    log(f"BitsArray(2, 2^32).set of {nb_rows} ids ({len(uniq)} distinct): "
+        f"entries == numpy: {same_bits}; launches {bits_launches}")
+    if not same_bits:
+        raise AssertionError("BitsArray.set differs from numpy")
+    for name in ("block_sort", "block_merge", "exchange_stages",
+                 "exchange_stages.mirror"):
+        if not bits_launches[name]:
+            raise AssertionError(f"BitsArray.set ran without {name}")
+    del bits_array, ids, ids_np
     _, busy, prof_rows = profiled(lambda: bc.insert_counts(cm, w))
     log(f"one profiled insert ({w.shape[0]} mers, {n} pairs): device "
         f"kernels {busy * 1e3:.3f} ms; device kernels by time:")
     for key, us, calls in prof_rows[:12]:
         log(f"  {us / 1e3:10.3f} ms {100 * us / 1e6 / busy:5.1f}% "
             f"{calls:6d}x  {key[:100]}")
-    row8 = [(us, calls) for key, us, calls in prof_rows
-            if "exchange_kernel" in key or "group_kernel" in key]
-    row8_ms, row8_launches = (sum(us for us, _ in row8) / 1e3,
-                              sum(calls for _, calls in row8))
-    log(f"  row 8 (exchange_kernel and group_kernel): {row8_ms:.3f} ms in "
-        f"{row8_launches} launches")
+    sort_rows = [(us, calls) for key, us, calls in prof_rows
+                 if "radix_" in key]
+    sort_ms, sort_launches = (sum(us for us, _ in sort_rows) / 1e3,
+                              sum(calls for _, calls in sort_rows))
+    log(f"  the radix sort's kernels: {sort_ms:.3f} ms "
+        f"({100 * sort_ms / 1e3 / busy:.1f}% of the insert) in "
+        f"{sort_launches} launches")
     torch.cuda.empty_cache()
     out = dict(k=k, bc_m=m, bc_hashes=nb, bc_s=t_bc,
                bc_peak_gib=peak_bc / 2**30, bc_write_s=t_write,
@@ -2718,12 +2821,18 @@ def phase_bloom(chunks, staged, table, dev):
                bf_peak_gib=peak_bf / 2**30, bf_records=len(bf_c),
                bf_exact_share=whole, fp_share_bc=fp_share,
                insert_pairs=n, sort_routes_ms=routes,
-               insert_device_ms=busy * 1e3, insert_row8_ms=row8_ms,
-               insert_row8_launches=row8_launches, pair_sort=route,
+               insert_device_ms=busy * 1e3, insert_sort_ms=sort_ms,
+               insert_sort_launches=sort_launches, radix_sort=radix_row,
+               pair_sort=route,
                block_sort=srow, block_merge=merge_row,
                bitsarray_pair_sort=brow)
     k3_src = "jellyfish_tpu_torch/csrc/bitonic.cu"
     rows = {
+        "radix_sort_pairs": dict(
+            name="radix.radix_sort_pairs", route="cuda",
+            source="jellyfish_tpu_torch/csrc/radix.cu",
+            replaces="jellyfish_tpu/bloom.py:137 lax.sort (no Pallas kernel)",
+            **radix_row),
         "block_sort_bloom": dict(
             name="bitonic.block_sort(bloom)", route="cuda", source=k3_src,
             replaces="experiments/pallas_sort_proto.py:65", **srow),
@@ -2738,7 +2847,7 @@ def phase_bloom(chunks, staged, table, dev):
             source=k3_src, replaces="experiments/pallas_stage_probe.py:112",
             **mrow),
     }
-    return launches, rows, out
+    return launches, bits_launches, rows, out
 
 
 def phase_bloom_cli(tmp, fq, seq, mem_db):
@@ -3763,7 +3872,8 @@ def main() -> int:
     # that no CLI phase times its build
     with ThreadPoolExecutor(1) as pool:
         host_lib = pool.submit(native.get_lib)
-        _build.build(["merge_path", "compact", "bitonic", "window"])
+        _build.build(["merge_path", "compact", "bitonic", "window",
+                      "radix"])
         if host_lib.result() is None:
             raise AssertionError(f"the native host library did not build: "
                                  f"{native.build_error()}")
@@ -3773,6 +3883,7 @@ def main() -> int:
     ptxas_report("bitonic")
     ptxas_report("window")
     ptxas_report("compact")
+    ptxas_report("radix")
 
     lap("kernels")
     rows = phase_kernels(dev)
@@ -3785,6 +3896,8 @@ def main() -> int:
     k3_table["exchange_groups"] = phase_exchange(dev)
     win_rows, win_table = phase_window(dev)
     rows.update(win_rows)
+    lap("radix")
+    radix_table = phase_radix(dev)
     with tempfile.TemporaryDirectory() as tmp:
         lap("cli")
         seq21 = phase_cli(tmp, 21, 32_000_000, 4_000_000, seed=21,
@@ -3841,22 +3954,24 @@ def main() -> int:
         chunks, staged = stage_chunks(dev)
         # each kernel's launches are read from the full-size run of its
         # path: K1 and K2 the k = 21 count's, K3's block sort and
-        # merge_pass the k = 63 count's, block_merge, exchange_stages (row
-        # 8: its kernel passes, beside its calls), its mirrored step (row
-        # 12's role: one pass a mirrored call) and block_sort at the
-        # insert's shape the full-size bc's, window_rows and roll_lanes
-        # the full-size merge's; the wide instances' rows the k = 127
-        # count's, the keep mask's the k = 127 CLI merge's. flip lies on no
-        # path and reports the bc's 0
+        # merge_pass the k = 63 count's, the radix sort the full-size bc's,
+        # block_merge, exchange_stages (row 8: its kernel passes, beside
+        # its calls), its mirrored step (row 12's role: one pass a mirrored
+        # call) and block_sort at the insert's shape the BitsArray batch's
+        # (phase_bloom; the bc launches none of them), window_rows
+        # and roll_lanes the full-size merge's; the wide instances' rows
+        # the k = 127 count's, the keep mask's the k = 127 CLI merge's.
+        # flip lies on no path and reports the bc's 0
         path = {"merge_path": 21, "compact": 21, "block_sort": 63,
                 "merge_pass": 63, "merge_splits": 63,
                 "block_sort_wide": 127, "merge_pass_wide": 127,
                 "merge_pass_wide_later": 127,
                 "merge_splits_wide": 127, "merge_path_wide": 127,
                 "compact_wide": 127, "compact_keep_wide": "merge127",
-                "block_sort_bloom": "bloom",
-                "block_merge": "bloom", "exchange_stages": "bloom",
-                "exchange_stages_mirror": "bloom", "flip": "bloom",
+                "radix_sort_pairs": "bloom",
+                "block_sort_bloom": "bitsarray",
+                "block_merge": "bitsarray", "exchange_stages": "bitsarray",
+                "exchange_stages_mirror": "bitsarray", "flip": "bloom",
                 "window_rows": "merge", "roll_lanes": "merge",
                 "compact_keep": "merge"}
         # the keep-mask row counts the launches of the compact wrapper
@@ -3899,8 +4014,8 @@ def main() -> int:
             chunks, staged, table)
         torch.cuda.empty_cache()
         lap("bloom")
-        launches["bloom"], bloom_rows, bloom = phase_bloom(chunks, staged,
-                                                           table, dev)
+        (launches["bloom"], launches["bitsarray"], bloom_rows,
+         bloom) = phase_bloom(chunks, staged, table, dev)
         rows.update(bloom_rows)
         torch.cuda.empty_cache()
         del chunks
@@ -3908,11 +4023,15 @@ def main() -> int:
         launches["merge"], merge = phase_merge(tmp, staged, table, on_merge)
         del table, staged
     where = {"merge": "full-size merge k=21", "bloom": "full-size bc k=21",
-             "merge127": "CLI merge k=127"}
+             "merge127": "CLI merge k=127",
+             "bitsarray": "BitsArray.set of 2^22 ids"}
     for name, row in rows.items():
         row["launches"] = launches[path[name]][counter.get(name, name)]
         row["path"] = where.get(path[name], f"full size k={path[name]}")
-    rows["exchange_stages"]["calls"] = launches["bloom"]["exchange_stages"]
+        if path[name] == "bitsarray":
+            row["bc_launches"] = launches["bloom"][counter.get(name, name)]
+    rows["exchange_stages"]["calls"] = launches["bitsarray"][
+        "exchange_stages"]
     log(json.dumps({"merge": {"full_size": merge, "k63": merge63,
                               "k127": merge127},
                     "disk": disk, "sharded_k127": sharded127}))
@@ -3922,6 +4041,7 @@ def main() -> int:
     log(json.dumps({"window_table": win_table}))
     log(json.dumps({"full_size": list(full.values())}))
     log(json.dumps({"k3_table": k3_table}))
+    log(json.dumps({"radix_table": radix_table}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(f"script: {time.perf_counter() - t_script:.1f} s")
     log(smi)

@@ -16,8 +16,9 @@ only at the file boundary. The hashes are plain torch
 `gf2_times` is no Pallas kernel), and so are the probe expansion, the
 segment sums, the cell update and the check's gather and min. The
 counter's insert sorts the (position, weight) pairs by position with the
-weight carried on K3 (kernels/sort.sort_pairs_bitonic, kernel-table rows
-6, 8 and 12), then adds each position's clipped sum once.
+weight carried by the radix sort (kernels/radix.radix_sort_pairs,
+csrc/radix.cu) over the bits a position can hold, then adds each
+position's clipped sum once.
 
 Probe arithmetic in int64. For m a power of two up to 2^32 the positions
 are (h0 + i*h1) & (m - 1) on the hashes' low words, as in the JAX
@@ -43,13 +44,14 @@ import torch
 from jellyfish_tpu_torch.device import resolve_device
 from jellyfish_tpu_torch.gf2 import GF2Matrix
 from jellyfish_tpu_torch.io.header import FileHeader
-from jellyfish_tpu_torch.kernels.sort import sort_pairs_bitonic
+from jellyfish_tpu_torch.kernels.radix import radix_sort_pairs
 from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.hashing import gf2_apply_masks, masks_of_matrix
 
 __all__ = [
     "opt_m",
     "opt_k",
+    "position_bits",
     "probe_positions",
     "BloomCounter2",
     "BloomFilter",
@@ -102,6 +104,13 @@ def mod_u64(h, m: int):
     """(lo, hi) 32-bit limbs [..., 2] of unsigned 64-bit values -> value %
     m, 1 <= m < 2^64, as int64 bit patterns."""
     return umod(h[..., 0] | (h[..., 1] << 32), m)
+
+
+def position_bits(m: int) -> int:
+    """The bits of a probe position into m cells for the insert's sort:
+    positions lie in [0, m) up to m = 2^63; above, umod's patterns may be
+    negative, and all 64 bits are sorted as signed."""
+    return max(1, (m - 1).bit_length()) if m <= 1 << 63 else 64
 
 
 def probe_positions(h0, h1, m: int, nb_hashes: int):
@@ -178,8 +187,9 @@ class BloomCounter2(_BloomBase):
     def insert_counts(self, mers, weights) -> None:
         """Insert each mer `weights[i]` times (saturating at 2 per cell):
         drop the rows of weight 0, expand the probes, sort the (position,
-        min(weight, 2)) pairs by position on the kernels, sum each
-        position's run and add min(sum, 2) to its cell, clipped at 2."""
+        min(weight, 2)) pairs by position (the radix sort over
+        position_bits(m)), sum each position's run and add min(sum, 2) to
+        its cell, clipped at 2."""
         mers = self._mers(mers)
         if not isinstance(weights, torch.Tensor):
             weights = torch.from_numpy(np.asarray(weights).astype(np.int64))
@@ -190,8 +200,8 @@ class BloomCounter2(_BloomBase):
         if n == 0:
             return
         pos = self.probe_positions(mers).reshape(-1, 1)
-        wb = w.expand(self.nb_hashes, n).reshape(-1)
-        spos, sw = sort_pairs_bitonic(pos, wb)
+        wb = w.repeat(self.nb_hashes)  # [nb_hashes n], contiguous
+        spos, sw = radix_sort_pairs(pos, wb, position_bits(self.m))
         spos = spos[:, 0]
         is_last = torch.ones_like(spos, dtype=torch.bool)
         is_last[:-1] = spos[1:] != spos[:-1]

@@ -53,7 +53,7 @@
 // log E - 1) pair registers of one thread and run with no traffic and no
 // barrier. Between groups of log E distances the registers move to the
 // next layout through shared memory (write, a barrier, read): at the
-// insert's shape (T = 4096, two columns) the full sort's 78 steps need
+// pair sort's shape (T = 4096, two columns) the full sort's 78 steps need
 // 20 such moves (E = 16), where a design with every step in shared
 // memory makes 78 passes, and the merge's 12 steps need 3 (E = 8).
 // Shared memory holds the block's rows row-major, row r at
@@ -74,7 +74,7 @@
 // once, which is why the tile entries keep their steps on chip, and why
 // jf_exchange_group runs up to four cross-tile steps a pass. The counting
 // store merges sorted tiles with K1 passes; the pair sort of
-// kernels/sort.py (the Bloom insert) runs its cross-tile steps on
+// kernels/sort.py (BitsArray's batch updates) runs its cross-tile steps on
 // jf_exchange_group (the phase at run L: the mirrored step at L and the
 // plain steps down to a tile, 2^24 rows in 1-3 passes where step by step
 // took 1-12) and finishes each tile with jf_block_merge.

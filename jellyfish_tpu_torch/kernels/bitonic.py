@@ -25,8 +25,9 @@ card: a `block_sort`, `block_merge` or `flip` call is one kernel launch;
 `exchange_stages.passes` counts `exchange_stages`' kernel launches, one
 where each pass launches, and `exchange_stages.mirror_launches` its calls whose first step is
 mirrored. The counting path runs
-`block_sort` only; the pair sort of kernels/sort.py (the Bloom insert,
-BitsArray) runs `block_sort` once, then `exchange_stages` with a mirrored
+`block_sort` only; the pair sort of kernels/sort.py (BitsArray's batch
+updates; the Bloom insert sorts by kernels/radix.py) runs `block_sort`
+once, then `exchange_stages` with a mirrored
 first step (rows 8 and 12) and `block_merge` (row 8's in-tile steps). `flip`
 and the transposes (row 11) lie on no path.
 """

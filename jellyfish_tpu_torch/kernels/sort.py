@@ -7,12 +7,15 @@ column, on every device: on the CPU the kernels' plain versions run the
 same pass loop.
 
 `sort_pairs_bitonic`: K3 only, key rows with a carried payload. The
-counterpart of `lax.sort([pos, wb], num_keys=1)` in jellyfish_tpu/bloom.py
-(the Bloom-counter insert) and of the (id, seq) sort with the values
-carried in jellyfish_tpu/ops/bitsarray.py. One block sort (row 6), then
-per doubling the cross-tile steps (kernel-table row 8: compare the key,
-carry the payload, with row 12's flip fused into the first step) and the
-in-tile steps by block_merge (row 8's rule on chip).
+counterpart of the (id, seq) sort with the values carried in
+jellyfish_tpu/ops/bitsarray.py (BitsArray's batch updates, its only path).
+One block sort (row 6), then per doubling the cross-tile steps
+(kernel-table row 8: compare the key, carry the payload, with row 12's
+flip fused into the first step) and the in-tile steps by block_merge (row
+8's rule on chip). The Bloom-counter insert, the counterpart of
+`lax.sort([pos, wb], num_keys=1)` in jellyfish_tpu/bloom.py, took this
+route until it moved to the radix sort of kernels/radix.py, which sorts
+only the bits a position holds and pads nothing.
 """
 
 from __future__ import annotations

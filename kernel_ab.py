@@ -20,7 +20,14 @@ phase, row 12's mirrored step, block_sort, block_merge and the whole pair
 sort; K1's merge_pass at the k = 63 grain (2^26 rows, Wk 4, keys only) in
 runs of 2^22 and of 2,048 (its first pass) and at 2^24 rows of Wk 1 +
 payload in runs of 2^22, and K1's merge_path at row 1's shape (A 2^24 + B
-2^24 rows, Wk 1 with counts, 90% of keys in both). The wide cases (labels
+2^24 rows, Wk 1 with counts, 90% of keys in both). The "bloom" case times
+one Bloom-counter insert (BloomCounter2.insert_counts, k = 21, m = 2^30
+cells, 10 hashes) of 889,077 seeded mers, 8,890,770 probe pairs as chunk
+0 of the full-size bc gives, also by its kernels' device time from
+torch.profiler (an insert waits on the host). The "radix" case times the
+insert's sort alone, `radix_sort_pairs` of 8,890,770 seeded pairs below
+2^30 (a tree whose csrc/ holds only radix.cu serves: a variant of that
+kernel). The wide cases (labels
 from "wide", keys above 7 columns) time the grain sort of k = 127 (2^26
 rows of Wk 8, keys only) at 40% and at 84% PAD rows (the share of a
 full-size k = 127 count): K3's block_sort, K1's merge_pass on its first
@@ -34,7 +41,8 @@ grain's top column holds the bits a count's sortkey leaves there. Needs
 a CUDA card; the wrappers' APIs must match across the trees.
 
 With --only, only the cases whose label starts with PREFIX run (and only
-their inputs are made: `--only wide` makes none of the narrow cases').
+their inputs are made: `--only wide` makes none of the narrow cases',
+`--only bloom` and `--only radix` only the insert's).
 
 Prints one JSON line a run, then the card's name and power limit (nvidia-smi)
 and a JSON object of each case's times (ms a call; a window for row 9), one
@@ -54,6 +62,10 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 WINDOWS, SLAB, WINDOW, FIRST, APART = 8, 1 << 24, 1 << 20, 5_000_001, 1_500_000
 INSERT_ROWS, INSERT_PAIRS, TILE = 1 << 24, 8_890_770, 4096
+INSERT_MERS, INSERT_HASHES = INSERT_PAIRS // 10, 10
+# the kernels a case's profiler time sums, by label prefix: a K2 or Bloom
+# call waits on the host, so its time follows the host's pace
+PROFILED = {"K2": "compact_", "bloom": ""}
 
 
 def _smoke():
@@ -84,6 +96,10 @@ def cases(dev, only=""):
 
     if only.startswith("wide"):
         return []
+    if only.startswith("bloom"):
+        return bloom_cases(dev)
+    if only.startswith("radix"):
+        return radix_cases(dev)
     cycle = _smoke()._cycle
     g = torch.Generator(device=dev).manual_seed(88)
 
@@ -150,7 +166,43 @@ def cases(dev, only=""):
     out.append(("the pair sort, one insert's 8,890,770 pairs",
                 lambda: sort_pairs_bitonic(pairs, wb), 1))
     out += merge_cases(dev, g, ints)
-    return out
+    return out + bloom_cases(dev) + radix_cases(dev)
+
+
+def radix_cases(dev):
+    """The Bloom insert's sort alone at its shape."""
+    import torch
+
+    from jellyfish_tpu_torch.kernels.radix import radix_sort_pairs
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    keys = torch.randint(0, 1 << 30, (INSERT_PAIRS, 1), device=dev,
+                         generator=g)
+    pay = torch.randint(0, 3, (INSERT_PAIRS,), device=dev, generator=g)
+    return [(f"radix_sort_pairs, {INSERT_PAIRS:,} pairs below 2^30",
+             lambda: radix_sort_pairs(keys, pay, 30), 1)]
+
+
+def bloom_cases(dev):
+    """One Bloom-counter insert at the full-size bc's shape: k = 21 mers
+    (two 32-bit limbs, 42 bits) drawn from a seed, weights 1 and some 2."""
+    import numpy as np
+    import torch
+
+    from jellyfish_tpu_torch import bloom
+
+    k = 21
+    m1, m2 = bloom._random_hash_pair(k, np.random.default_rng(11))
+    bc = bloom.BloomCounter2(1 << 30, INSERT_HASHES, k, m1, m2,
+                             canonical=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+    mers = torch.randint(0, 1 << 32, (INSERT_MERS, 2), device=dev,
+                         generator=g)
+    mers[:, 1] >>= 22
+    w = 1 + (torch.rand(INSERT_MERS, device=dev, generator=g) < 0.05).long()
+    return [(f"bloom insert_counts, {INSERT_MERS:,} mers ({INSERT_PAIRS:,} "
+             "probe pairs), m = 2^30, 10 hashes",
+             lambda: bc.insert_counts(mers, w), 1)]
 
 
 def merge_cases(dev, g, ints):
@@ -293,7 +345,7 @@ def run_tree(tree: str, only: str = "") -> dict:
     here = Path(jellyfish_tpu_torch.__file__).resolve()
     if Path(tree).resolve() not in here.parents:
         raise RuntimeError(f"imported {here}, not the package of {tree}")
-    _build.build(["merge_path", "compact", "bitonic", "window"])
+    _build.build([p.stem for p in _build.CSRC.glob("*.cu")])
     smoke = _smoke()
     dev = torch.device("cuda", 0)
     ms = {}
@@ -302,15 +354,17 @@ def run_tree(tree: str, only: str = "") -> dict:
         if not label.startswith(only):
             continue
         ms[label] = smoke.cuda_ms(fn, reps=10) / calls
-        if label.startswith("K2"):
-            # a K2 call waits on the host for its kept total, so its time
-            # follows the host's pace: its two kernels' device time too,
-            # each kernel's mean over 50 calls in one profiler window
+        prefix = next((p for p in PROFILED if label.startswith(p)), None)
+        if prefix is not None:
+            # a call that waits on the host (K2 for its kept total, an
+            # insert for its segment ends) is also timed by its kernels'
+            # device time: each kernel's mean over 50 calls in one
+            # profiler window, summed
             prof_rows = smoke.profiled(
                 lambda f=fn: [f() for _ in range(50)])[2]
             ms[f"{label}, kernels (profiler)"] = sum(
-                us / n for name, us, n in prof_rows
-                if "compact_" in name) / 1e3
+                us / 50 for name, us, n in prof_rows
+                if PROFILED[prefix] in name) / 1e3
         torch.cuda.synchronize()
     return {"tree": tree, "ms": ms}
 

@@ -3,8 +3,7 @@ the same matrices and inputs (exact: integer cells and bits).
 
 The JAX Bloom counter runs its device insert as tests/test_bloom.py runs
 it (device=True, under JAX on the CPU); the port's insert sorts the probe
-pairs through kernels/sort.sort_pairs_bitonic, here on the kernels' plain
-versions."""
+pairs through kernels/radix.radix_sort_pairs, here on its plain version."""
 
 import io
 from types import SimpleNamespace
@@ -56,6 +55,35 @@ def test_counter_cells_match_jax(k):
     hit = pool[np.flatnonzero(ref.check(pool) == 2)[0]]
     v = int(sum(int(x) << (32 * w) for w, x in enumerate(hit)))
     assert port.check_int(v) == ref.check_int(v) == 2
+
+
+@pytest.mark.parametrize("m", [12_345, 100_003])
+def test_counter_cells_match_jax_any_m(m):
+    """m no power of two (the JAX package's host insert; the port sorts
+    position_bits(m) = 14 and 17 bits, two and three radix passes): the
+    same cells, the same check."""
+    rng = np.random.default_rng(m)
+    ref, port = _pair(21, m, 5, 19, jb.BloomCounter2, tb.BloomCounter2)
+    assert not ref._device and tb.position_bits(m) == m.bit_length()
+    pool = _mers(rng, 1500, 21)
+    for n in (900, 1200, 2):
+        mers = pool[rng.integers(0, len(pool), n)]
+        weights = rng.integers(0, 4, size=n).astype(np.uint32)
+        ref.insert_counts(mers, weights)
+        port.insert_counts(mers, weights)
+        np.testing.assert_array_equal(port.cells.numpy(), ref.cells)
+    assert (ref.cells == 2).any() and (ref.cells == 1).any()
+    probe = np.concatenate([pool[:100], _mers(rng, 100, 21)])
+    np.testing.assert_array_equal(port.check(probe).numpy(),
+                                  ref.check(probe))
+
+
+def test_position_bits():
+    """The insert sorts the bits a position into m cells can hold: all 64,
+    as signed, above m = 2^63, where positions may be negative patterns."""
+    assert [tb.position_bits(m) for m in (1, 2, 3, 1 << 30, (1 << 30) + 1,
+                                          1 << 63, (1 << 63) + 1)] == [
+        1, 1, 2, 30, 31, 63, 64]
 
 
 def test_counter_insert_device_tensors_and_zero_weights():
