@@ -89,9 +89,12 @@ grains of 40% and 84% PAD rows (the top limb of a count's bits) and on
 rows that tie on the top column, block_sort also at Wk 8 and 13 on top
 columns below 0 and from 2^47 up (wild_tops), merge_pass in runs of 1,
 2,048 and 2^16 rows, block_sort with a ragged last tile, each again at
-the smallest tiles, at Wk 64 and at the widest keys taken (MAX_KEY_COLS, 7,261 columns; wide_branches), and each timed
-at the k = 127 grain's shape, block_sort and merge_pass (its first pass
-and a pass of runs of 2^22) at 40% and 84% PAD (phase_wide); count through the CLI
+the smallest tiles, at Wk 64 and at the widest keys taken (MAX_KEY_COLS, 7,261 columns; wide_branches), K2 and merge_splits
+also at the edges of their wide kernels (wide_scatter_edges,
+wide_splits_edges), and each timed
+at the k = 127 grain's shape, block_sort, merge_pass and merge_splits
+(the first pass and a pass of runs of 2^22) at 40% and 84% PAD, K2 and
+its keep mask also by their kernels' profiler time (phase_wide); count through the CLI
 at k = 127 (12 Mbase of 150-base reads) and at k = 200 (10 Mbase of
 250-base reads) against the numpy oracle; a 4-part merge at k = 127 in
 small windows (every slab rotated), count --disk at k = 127 (4 or more
@@ -957,13 +960,15 @@ def phase_wide(dev):
     column and differ below it, with many exact duplicates (the top limb
     of each grain holding the bits a count's sortkey leaves there);
     block_sort at Wk 8 and 13 also on wild_tops' columns; merge_path of
-    two runs that share most keys; compact of a sorted run, 25% live; and
-    wide_branches' smallest tiles, at Wk 64 and MAX_KEY_COLS. Then each
-    timed at the k = 127 grain's shape (2^26 rows of Wk 8, keys only; the
-    keep mask at a merge round's 4 x 2^20 rows), block_sort and
-    merge_pass at 40% and at 84% PAD, merge_pass on its first pass (runs
-    of one block_sort tile) and on runs of 2^22. Returns the kernels
-    line's rows."""
+    two runs that share most keys; compact of a sorted run, 25% live;
+    wide_branches' smallest tiles, at Wk 64 and MAX_KEY_COLS; and the
+    edges of K2's and merge_splits' wide kernels (wide_scatter_edges,
+    wide_splits_edges). Then each timed at the k = 127 grain's shape
+    (2^26 rows of Wk 8, keys only; the keep mask at a merge round's 4 x
+    2^20 rows), block_sort, merge_pass and merge_splits at 40% and at 84%
+    PAD, merge_pass and merge_splits on the first pass (runs of one
+    block_sort tile) and on runs of 2^22, K2 and its keep mask also by
+    their kernels' profiler time. Returns the kernels line's rows."""
     from jellyfish_tpu_torch.kernels.bitonic import (
         block_sort,
         block_sort_plain,
@@ -1084,6 +1089,8 @@ def phase_wide(dev):
         del a, ac, b, bc, keys, cnt, keep
     torch.cuda.empty_cache()
     wide_branches(dev, g)
+    wide_scatter_edges(dev, g)
+    wide_splits_edges(dev, g)
 
     # timed at the k = 127 grain's shape: 2^26 rows of 8 limbs, keys only,
     # at 40% PAD rows (the table's rows) and at 84% (a count's share)
@@ -1104,25 +1111,30 @@ def phase_wide(dev):
             "pass)",
             lambda: merge_pass(runs, tile)[0],
             lambda: block_sort_plain(runs, tile=2 * tile)[0], 2 * row_bytes)
+        # its partition pass: the least bytes a boundary's search reads are
+        # the two rows either side of its split
+        ptile = pass_tile_rows(wk, False)
+        pairs, steps = split_steps(m, tile, ptile)
+        out["merge_splits_wide_first"] = hold(
+            f"wide K1 merge_splits {tag}, runs of {tile} (the grain's first "
+            f"pass), tiles of {ptile}",
+            lambda: merge_splits(runs, tile, ptile),
+            lambda: splits_by_block_sort(runs, tile, ptile),
+            pairs * (steps + 1) * (8 + 2 * wk * 8))
         # a later pass: runs of 2^22; the plain version loops over the pairs
         runs = block_sort_plain(x, tile=1 << 22)[0]
         out["merge_pass_wide_later"] = hold(
             f"wide K1 merge_pass {tag}, runs of 2^22 (a later pass)",
             lambda: merge_pass(runs, 1 << 22)[0],
             lambda: merge_pass_plain(runs, 1 << 22)[0], 2 * row_bytes)
-        if pad == 0.4:
-            # the splits of 8 pairs (a pass's plain version loops over its
-            # pairs); the least bytes a boundary's search reads are the two
-            # rows either side of its split
-            ptile = pass_tile_rows(wk, False)
-            pairs, steps = split_steps(m, 1 << 22, ptile)
-            n_splits = pairs * (steps + 1)
-            rows["merge_splits_wide"] = hold(
-                f"wide K1 merge_splits {tag}, runs of 2^22, tiles of "
-                f"{ptile}",
-                lambda: merge_splits(runs, 1 << 22, ptile),
-                lambda: merge_splits_plain(runs, 1 << 22, ptile),
-                n_splits * (8 + 2 * wk * 8))
+        # the splits of 8 pairs (a pass's plain version loops over its
+        # pairs)
+        pairs, steps = split_steps(m, 1 << 22, ptile)
+        out["merge_splits_wide"] = hold(
+            f"wide K1 merge_splits {tag}, runs of 2^22, tiles of {ptile}",
+            lambda: merge_splits(runs, 1 << 22, ptile),
+            lambda: merge_splits_plain(runs, 1 << 22, ptile),
+            pairs * (steps + 1) * (8 + 2 * wk * 8))
         del x, runs
         torch.cuda.empty_cache()
     for key, row in at84.items():
@@ -1137,34 +1149,27 @@ def phase_wide(dev):
     del a, ac, b, bc
     # K2's bytes: every count (and keep byte) read, the kept rows' keys
     # read, the kept rows written
-    keys, cnt = live(m, wk)
-    n = int((cnt != 0).sum())
-    rows["compact_wide"] = hold(
-        f"wide K2 compact {m} rows, Wk {wk}, {n} live",
-        lambda: compact(keys, cnt)[:2], lambda: compact_plain(keys, cnt)[:2],
-        m * 8 + n * (2 * wk + 1) * 8,
-        library=lambda: (keys[cnt != 0], cnt[cnt != 0]))
-    del keys, cnt
-    m = 4 << 20
-    keys, cnt = live(m, wk)
-    keep = cnt != 0
-    n = int(keep.sum())
-    label = f"wide K2 compact with a keep mask {m} rows, Wk {wk}, {n} kept"
-    row = hold(label, lambda: compact(keys, cnt, keep)[:2],
-               lambda: compact_plain(keys, cnt, keep)[:2],
-               m * 9 + n * (2 * wk + 1) * 8,
-               library=lambda: (keys[keep], cnt[keep]))
-    # its two kernels' device time by the profiler, as phase_kernels' keep
-    # mask row: the call waits on the host for its kept total
-    prof_rows = profiled(lambda: [compact(keys, cnt, keep)
-                                  for _ in range(10)])[2]
-    rows["compact_keep_wide"] = dict(
-        row, call_ms=row["ms"],
-        ms=sum(us / k for name, us, k in prof_rows
-               if "compact_" in name) / 1e3)
-    log(f"  {label}: kernels {rows['compact_keep_wide']['ms']:.4f} ms a "
-        f"call (profiler), the call {row['ms']:.4f} ms")
-    del keys, cnt, keep
+    # each also by its two kernels' device time from the profiler, as
+    # phase_kernels' keep mask row: a call waits on the host for its kept
+    # total
+    for key, m, mask in (("compact_wide", 1 << 26, False),
+                         ("compact_keep_wide", 4 << 20, True)):
+        keys, cnt = live(m, wk)
+        keep = cnt != 0 if mask else None
+        n = int((cnt != 0).sum())
+        label = (f"wide K2 compact{' with a keep mask' if mask else ''} "
+                 f"{m} rows, Wk {wk}, {n} {'kept' if mask else 'live'}")
+        row = hold(label, lambda: compact(keys, cnt, keep)[:2],
+                   lambda: compact_plain(keys, cnt, keep)[:2],
+                   m * (9 if mask else 8) + n * (2 * wk + 1) * 8,
+                   library=lambda: (keys[cnt != 0], cnt[cnt != 0]))
+        prof_rows = profiled(lambda: [compact(keys, cnt, keep)
+                                      for _ in range(10)])[2]
+        rows[key] = dict(row, call_ms=row["ms"], ms=sum(
+            us / k for name, us, k in prof_rows if "compact_" in name) / 1e3)
+        log(f"  {label}: kernels {rows[key]['ms']:.4f} ms a call "
+            f"(profiler), the call {row['ms']:.4f} ms")
+        del keys, cnt, keep
     torch.cuda.empty_cache()
     k1, k2 = ("jellyfish_tpu_torch/csrc/merge_path.cu",
               "jellyfish_tpu_torch/csrc/compact.cu")
@@ -1178,6 +1183,8 @@ def phase_wide(dev):
                                   "experiments/pallas_merge_probe.py:492"),
         "merge_splits_wide": ("merge_path.merge_splits.wide", k1,
                               "experiments/pallas_merge_probe.py:492"),
+        "merge_splits_wide_first": ("merge_path.merge_splits.wide.first", k1,
+                                    "experiments/pallas_merge_probe.py:492"),
         "merge_path_wide": ("merge_path.wide", k1,
                             "experiments/pallas_merge_probe.py:492"),
         "compact_wide": ("compact.wide", k2,
@@ -1288,6 +1295,114 @@ def wide_branches(dev, g):
                       + compact_plain(a, cnt, keep)[:2]))
         del x, idx, runs, a, b, ac, bc, cnt, keep
     torch.cuda.empty_cache()
+
+
+def splits_by_block_sort(runs, run, tile):
+    """merge_splits_plain's result where every pair holds 2 run rows, from
+    one block_sort_plain of the pairs with the row index as payload (the
+    stable merge, A first on ties): merge_splits_plain loops over the
+    pairs, 16,384 of them at a k = 127 grain's first pass."""
+    from jellyfish_tpu_torch.kernels.bitonic import block_sort_plain
+
+    m = runs.shape[0]
+    if m % (2 * run):
+        raise ValueError("splits_by_block_sort takes whole pairs")
+    src = block_sort_plain(runs, torch.arange(m, device=runs.device),
+                           tile=2 * run)[1].view(-1, 2 * run)
+    taken = torch.nn.functional.pad(torch.cumsum(src % (2 * run) < run, 1),
+                                    (1, 0))
+    d = torch.arange(-(-2 * run // tile) + 1, device=runs.device) * tile
+    return taken[:, d.clamp(max=2 * run)].reshape(-1)
+
+
+def wide_scatter_edges(dev, g):
+    """K2's wide kernel against its plain version, with and without a keep
+    mask, at Wk 8, 9, 13, 64 and MAX_KEY_COLS: m = 1, one tile less one
+    row, one tile, one tile and one row, and three tiles and a ragged
+    fourth, whose first tile keeps no row, second every row, third an
+    odd number (so that the fourth's output starts at an odd row, an odd
+    word at an odd width) and fourth about a quarter; the keep mask keeps
+    rows of count 0 too. At Wk 8 and 64 also on keys at an odd word
+    offset, which send an even width to the 8-byte copy."""
+    from jellyfish_tpu_torch.kernels import _build, compact as k2
+    from jellyfish_tpu_torch.kernels.merge_path import MAX_KEY_COLS
+
+    tile = _build.load("compact", k2._SIGNATURES).jf_compact_tile()
+    for wk in (8, 9, 13, 64, MAX_KEY_COLS):
+        for m in (1, tile - 1, tile, tile + 1, 3 * tile + 1234):
+            flat = torch.randint(0, 1 << 32, (m * wk + 1,), device=dev,
+                                 generator=g)
+            cnt = torch.randint(1, 9, (m,), device=dev, generator=g)
+            cnt *= torch.rand(m, device=dev, generator=g) < 0.25
+            keep = torch.rand(m, device=dev, generator=g) < 0.5
+            if m > 3 * tile:
+                for x, fill in ((cnt, 3), (keep, True)):
+                    x[:tile] = 0
+                    x[tile:2 * tile] = fill
+                    x[2 * tile:3 * tile] = 0
+                    x[2 * tile:2 * tile + 777] = fill
+            for off in ((0, 1) if wk in (8, 64) else (0,)):
+                keys = flat[off:off + m * wk].view(m, wk)
+                hold(f"wide K2 compact {m} rows, Wk {wk}, keys at word "
+                     f"offset {off}, with and without a keep mask",
+                     lambda: (k2.compact(keys, cnt)[:2]
+                              + k2.compact(keys, cnt, keep)[:2]),
+                     lambda: (k2.compact_plain(keys, cnt)[:2]
+                              + k2.compact_plain(keys, cnt, keep)[:2]))
+            del flat, cnt, keep, keys
+    torch.cuda.empty_cache()
+
+
+def wide_splits_edges(dev, g):
+    """merge_splits' wide kernel against its plain version at Wk 8, 13, 64
+    and MAX_KEY_COLS, at tiles of one row and the pass's: on rows all
+    equal; on rows that tie in every column but the lowest and the top,
+    84% of them PAD; on pairs whose first run lies wholly below the
+    second, and wholly above it; runs of 1, 5 and 2,048 (and 2^22 at Wk
+    8 and 13), with a short last pair and with a lone last run. At
+    MAX_KEY_COLS, where the plain version's chain of stable sorts takes
+    0.2 s a pair, at tiles of one row and on three of the shapes."""
+    from jellyfish_tpu_torch.kernels.bitonic import block_sort_plain
+    from jellyfish_tpu_torch.kernels.merge_path import (
+        MAX_KEY_COLS,
+        merge_splits,
+        merge_splits_plain,
+        pass_tile_rows,
+    )
+    from jellyfish_tpu_torch.ops.count import sort_rows_plain
+    from jellyfish_tpu_torch.ops.multiword import M32
+
+    for wk in (8, 13, 64, MAX_KEY_COLS):
+        shapes = [(1, 4), (1, 5), (5, 17), (5, 13), (2048, 6 * 1024 + 77),
+                  (2048, 4096 + 1000)]
+        if wk in (8, 13):
+            shapes.append((1 << 22, 3 * (1 << 22) + 5))
+        tiles = (1, pass_tile_rows(wk, False))
+        if wk == MAX_KEY_COLS:
+            shapes, tiles = [(1, 5), (5, 17), (2048, 4096 + 1000)], (1,)
+        for run, m in shapes:
+            row = torch.randint(0, 1 << 32, (1, wk), device=dev, generator=g)
+            pad = row.repeat(m, 1)
+            pad[:, 0] = torch.randint(0, 4, (m,), device=dev, generator=g)
+            pad[:, -1] = torch.randint(0, 2, (m,), device=dev, generator=g)
+            pad[torch.rand(m, device=dev, generator=g) < 0.84] = M32
+            ordered = sort_rows_plain(pad)[0]
+            # the sorted rows' whole runs in reverse order, the ragged last
+            # one in place: each whole pair's first run lies above its
+            # second
+            whole = m // run * run
+            above = torch.cat([*reversed(ordered[:whole].split(run)),
+                               ordered[whole:]]).contiguous()
+            for label, x in (("rows all equal", row.repeat(m, 1)),
+                             ("84% PAD", block_sort_plain(pad, tile=run)[0]),
+                             ("A below B", ordered), ("A above B", above)):
+                hold(f"wide K1 merge_splits {m} rows ({label}), Wk {wk}, "
+                     f"runs of {run}, tiles of {tiles}",
+                     lambda: tuple(merge_splits(x, run, t) for t in tiles),
+                     lambda: tuple(merge_splits_plain(x, run, t)
+                                   for t in tiles))
+            del pad, ordered, above, x
+        torch.cuda.empty_cache()
 
 
 def one_pass_each(keys, payload, dist, mirror):
@@ -3966,7 +4081,8 @@ def main() -> int:
                 "merge_pass": 63, "merge_splits": 63,
                 "block_sort_wide": 127, "merge_pass_wide": 127,
                 "merge_pass_wide_later": 127,
-                "merge_splits_wide": 127, "merge_path_wide": 127,
+                "merge_splits_wide": 127, "merge_splits_wide_first": 127,
+                "merge_path_wide": 127,
                 "compact_wide": 127, "compact_keep_wide": "merge127",
                 "radix_sort_pairs": "bloom",
                 "block_sort_bloom": "bitsarray",
@@ -3979,6 +4095,7 @@ def main() -> int:
                    "block_sort_bloom": "block_sort",
                    **{f"{n}_wide": n for n in WIDE_NEED},
                    "merge_pass_wide_later": "merge_pass",
+                   "merge_splits_wide_first": "merge_splits",
                    "compact_keep_wide": "compact",
                    "exchange_stages": "exchange_stages.passes",
                    "exchange_stages_mirror": "exchange_stages.mirror"}

@@ -28,9 +28,10 @@
 //     warp, shared memory adds the ranks of the warps before it, and the
 //     row is written at tile offset + running total + rank. Neighbouring
 //     kept rows land on neighbouring addresses, so the stores coalesce.
-// The scatter has an instance for each key width of 1-7 columns, and one
-// wide instance (WK = 0, rows.cuh) that reads the width at run time, for
-// keys of any width above (k > 112).
+// The scatter has an instance for each key width of 1-7 columns. Keys of
+// any width above (k > 112) run a kernel of their own (compact_wide_kernel,
+// below), which ranks the whole tile at once and then copies the tile's
+// kept rows as one contiguous span of words.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +70,7 @@ compact_count_kernel(const int64_t* __restrict__ cnt,
   }
 }
 
+// WK = 1 .. kNarrowCols (wider keys run compact_wide_kernel)
 template <int WK, bool KEEP>
 __global__ void __launch_bounds__(kThreads)
 compact_scatter_kernel(const int64_t* __restrict__ keys,
@@ -84,13 +86,12 @@ compact_scatter_kernel(const int64_t* __restrict__ keys,
   const unsigned below = (1u << lane) - 1u;
   const int64_t row0 = (int64_t)blockIdx.x * kTile;
   int64_t base = tile_off[blockIdx.x];
-  // The wide instance (WK = 0) is not unrolled: its rounds copy rows in a
-  // loop of run-time length. The narrow ones run two rounds at a time,
-  // which gives the ptxas report (8 and 16 bytes spilled in <1, false> and
-  // <3, true>) and the device times of their build before the wide
-  // instance was added (kernel_ab.py); one round at a time, or 4 to 16,
-  // the keep-mask instance at Wk 1 ran 2-16% slower.
-#pragma unroll (WK == 0 ? 1 : 2)
+  // Two rounds at a time, which gives the ptxas report (8 and 16 bytes
+  // spilled in <1, false> and <3, true>) and the device times of the
+  // build before keys wider than 7 columns were added (kernel_ab.py); one
+  // round at a time, or 4 to 16, the keep-mask instance at Wk 1 ran 2-16%
+  // slower.
+#pragma unroll 2
   for (int r = 0; r < kTile; r += kThreads) {
     const int64_t i = row0 + r + threadIdx.x;
     const int64_t c = i < m ? cnt[i] : 0;
@@ -116,12 +117,155 @@ compact_scatter_kernel(const int64_t* __restrict__ keys,
   }
 }
 
+// -- the wide scatter ---------------------------------------------------------
+
+// compact_scatter_kernel at a width read at run time ran at 46% of its
+// bound: 16 rounds a tile, each a dependent chain (count, ballot, shared
+// memory, key) between two barriers, and a kept row copied by its own
+// thread one column at a time, so that a warp's loads and stores lay one
+// row apart (32 sectors an instruction for 256 bytes) with one row's
+// loads in flight. The wide kernel runs a tile in two phases:
+//   1. rank: warp w owns rows [512 w, 512 w + 512) of the tile; in step j
+//      lane l reads the counts of rows 64 j + l and 64 j + 32 + l (two
+//      coalesced loads a warp) and their keep bytes, stages the counts in
+//      shared memory at their tile rows, and two ballots count the kept
+//      rows; one barrier adds the warps before (the tile's one pair of
+//      barriers), and each kept row's tile row goes to shared memory at
+//      its rank (16 bits a row);
+//   2. copy: the tile's kept rows land at output rows [base, base +
+//      total), one contiguous span of total * wk words. Threads walk it:
+//      word e comes from kept row e / wk, column e % wk (a thread's next
+//      word lies kThreads words on, its row and column advanced by a
+//      quotient and remainder taken once), so stores are coalesced and
+//      loads contiguous within each kept row, 16 bytes a word (V =
+//      longlong2) where wk is even and both key arrays are 16-byte
+//      aligned, else 8 (V = int64_t); kUnroll loads in flight a thread
+//      before its stores. The counts follow from shared memory.
+// Bound: bytes (every count and keep byte read, each kept row read and
+// written once), as the narrow instances.
+constexpr int kWarpRows = kTile / kWarps;  // 512 rows a warp, 8 steps of 64
+constexpr int kUnroll = 4;
+
+template <bool KEEP, typename V>
+__global__ void __launch_bounds__(kThreads)
+compact_wide_kernel(const int64_t* __restrict__ keys,
+                    const int64_t* __restrict__ cnt,
+                    const uint8_t* __restrict__ keep, int64_t m,
+                    const int64_t* __restrict__ tile_off,
+                    int64_t* __restrict__ out_keys,
+                    int64_t* __restrict__ out_cnt, int wk) {
+  __shared__ __align__(16) int64_t s_cnt[kTile];  // counts by tile row
+  __shared__ uint16_t s_src[kTile];  // tile row of each kept row, by rank
+  __shared__ int s_warp[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t row0 = (int64_t)blockIdx.x * kTile;
+
+  // 1. rank: bit 2 j + b of `mine` says whether row 64 j + 32 b + l of the
+  // warp's rows is kept
+  unsigned mine = 0;
+  int kept = 0;
+#pragma unroll
+  for (int j = 0; j < kWarpRows / 64; ++j) {
+    const int r = warp * kWarpRows + j * 64 + lane;
+    const int64_t i = row0 + r;
+    const int64_t c0 = i < m ? cnt[i] : 0;
+    const int64_t c1 = i + 32 < m ? cnt[i + 32] : 0;
+    s_cnt[r] = c0;
+    s_cnt[r + 32] = c1;
+    const bool k0 = KEEP ? i < m && keep[i] != 0 : c0 != 0;
+    const bool k1 = KEEP ? i + 32 < m && keep[i + 32] != 0 : c1 != 0;
+    mine |= (unsigned)k0 << (2 * j) | (unsigned)k1 << (2 * j + 1);
+    kept += __popc(__ballot_sync(0xffffffffu, k0)) +
+            __popc(__ballot_sync(0xffffffffu, k1));
+  }
+  if (lane == 0) s_warp[warp] = kept;
+  __syncthreads();
+  int rank = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int t = s_warp[w];
+    rank += w < warp ? t : 0;
+    total += t;
+  }
+#pragma unroll
+  for (int j = 0; j < kWarpRows / 64; ++j) {
+    const bool k0 = (mine >> (2 * j)) & 1, k1 = (mine >> (2 * j + 1)) & 1;
+    const unsigned b0 = __ballot_sync(0xffffffffu, k0);
+    const unsigned b1 = __ballot_sync(0xffffffffu, k1);
+    const int r = warp * kWarpRows + j * 64 + lane;
+    if (k0) s_src[rank + __popc(b0 & below)] = (uint16_t)r;
+    if (k1) s_src[rank + __popc(b0) + __popc(b1 & below)] = (uint16_t)(r + 32);
+    rank += __popc(b0) + __popc(b1);
+  }
+  __syncthreads();
+
+  // 2. copy the kept rows' words, then their counts
+  const int64_t base = tile_off[blockIdx.x];
+  constexpr int kWords = sizeof(V) / 8;  // words a load
+  const int W = wk;
+  const V* src = reinterpret_cast<const V*>(keys + row0 * W);
+  V* dst = reinterpret_cast<V*>(out_keys + base * W);
+  const int n = total * W / kWords;  // loads and stores of the tile
+  // a thread's words lie kThreads kWords apart: `hop` rows and `skip`
+  // columns, carried
+  const int hop = kThreads * kWords / W;
+  const int skip = kThreads * kWords - hop * W;
+  int p = threadIdx.x * kWords / W;  // kept row and column of the
+  int col = threadIdx.x * kWords - p * W;  // thread's next word
+  for (int v = threadIdx.x; v < n; v += kUnroll * kThreads) {
+    V x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (v + u * kThreads < n) {
+        x[u] = src[((int)s_src[p] * W + col) / kWords];
+      }
+      p += hop;
+      col += skip;
+      if (col >= W) {
+        col -= W;
+        ++p;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (v + u * kThreads < n) dst[v + u * kThreads] = x[u];
+    }
+  }
+  for (int r = threadIdx.x; r < total; r += kThreads) {
+    out_cnt[base + r] = s_cnt[s_src[r]];
+  }
+}
+
+// The wide instances: 16-byte words where wk is even and both key arrays
+// are 16-byte aligned (a row then starts at a 16-byte boundary), else
+// 8-byte words.
+template <bool KEEP>
+void launch_wide(unsigned tiles, const void* keys, const void* cnt,
+                 const void* keep, int64_t m, const void* tile_off,
+                 void* out_keys, void* out_cnt, int wk, cudaStream_t s) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(keys) |
+                       reinterpret_cast<uintptr_t>(out_keys);
+  const bool vec = wk % 2 == 0 && (at & 15) == 0;
+  auto kernel = vec ? compact_wide_kernel<KEEP, longlong2>
+                    : compact_wide_kernel<KEEP, int64_t>;
+  kernel<<<tiles, kThreads, 0, s>>>(
+      (const int64_t*)keys, (const int64_t*)cnt, (const uint8_t*)keep, m,
+      (const int64_t*)tile_off, (int64_t*)out_keys, (int64_t*)out_cnt, wk);
+}
+
 template <int WK>
 int scatter(const void* keys, const void* cnt, const void* keep, int64_t m,
             const void* tile_off, void* out_keys, void* out_cnt, int wk,
             cudaStream_t s) {
   const int64_t tiles = (m + kTile - 1) / kTile;
-  if (tiles > 0) {
+  if (tiles == 0) return (int)cudaGetLastError();
+  if constexpr (WK == 0) {
+    (keep != nullptr ? launch_wide<true> : launch_wide<false>)(
+        (unsigned)tiles, keys, cnt, keep, m, tile_off, out_keys, out_cnt, wk,
+        s);
+  } else {
     auto kernel = keep != nullptr ? compact_scatter_kernel<WK, true>
                                   : compact_scatter_kernel<WK, false>;
     kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
@@ -133,7 +277,7 @@ int scatter(const void* keys, const void* cnt, const void* keep, int64_t m,
 
 using ScatterFn = int (*)(const void*, const void*, const void*, int64_t,
                           const void*, void*, void*, int, cudaStream_t);
-// index wk for wk <= kNarrowCols, 0 (the wide instance) above
+// index wk for wk <= kNarrowCols, 0 (the wide kernel) above
 constexpr ScatterFn kScatter[] = {scatter<0>, scatter<1>, scatter<2>,
                                   scatter<3>, scatter<4>, scatter<5>,
                                   scatter<6>, scatter<7>};

@@ -51,7 +51,9 @@
 // stride, below), with instances at Wk 8 and 13 beside the run-time
 // width, on tiles of 5, 3 or 1 rows a thread, or of fewer rows than
 // threads, whichever is the largest whose two stages fit in 227 KB
-// (pass_rows).
+// (pass_rows); jf_merge_splits runs wide_splits_kernel, which reads a
+// probe's rows eight columns a round trip and brackets most searches by
+// their neighbours'.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -256,6 +258,7 @@ struct Pairs {
 
 // splits[p (steps + 1) + t], t = 0 .. steps: the number of A rows among the
 // first min(t tile, na + nb) rows of pair p's merge. One thread an entry.
+// WK = 1 .. kNarrowCols (wider keys run wide_splits_kernel, below).
 template <int WK>
 __global__ void __launch_bounds__(kThreads)
 splits_kernel(const int64_t* __restrict__ keys, Pairs pr, int64_t tile,
@@ -270,6 +273,129 @@ splits_kernel(const int64_t* __restrict__ keys, Pairs pr, int64_t tile,
   splits[e] = split<WK, int64_t>(keys + base * W, na,
                                  keys + (base + na) * W, nb,
                                  d < na + nb ? d : na + nb, wk);
+}
+
+// -- the wide partition pass -------------------------------------------------
+
+// splits_kernel above kNarrowCols columns ran far below its bound: one
+// thread a boundary, each probe compared by row_le, one column pair a
+// round trip from the top down, so that rows that tie (the PAD rows,
+// 40-84% of a wide grain, and duplicate keys) cost wk round trips a
+// probe. Every boundary of a pass is searched at once, so the kernel
+// waits on the card's rate of scattered row reads, two a probe, and on
+// the longest chain of probes. The wide kernel:
+//   - compares a probe kProbeCols columns a round trip: a boundary has
+//     kProbeLanes lanes, lane q reads kLaneCols columns of each row from
+//     column top - kProbeCols + q kLaneCols (a whole row at Wk 8, so a
+//     PAD or duplicate row costs one round trip), two ballots find the
+//     top column that differs and whether A's is the lower, and the next
+//     kProbeCols columns are read only when the whole group ties;
+//   - reads fewer rows: a warp's groups are consecutive boundaries, and
+//     where kBracket or more of them serve one pair, the first and the
+//     last search the whole pair, then the others search only between
+//     them (a split moves by 0 to tile rows from one boundary to the
+//     next), in up to log2(15 tile) probes in place of log2(run), their
+//     A rows shared among the warp's searches.
+// Bound: scattered row reads and the chain of probes, not bytes. At the
+// k = 127 grain (kernel_ab.py, PERF.md) 2 lanes of 4 columns beat 2 of
+// 2, 4 of 1 and 4 of 2, and the bracketing took a third off each.
+constexpr int kProbeLanes = 2;
+constexpr int kLaneCols = 4;
+constexpr int kProbeCols = kProbeLanes * kLaneCols;
+constexpr int kBracket = 8;
+
+// The binary search of split (A's row first on ties) for the lanes with
+// `on` set, over [lo, hi) on A = a and B = b at diagonal d; every lane of
+// the warp runs it, so that the ballots see the whole warp. `group` holds
+// the lanes of this lane's boundary, q its place there.
+__device__ __forceinline__ void wide_search(bool on, int64_t& lo, int64_t& hi,
+                                            const int64_t* a,
+                                            const int64_t* b, int64_t d,
+                                            int wk, int q, unsigned group) {
+  while (__any_sync(0xffffffffu, on && lo < hi)) {
+    const bool probe = on && lo < hi;
+    const int64_t mid = (lo + hi) >> 1;
+    const int64_t* ra = a + mid * wk;
+    const int64_t* rb = b + (d - 1 - mid) * wk;
+    // open: the probe's rows tie on every column read so far
+    bool open = probe, le = true;
+    for (int top = wk; __any_sync(0xffffffffu, open); top -= kProbeCols) {
+      int64_t x[kLaneCols], y[kLaneCols];
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        const int col = top - kProbeCols + q * kLaneCols + c;
+        const bool read = open && col >= 0;
+        x[c] = read ? ra[col] : 0;
+        y[c] = read ? rb[col] : 0;
+      }
+      bool lt = false, eq = true;  // row_lt's rule over the lane's columns
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        lt = (x[c] < y[c]) | ((x[c] == y[c]) & lt);
+        eq &= x[c] == y[c];
+      }
+      const unsigned diff = __ballot_sync(0xffffffffu, !eq) & group;
+      const unsigned less = __ballot_sync(0xffffffffu, lt) & group;
+      if (open && diff) {
+        le = (less >> (31 - __clz(diff))) & 1;
+        open = false;
+      } else if (top <= kProbeCols) {
+        open = false;  // equal rows: le
+      }
+    }
+    if (probe) {
+      if (le) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+  }
+}
+
+// splits_kernel's entries for rows of wk > kNarrowCols columns
+__global__ void __launch_bounds__(kThreads)
+wide_splits_kernel(const int64_t* __restrict__ keys, Pairs pr, int64_t tile,
+                   int64_t entries, int64_t* __restrict__ splits, int wk) {
+  const int64_t e =
+      ((int64_t)blockIdx.x * kThreads + threadIdx.x) / kProbeLanes;
+  const int lane = threadIdx.x & 31;
+  const int q = lane % kProbeLanes;
+  const unsigned group = ((1u << kProbeLanes) - 1u) << (lane - q);
+  int64_t pair = -1, lo = 0, hi = 0, d = 0;
+  const int64_t* a = keys;
+  const int64_t* b = keys;
+  if (e < entries) {
+    pair = e / (pr.steps + 1);
+    int64_t base, na, nb;
+    pr.of(pair, base, na, nb);
+    a = keys + base * wk;
+    b = a + na * wk;
+    const int64_t t = (e - pair * (pr.steps + 1)) * tile;
+    d = t < na + nb ? t : na + nb;
+    lo = d > nb ? d - nb : 0;
+    hi = d < na ? d : na;
+  }
+  // the warp's lanes of this pair: lanes first .. last
+  const unsigned same = __match_any_sync(0xffffffffu, pair);
+  const int first = __ffs(same) - 1;
+  const int last = 31 - __clz(same) - (kProbeLanes - 1);  // its group
+  const bool lead = last - first < (kBracket - 1) * kProbeLanes ||
+                    lane - q == first || lane - q == last;
+  wide_search(lead, lo, hi, a, b, d, wk, q, group);
+  const int64_t s0 = __shfl_sync(0xffffffffu, lo, first);
+  const int64_t d0 = __shfl_sync(0xffffffffu, d, first);
+  const int64_t s1 = __shfl_sync(0xffffffffu, lo, last);
+  const int64_t d1 = __shfl_sync(0xffffffffu, d, last);
+  if (!lead) {  // s0 <= split <= s1, and d - split grows as d does
+    const int64_t up = s1 - (d1 - d), down = s0 + (d - d0);
+    lo = lo > s0 ? lo : s0;
+    lo = lo > up ? lo : up;
+    hi = hi < s1 ? hi : s1;
+    hi = hi < down ? hi : down;
+  }
+  wide_search(!lead, lo, hi, a, b, d, wk, q, group);
+  if (e < entries && q == 0) splits[e] = lo;
 }
 
 // Starts copying words src[0, n) to dst[off, off + n), off = 1 when src is
@@ -661,9 +787,13 @@ int launch_splits(const void* keys, int64_t m, int64_t run, int64_t tile,
   if (m > 0) {
     int64_t pairs;
     const Pairs pr = pairs_of(m, run, tile, &pairs);
-    const int64_t blocks = (pairs * (pr.steps + 1) + kThreads - 1) / kThreads;
+    const int64_t threads =
+        pairs * (pr.steps + 1) * (WK > 0 ? 1 : kProbeLanes);
+    const int64_t blocks = (threads + kThreads - 1) / kThreads;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    splits_kernel<WK><<<(unsigned)blocks, kThreads, 0, s>>>(
+    auto kernel = wide_splits_kernel;
+    if constexpr (WK > 0) kernel = splits_kernel<WK>;
+    kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
         (const int64_t*)keys, pr, tile, pairs * (pr.steps + 1),
         (int64_t*)splits, wk);
   }

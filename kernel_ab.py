@@ -36,9 +36,18 @@ the latter, and the whole sort_rows_blocked; block_sort and
 sort_rows_blocked of the k = 113 and k = 120 grains (84% PAD) and of the
 k = 200 grain (2^25 rows of Wk 13, 80% PAD, as 250-base reads give);
 block_sort of a grain whose rows tie on their top three columns; and
-merge_pass's first pass at Wk 16 (k = 250, its run-time instance). Each
+merge_pass's first pass at Wk 16 (k = 250, its run-time instance); K2's
+wide instance at the k = 127 grain (2^26 rows of Wk 8, 25% live) and its
+keep mask at a merge round's 4 x 2^20 rows of Wk 8, each also by its
+kernels' device time from torch.profiler; and merge_splits of the first
+pass beside that of runs of 2^22, and each sort_rows_blocked also by its
+merge_splits launches' device time from torch.profiler. Each
 grain's top column holds the bits a count's sortkey leaves there. Needs
 a CUDA card; the wrappers' APIs must match across the trees.
+
+Every K2 case also splits its call by the profiler: each device
+kernel's (and copy's) mean time a call, and the host gap, the call's
+time less the sum of its device rows.
 
 With --only, only the cases whose label starts with PREFIX run (and only
 their inputs are made: `--only wide` makes none of the narrow cases',
@@ -55,6 +64,7 @@ import importlib.util
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -63,9 +73,13 @@ HERE = Path(__file__).resolve().parent
 WINDOWS, SLAB, WINDOW, FIRST, APART = 8, 1 << 24, 1 << 20, 5_000_001, 1_500_000
 INSERT_ROWS, INSERT_PAIRS, TILE = 1 << 24, 8_890_770, 4096
 INSERT_MERS, INSERT_HASHES = INSERT_PAIRS // 10, 10
-# the kernels a case's profiler time sums, by label prefix: a K2 or Bloom
-# call waits on the host, so its time follows the host's pace
-PROFILED = {"K2": "compact_", "bloom": ""}
+# the kernels a case's profiler time sums, by label prefix, and the name
+# of the sum: a K2 or Bloom call waits on the host, so its time follows the
+# host's pace; a wide grain sort's merge_splits launches are a share of it
+PROFILED = {"K2": ("compact_", "kernels"), "wide K2": ("compact_", "kernels"),
+            "bloom": ("", "kernels"),
+            "wide sort_rows_blocked": ("splits_kernel",
+                                       "merge_splits kernels")}
 
 
 def _smoke():
@@ -255,6 +269,7 @@ def wide_cases(dev, only=""):
     import torch
 
     from jellyfish_tpu_torch.kernels.bitonic import block_sort, tile_rows
+    from jellyfish_tpu_torch.kernels.compact import compact
     from jellyfish_tpu_torch.kernels.merge_path import (
         merge_pass,
         merge_splits,
@@ -286,11 +301,15 @@ def wide_cases(dev, only=""):
         x = grain(m, 127, pad / 100)
         tag = f"k = 127, 2^26 rows, Wk {wk}, keys only, {pad}% PAD"
         yield f"wide K3 block_sort {tag}", lambda: block_sort(x), 1
-        label = (f"wide K1 merge_pass {tag}, the first pass (runs of one "
-                 "block_sort tile)")
-        if wanted(label):
+        labels = (f"wide K1 merge_pass {tag}, the first pass (runs of one "
+                  "block_sort tile)",
+                  f"wide K1 merge_splits {tag}, the first pass (runs of "
+                  f"{tile}), the pass's tiles")
+        if wanted(*labels):
             first = block_sort(x)[0]
-            yield label, lambda: merge_pass(first, tile), 1
+            yield labels[0], lambda: merge_pass(first, tile), 1
+            yield (labels[1], lambda: merge_splits(
+                first, tile, pass_tile_rows(wk, False)), 1)
             del first
         labels = (f"wide K1 merge_pass {tag}, runs of 2^22",
                   f"wide K1 merge_splits {tag}, runs of 2^22, the pass's "
@@ -332,6 +351,29 @@ def wide_cases(dev, only=""):
            lambda: merge_pass(x, tile_rows(16, False)), 1)
     del x
     torch.cuda.empty_cache()
+    # K2's wide instance, on inputs of their own seed: its count's
+    # scatter at the k = 127 grain, its keep mask at a merge round's shape
+    gk = torch.Generator(device=dev).manual_seed(2)
+    for rows, mask, label in (
+            (1 << 26, False, "wide K2 compact, 2^26 rows, Wk 8, 25% live"),
+            (4 << 20, True, "wide K2 compact with a keep mask, 4 x 2^20 "
+             "rows, Wk 8, 25% kept")):
+        if not wanted(label):
+            continue
+        keys = torch.randint(0, 1 << 32, (rows, 8), device=dev, generator=gk)
+        cnt = torch.randint(1, 9, (rows,), device=dev, generator=gk)
+        cnt *= torch.rand(rows, device=dev, generator=gk) < 0.25
+        keep = cnt != 0 if mask else None
+        yield label, lambda: compact(keys, cnt, keep)[:2], 1
+        del keys, cnt, keep
+        torch.cuda.empty_cache()
+
+
+def _short(name: str) -> str:
+    """A profiler row's kernel name without its namespace, return type and
+    arguments."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return re.sub(r"\(.*", "", name).strip()[:60]
 
 
 def run_tree(tree: str, only: str = "") -> dict:
@@ -358,13 +400,21 @@ def run_tree(tree: str, only: str = "") -> dict:
         if prefix is not None:
             # a call that waits on the host (K2 for its kept total, an
             # insert for its segment ends) is also timed by its kernels'
-            # device time: each kernel's mean over 50 calls in one
-            # profiler window, summed
+            # device time, a grain sort by its merge_splits launches': each
+            # kernel's mean over 50 calls in one profiler window, summed
+            # (each call's output freed before the next, as in cuda_ms)
             prof_rows = smoke.profiled(
-                lambda f=fn: [f() for _ in range(50)])[2]
-            ms[f"{label}, kernels (profiler)"] = sum(
-                us / 50 for name, us, n in prof_rows
-                if PROFILED[prefix] in name) / 1e3
+                lambda f=fn: [f() and None for _ in range(50)])[2]
+            part, what = PROFILED[prefix]
+            ms[f"{label}, {what} (profiler)"] = sum(
+                us / 50 for name, us, n in prof_rows if part in name) / 1e3
+            if "K2" in prefix:
+                # the call split: each device row a call, and the host gap
+                for name, us, n in prof_rows:
+                    key = f"{label}, {_short(name)} (profiler)"
+                    ms[key] = ms.get(key, 0) + us / 50 / 1e3
+                ms[f"{label}, host gap (the call less its device rows)"] = (
+                    ms[label] - sum(us for _, us, _ in prof_rows) / 50 / 1e3)
         torch.cuda.synchronize()
     return {"tree": tree, "ms": ms}
 
@@ -393,7 +443,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], stdout=subprocess.PIPE,
         text=True).stdout.strip().splitlines()[0]
-    table = {label: [r["ms"][label] for r in runs] for label in runs[0]["ms"]}
+    # a label one tree lacks (a kernel of its own in a call's split) is null
+    labels = dict.fromkeys(label for r in runs for label in r["ms"])
+    table = {label: [r["ms"].get(label) for r in runs] for label in labels}
     result = {"card": card, "trees": trees, "ms": table}
     os.makedirs(HERE / "chiprun_out", exist_ok=True)
     (HERE / "chiprun_out" / "kernel_ab.json").write_text(

@@ -1,10 +1,17 @@
 """The kernels' entries at key widths above 7 columns (k > 112), which run
 the wide instances on the card and here, on CPU tensors, their plain
 versions: block_sort, merge_pass, merge_splits and compact against a
-torch.sort LSD chain written out here, and the tile geometry that the
-wrappers share with the CUDA sources (csrc/merge_path.cu pass_rows,
-csrc/bitonic.cu wide_tile_bytes). Exact: integer data."""
+torch.sort LSD chain written out here, compact and merge_splits also
+against numpy at the edges of their wide kernels (compact also against
+experiments/pallas_compact in interpret mode), and the tile geometry that
+the wrappers share with the CUDA sources (csrc/merge_path.cu pass_rows,
+csrc/bitonic.cu wide_tile_bytes, csrc/compact.cu's walk of a tile's
+words). Exact: integer data."""
 
+import os
+import sys
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,7 +34,11 @@ from jellyfish_tpu_torch.ops.multiword import M32
 
 torch.set_num_threads(1)
 
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                "experiments"))
+
 WIDE = [8, 11, 13, 16, 32]  # k = 127, 176, 200, 256, 512
+TILE = 4096  # csrc/compact.cu kTile: the rows a block of the scatter owns
 
 
 def _lsd(keys, pay=None):
@@ -225,3 +236,161 @@ def test_counter_width_limit():
     with pytest.raises(ValueError, match=f"k = {k}: keys of "
                                          f"{MAX_KEY_COLS + 1} 32-bit limbs"):
         MerCounter(k, 1 << 20, device="cpu")
+
+
+def _edge_counts(seed, m):
+    """Counts of m rows, a quarter of them nonzero; from 3 tiles on, the
+    first tile keeps no row, the second every row and the third 777 (odd,
+    so that the next tile's output starts at an odd row); and a keep mask
+    of half the rows, which keeps rows of count 0 too, in the same tile
+    pattern."""
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(1, 9, m) * (rng.random(m) < 0.25)
+    keep = rng.random(m) < 0.5
+    if m > 3 * TILE:
+        for x, fill in ((cnt, 3), (keep, True)):
+            x[:TILE] = 0
+            x[TILE:2 * TILE] = fill
+            x[2 * TILE:3 * TILE] = 0
+            x[2 * TILE:2 * TILE + 777] = fill
+    return cnt, keep
+
+
+@pytest.mark.parametrize("wk,m", [
+    *((wk, m) for wk in (8, 9, 13, 64)
+      for m in (1, TILE - 1, TILE, TILE + 1, 3 * TILE + 1234)),
+    (MAX_KEY_COLS, 1), (MAX_KEY_COLS, 37)])
+def test_compact_wide_edges(wk, m):
+    """The rows of nonzero count, or of a true keep byte, in order, at the
+    wide scatter's edges (m = 1, a tile less or more one row, tiles that
+    keep none, all or an odd number of rows, a ragged last tile), on keys
+    at an even and at an odd word offset of their buffer, against numpy."""
+    rng = np.random.default_rng(600 + wk + m)
+    flat = rng.integers(0, 1 << 32, m * wk + 1, dtype=np.int64)
+    cnt, keep = _edge_counts(wk + m, m)
+    for off in (0, 1):
+        keys = flat[off:off + m * wk].reshape(m, wk)
+        tk = torch.from_numpy(flat)[off:off + m * wk].view(m, wk)
+        assert tk.is_contiguous()
+        tc, tkeep = torch.from_numpy(cnt), torch.from_numpy(keep)
+        for mask, rows in ((None, np.flatnonzero(cnt)),
+                           (tkeep, np.flatnonzero(keep))):
+            k, c, n = compact(tk, tc, mask)
+            assert n == len(rows)
+            np.testing.assert_array_equal(k.numpy(), keys[rows])
+            np.testing.assert_array_equal(c.numpy(), cnt[rows])
+
+
+@pytest.mark.parametrize("wk", [8, 9, 13])
+def test_compact_wide_matches_pallas(wk):
+    """compact's plain version against the Pallas compaction it replaces
+    (interpret mode) on two of its 32,768-row blocks at wide key widths,
+    with the first 4,096-row tile keeping no row and the second every
+    row; below the Pallas kernel's fault (its output within one block),
+    compared on its live rows."""
+    import pallas_compact as pc
+
+    rng = np.random.default_rng(700 + wk)
+    m = 2 * pc.BLOCK
+    keys = np.sort(rng.integers(0, 1 << 32, (m, wk), dtype=np.uint64)
+                   .astype(np.uint32), axis=0)
+    cnt = np.where(rng.random(m) < 0.25, rng.integers(1, 1 << 20, m),
+                   0).astype(np.uint32)
+    cnt[:TILE] = 0
+    cnt[TILE:2 * TILE] = 5
+    live = cnt != 0
+    gk, gc, n = compact(torch.from_numpy(keys.astype(np.int64)),
+                        torch.from_numpy(cnt.astype(np.int64)))
+    assert n == int(live.sum())
+    np.testing.assert_array_equal(gk.numpy().astype(np.uint32), keys[live])
+    np.testing.assert_array_equal(gc.numpy().astype(np.uint32), cnt[live])
+    pk, pcnt, q = pc.compact_sorted_masked(
+        jnp.asarray(keys), jnp.asarray(cnt), interpret=True)
+    pk, pcnt = np.asarray(pk), np.asarray(pcnt)
+    assert n <= int(q)
+    np.testing.assert_array_equal(pk[pcnt != 0], keys[live])
+    np.testing.assert_array_equal(pcnt[pcnt != 0], cnt[live])
+
+
+def _split_rows(kind, seed, m, wk, run):
+    """m rows of wk columns in sorted runs of `run` rows: all equal; tied
+    in every column but the lowest and the top, 84% of them PAD; sorted
+    as a whole (each pair's first run below its second); or that sort's
+    whole runs in reverse order (the first run above the second)."""
+    rng = np.random.default_rng(seed)
+    row = rng.integers(0, 1 << 32, wk, dtype=np.int64)
+    x = np.tile(row, (m, 1))
+    if kind == "equal":
+        return x
+    x[:, 0] = rng.integers(0, 4, m)
+    x[:, -1] = rng.integers(0, 2, m)
+    x[rng.random(m) < 0.84] = M32
+    if kind == "pad84":
+        for s in range(0, m, run):
+            x[s:s + run] = x[s:s + run][np.lexsort(x[s:s + run].T)]
+        return x
+    x = x[np.lexsort(x.T)]
+    if kind == "above":
+        whole = m // run * run
+        x[:whole] = x[:whole].reshape(-1, run, wk)[::-1].reshape(-1, wk)
+    return x
+
+
+def _splits_oracle(x, run, tile):
+    """Per pair and tile boundary d, the first run's rows among the first
+    d rows of the pair's stable merge, by numpy's stable lexsort."""
+    m = len(x)
+    run = min(run, m)
+    out = []
+    for s in range(0, m, 2 * run):
+        pair = x[s:s + 2 * run]
+        from_a = np.lexsort(pair.T) < min(run, len(pair))
+        taken = np.concatenate([[0], np.cumsum(from_a)])
+        steps = -(-min(2 * run, m) // tile)
+        out += [int(taken[min(t * tile, len(pair))])
+                for t in range(steps + 1)]
+    return out
+
+
+@pytest.mark.parametrize("kind", ["equal", "pad84", "below", "above"])
+@pytest.mark.parametrize("wk,run,m", [
+    *((wk, run, m) for wk in (8, 13, 64)
+      for run, m in ((1, 4), (1, 5), (5, 17), (5, 13), (2048, 6 * 1024 + 77),
+                     (2048, 4096 + 1000))),
+    *((MAX_KEY_COLS, run, m) for run, m in ((1, 4), (1, 5), (5, 17),
+                                            (5, 13)))])
+def test_merge_splits_wide_edges(wk, run, m, kind):
+    """merge_splits at its wide kernel's edges against numpy: rows all
+    equal, PAD rows and rows that tie in all but two columns, pairs whose
+    first run lies wholly below or wholly above the second; runs of 1, 5
+    and 2,048 with a short last pair or a lone last run; at tiles of one
+    row and of the pass's tile (one row at MAX_KEY_COLS, where the plain
+    version's chain of stable sorts runs 7,261 sorts a pair)."""
+    x = _split_rows(kind, 800 + wk + run + m, m, wk, run)
+    keys = torch.from_numpy(x)
+    for tile in (1,) if wk == MAX_KEY_COLS else (1, pass_tile_rows(wk, False)):
+        assert merge_splits(keys, run, tile).tolist() == _splits_oracle(
+            x, run, tile)
+
+
+def test_scatter_word_walk_of_every_width():
+    """The wide scatter (csrc/compact.cu) walks a tile's output words
+    256 threads x kWords words apart (kWords 2 at an even width, else 1)
+    and carries each word's kept row and column: for every width up to
+    MAX_KEY_COLS the walk gives e // wk and e % wk, and a tile's words
+    (4,096 rows) fit its 32-bit indices."""
+    assert TILE * MAX_KEY_COLS < 1 << 31
+    for words in (1, 2):
+        wk = np.arange(8, MAX_KEY_COLS + 1)
+        wk = wk[wk % 2 == 0] if words == 2 else wk
+        t = np.arange(256)[None, :]
+        step = 256 * words
+        hop, skip = step // wk[:, None], step % wk[:, None]
+        e = t * words
+        p, col = e // wk[:, None], e % wk[:, None]
+        for _ in range(64):
+            assert np.array_equal(p, e // wk[:, None])
+            assert np.array_equal(col, e % wk[:, None])
+            p, col, e = p + hop, col + skip, e + step
+            carry = col >= wk[:, None]
+            p, col = p + carry, col - carry * wk[:, None]
