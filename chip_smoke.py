@@ -89,12 +89,16 @@ grains of 40% and 84% PAD rows (the top limb of a count's bits) and on
 rows that tie on the top column, block_sort also at Wk 8 and 13 on top
 columns below 0 and from 2^47 up (wild_tops), merge_pass in runs of 1,
 2,048 and 2^16 rows, block_sort with a ragged last tile, each again at
-the smallest tiles, at Wk 64 and at the widest keys taken (MAX_KEY_COLS, 7,261 columns; wide_branches), K2 and merge_splits
-also at the edges of their wide kernels (wide_scatter_edges,
-wide_splits_edges), and each timed
-at the k = 127 grain's shape, block_sort, merge_pass and merge_splits
-(the first pass and a pass of runs of 2^22) at 40% and 84% PAD, K2 and
-its keep mask also by their kernels' profiler time (phase_wide); count through the CLI
+the smallest tiles, at Wk 64 and at the widest keys taken (MAX_KEY_COLS,
+7,261 columns; wide_branches), K2, merge_splits and merge_path also at
+the edges of their wide kernels (wide_scatter_edges, wide_splits_edges,
+wide_merge_path_edges: merge_path on equal, PAD, disjoint, empty,
+one-row, odd and unequal runs at Wk 8, 13, 16, 32, 64 and MAX_KEY_COLS),
+and each timed at the k = 127 grain's shape, block_sort, merge_pass and
+merge_splits (the first pass and a pass of runs of 2^22) at 40% and 84%
+PAD, K2 and its keep mask also by their kernels' profiler time,
+merge_path at A 2^22 + B 2^22 rows also by its partition pass's and
+tiles' (phase_wide); count through the CLI
 at k = 127 (12 Mbase of 150-base reads) and at k = 200 (10 Mbase of
 250-base reads) against the numpy oracle; a 4-part merge at k = 127 in
 small windows (every slab rotated), count --disk at k = 127 (4 or more
@@ -962,13 +966,15 @@ def phase_wide(dev):
     block_sort at Wk 8 and 13 also on wild_tops' columns; merge_path of
     two runs that share most keys; compact of a sorted run, 25% live;
     wide_branches' smallest tiles, at Wk 64 and MAX_KEY_COLS; and the
-    edges of K2's and merge_splits' wide kernels (wide_scatter_edges,
-    wide_splits_edges). Then each timed at the k = 127 grain's shape
-    (2^26 rows of Wk 8, keys only; the keep mask at a merge round's 4 x
-    2^20 rows), block_sort, merge_pass and merge_splits at 40% and at 84%
-    PAD, merge_pass and merge_splits on the first pass (runs of one
-    block_sort tile) and on runs of 2^22, K2 and its keep mask also by
-    their kernels' profiler time. Returns the kernels line's rows."""
+    edges of K2's, merge_splits' and merge_path's wide kernels
+    (wide_scatter_edges, wide_splits_edges, wide_merge_path_edges). Then
+    each timed at the k = 127 grain's shape (2^26 rows of Wk 8, keys
+    only; the keep mask at a merge round's 4 x 2^20 rows), block_sort,
+    merge_pass and merge_splits at 40% and at 84% PAD, merge_pass and
+    merge_splits on the first pass (runs of one block_sort tile) and on
+    runs of 2^22, K2 and its keep mask also by their kernels' profiler
+    time; merge_path at A 2^22 + B 2^22 rows, also by its partition
+    pass's and tiles' profiler time. Returns the kernels line's rows."""
     from jellyfish_tpu_torch.kernels.bitonic import (
         block_sort,
         block_sort_plain,
@@ -1091,6 +1097,7 @@ def phase_wide(dev):
     wide_branches(dev, g)
     wide_scatter_edges(dev, g)
     wide_splits_edges(dev, g)
+    wide_merge_path_edges(dev, g)
 
     # timed at the k = 127 grain's shape: 2^26 rows of 8 limbs, keys only,
     # at 40% PAD rows (the table's rows) and at 84% (a count's share)
@@ -1141,11 +1148,24 @@ def phase_wide(dev):
         rows[key].update(pad84_ms=row["ms"], pad84_plain_ms=row["plain_ms"])
     torch.cuda.empty_cache()
     a, ac, b, bc = merge_inputs(1 << 22, wk)
-    rows["merge_path_wide"] = hold(
-        f"wide K1 merge_path 2 x {1 << 22} rows, Wk {wk}",
-        lambda: merge_path(a, ac, b, bc),
-        lambda: merge_path_plain(a, ac, b, bc),
-        2 * (2 << 22) * (wk + 1) * 8)
+    label = f"wide K1 merge_path 2 x {1 << 22} rows, Wk {wk}"
+    row = hold(label, lambda: merge_path(a, ac, b, bc),
+               lambda: merge_path_plain(a, ac, b, bc),
+               2 * (2 << 22) * (wk + 1) * 8)
+    # a call is two kernels: the partition pass and the tiles, each by its
+    # device time from the profiler, its mean over the launches recorded
+    # in a window of ten calls
+    prof_rows = profiled(lambda: [merge_path(a, ac, b, bc)
+                                  for _ in range(10)])[2]
+    split = {part: sum(us / n for name, us, n in prof_rows if kernel in name)
+             / 1e3 for part, kernel in (("splits_ms", "wide_splits"),
+                                        ("tiles_ms", "wide_pass"))}
+    rows["merge_path_wide"] = dict(row, **split)
+    log(f"  {label}: partition pass {split['splits_ms']:.4f} ms, tiles "
+        f"{split['tiles_ms']:.4f} ms a call (profiler: "
+        f"{[(name[:60], us, n) for name, us, n in prof_rows[:3]]})")
+    if not all(split.values()):
+        raise AssertionError(f"{label}: a kernel of the call did not run")
     del a, ac, b, bc
     # K2's bytes: every count (and keep byte) read, the kept rows' keys
     # read, the kept rows written
@@ -1228,8 +1248,8 @@ def wild_tops(m, wk, g):
 
 def wide_branches(dev, g):
     """The wide instances' smallest tiles against their plain versions: at
-    Wk 64, merge_pass tiles of fewer rows than threads and merge_path
-    tiles of fewer than 512 rows; at MAX_KEY_COLS, tiles of 2-4 rows and
+    Wk 64, merge_pass' and merge_path's tiles of fewer rows than
+    threads; at MAX_KEY_COLS, tiles of 2-4 rows and
     block_sort on 32 threads. Rows tie in every column but the two lowest
     and the highest, so that a compare of two rows walks the whole row;
     few distinct keys, so that a tie out of order shows in the row-index
@@ -1351,6 +1371,78 @@ def wide_scatter_edges(dev, g):
                               + k2.compact_plain(keys, cnt, keep)[:2]))
             del flat, cnt, keep, keys
     torch.cuda.empty_cache()
+
+
+def wide_merge_path_edges(dev, g):
+    """K1's wide merge_path (its partition pass on the one pair of runs,
+    then the tiles) against its plain version at Wk 8, 13, 16, 32, 64 and
+    MAX_KEY_COLS, the counts each row's place in A then B, so that a tie
+    out of A-first order shows: on rows all equal in both runs; on rows
+    that tie in every column but the lowest and the top, 84% of them PAD;
+    on A wholly below B and wholly above it; at A + B rows of 0 + 0, 0 +
+    5, 5 + 0, 1 + 0, 0 + 1, 1 + 1, 3 + 2,000 and 2,000 + 3, 1,281 + 1,280
+    (odd, a short last tile) and 70,001 + 70,000 (tiles of 1 row a
+    thread, more than one a block at Wk 8); at Wk 8 and 13 also 2^20 - 1
+    + 2^20 + 2 (tiles of 5 and 3 rows a thread, many a block), and at Wk
+    8 runs and counts at an odd word offset. At MAX_KEY_COLS, where the
+    plain version's chain of stable sorts takes about 0.2 s a call, rows
+    all equal and 84% PAD at four of the shapes."""
+    from jellyfish_tpu_torch.kernels.merge_path import (
+        MAX_KEY_COLS,
+        merge_path,
+        merge_path_plain,
+    )
+    from jellyfish_tpu_torch.ops.count import sort_rows_plain
+    from jellyfish_tpu_torch.ops.multiword import M32
+
+    def offset(x, off):
+        """x as a contiguous view `off` words into a buffer of its own."""
+        flat = x.new_empty(x.numel() + off)
+        flat[off:] = x.reshape(-1)
+        return flat[off:].view(x.shape)
+
+    for wk in (8, 13, 16, 32, 64, MAX_KEY_COLS):
+        shapes = [(0, 0), (0, 5), (5, 0), (1, 0), (0, 1), (1, 1), (3, 2000),
+                  (2000, 3), (1281, 1280), (70001, 70000)]
+        if wk in (8, 13):
+            shapes.append(((1 << 20) - 1, (1 << 20) + 2))
+        kinds = ("rows all equal", "84% PAD", "A below B", "A above B")
+        if wk == MAX_KEY_COLS:
+            shapes, kinds = [(0, 5), (1, 1), (3, 200), (201, 2)], kinds[:2]
+        for na, nb in shapes:
+            n = na + nb
+            row = torch.randint(0, 1 << 32, (1, wk), device=dev, generator=g)
+            ac = torch.arange(na, device=dev)
+            bc = torch.arange(na, n, device=dev)
+            for label in kinds:
+                if label == "rows all equal":
+                    a, b = row.repeat(na, 1), row.repeat(nb, 1)
+                elif label == "84% PAD":
+                    pad = row.repeat(n, 1)
+                    pad[:, 0] = torch.randint(0, 4, (n,), device=dev,
+                                              generator=g)
+                    pad[:, -1] = torch.randint(0, 2, (n,), device=dev,
+                                               generator=g)
+                    pad[torch.rand(n, device=dev, generator=g) < 0.84] = M32
+                    a, b = (sort_rows_plain(x)[0]
+                            for x in (pad[:na], pad[na:]))
+                elif label == "A below B":
+                    ordered = sort_rows_plain(torch.randint(
+                        0, 1 << 32, (n, wk), device=dev, generator=g))[0]
+                    a, b = ordered[:na], ordered[na:]
+                else:
+                    a, b = ordered[nb:], ordered[:nb]
+                a, b = a.contiguous(), b.contiguous()
+                for off in ((0, 1) if wk == 8 and label == "84% PAD"
+                            else (0,)):
+                    x, xc, y, yc = (offset(t, off)
+                                    for t in (a, ac, b, bc))
+                    hold(f"wide K1 merge_path {na} + {nb} rows ({label}), "
+                         f"Wk {wk}, at word offset {off}",
+                         lambda: merge_path(x, xc, y, yc),
+                         lambda: merge_path_plain(x, xc, y, yc))
+            del row, ac, bc, a, b, x, xc, y, yc
+        torch.cuda.empty_cache()
 
 
 def wide_splits_edges(dev, g):

@@ -18,12 +18,13 @@
 // row written once, (WK + payload) * 8 bytes each way, against a few integer
 // compares per row.
 //
-// jf_merge_path (merge_tile): each block owns kRows consecutive output
-// positions, finds its two diagonal splits by binary search in device
-// memory (log2(M) dependent reads by two threads), stages its A and B
-// windows in shared memory with coalesced loads, lets each thread find its
-// sub-split in shared memory and merge kItems outputs serially, and writes
-// the tile out coalesced.
+// jf_merge_path up to 7 columns (merge_tile): each block owns kRows
+// consecutive output positions, finds its two diagonal splits by binary
+// search in device memory (log2(M) dependent reads by two threads), stages
+// its A and B windows in shared memory with coalesced loads, lets each
+// thread find its sub-split in shared memory and merge kItems outputs
+// serially, and writes the tile out coalesced. Wider keys run the wide
+// pass's kernels on the one pair of runs A and B (below).
 //
 // jf_merge_pass, the sort's pass, keeps the device busy moving bytes:
 //   - the splits come from a partition pass (splits_kernel): one thread a
@@ -43,17 +44,15 @@
 // workarounds, pallas_merge_probe.py:3-15).
 //
 // Keys of any width (k > 112): each entry has template instances for 1-7
-// columns and a wide instance (WK = 0) that reads the width at run time
-// and runs above 7 columns. Its rows are compared by a loop over the
-// columns; jf_merge_path stages its tile (512 rows, fewer once that many
-// would overflow shared memory) in dynamic shared memory. jf_merge_pass
-// runs its own wide kernel (wide_pass_kernel: rows staged at an odd
-// stride, below), with instances at Wk 8 and 13 beside the run-time
-// width, on tiles of 5, 3 or 1 rows a thread, or of fewer rows than
+// columns and wide kernels that read the width at run time and run above
+// 7 columns, with instances at Wk 8 and 13 beside the run-time width.
+// jf_merge_pass runs wide_pass_kernel (rows staged at an odd stride,
+// below) on tiles of 5, 3 or 1 rows a thread, or of fewer rows than
 // threads, whichever is the largest whose two stages fit in 227 KB
 // (pass_rows); jf_merge_splits runs wide_splits_kernel, which reads a
 // probe's rows eight columns a round trip and brackets most searches by
-// their neighbours'.
+// their neighbours'. jf_merge_path runs the same two kernels on runs A and
+// B of their own, with the counts as payload (wide_merge_path, below).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,17 +69,6 @@ struct Tile {
   static constexpr int kItems = WK == 1 ? 8 : (WK <= 3 ? 4 : 2);
   static constexpr int kRows = kThreads * kItems;
 };
-
-// The wide instance's tile: up to 512 rows, fewer where rows of wk
-// columns (with their count and source row) would overflow shared memory.
-__host__ __device__ inline int wide_merge_rows(int wk) {
-  const int64_t r = (kSharedBytes - 16) / ((int64_t)wk * 8 + 12);
-  return r < 2 * kThreads ? (int)r : 2 * kThreads;
-}
-
-__host__ __device__ inline size_t wide_merge_bytes(int wk) {
-  return 16 + (size_t)wide_merge_rows(wk) * ((size_t)wk * 8 + 12);
-}
 
 // Number of A rows among the first `diag` outputs of the stable merge:
 // the first i with A[i] > B[diag - 1 - i] (A[i] <= B[j] means A[i] goes
@@ -157,31 +145,21 @@ __device__ __forceinline__ void merge_tile(
   }
 }
 
-// WK > 0: the tile's rows in static shared memory; WK = 0 (wide): in
-// dynamic shared memory, wide_merge_bytes(wk) of it.
+// The tile's rows in static shared memory; WK = 1 .. kNarrowCols (wider
+// keys run wide_merge_path, below).
 template <int WK>
 __global__ void __launch_bounds__(kThreads)
 merge_path_kernel(const int64_t* __restrict__ ak, const int64_t* __restrict__ ac,
                   int64_t na, const int64_t* __restrict__ bk,
                   const int64_t* __restrict__ bc, int64_t nb,
-                  int64_t* __restrict__ ok, int64_t* __restrict__ oc, int wk) {
-  if constexpr (WK > 0) {
-    constexpr int kRows = Tile<WK>::kRows;
-    __shared__ int64_t s_key[kRows * WK];
-    __shared__ int64_t s_cnt[kRows];
-    __shared__ int s_src[kRows];
-    __shared__ int64_t s_split[2];
-    merge_tile<WK>(ak, ac, na, bk, bc, nb, ok, oc, (int64_t)blockIdx.x * kRows,
-                   WK, kRows, Tile<WK>::kItems, s_key, s_cnt, s_src, s_split);
-  } else {
-    extern __shared__ __align__(16) int64_t smem[];
-    const int rows = wide_merge_rows(wk);
-    int64_t* s_cnt = smem + 2;
-    int64_t* s_key = s_cnt + rows;
-    merge_tile<0>(ak, ac, na, bk, bc, nb, ok, oc, (int64_t)blockIdx.x * rows,
-                  wk, rows, (rows + kThreads - 1) / kThreads, s_key, s_cnt,
-                  reinterpret_cast<int*>(s_key + (size_t)rows * wk), smem);
-  }
+                  int64_t* __restrict__ ok, int64_t* __restrict__ oc) {
+  constexpr int kRows = Tile<WK>::kRows;
+  __shared__ int64_t s_key[kRows * WK];
+  __shared__ int64_t s_cnt[kRows];
+  __shared__ int s_src[kRows];
+  __shared__ int64_t s_split[2];
+  merge_tile<WK>(ak, ac, na, bk, bc, nb, ok, oc, (int64_t)blockIdx.x * kRows,
+                 WK, kRows, Tile<WK>::kItems, s_key, s_cnt, s_src, s_split);
 }
 
 // -- the merge sort's pass ----------------------------------------------------
@@ -275,6 +253,44 @@ splits_kernel(const int64_t* __restrict__ keys, Pairs pr, int64_t tile,
                                  d < na + nb ? d : na + nb, wk);
 }
 
+// -- the wide kernels' pairs -------------------------------------------------
+
+// A pair of sorted runs as a wide kernel merges it: A's keys and payload
+// at a and pa (na rows), B's at b and pb (nb rows); its merge goes to
+// output rows o, o + 1, ...
+struct Pair {
+  const int64_t *a, *b, *pa, *pb;
+  int64_t na, nb, o;
+};
+
+// The pairs of a pass over one array of keys (and a payload): Pairs' pair
+// p, merged in place of its rows.
+struct ArrayPairs {
+  Pairs pr;
+  const int64_t* keys;
+  const int64_t* pay;
+
+  __device__ __forceinline__ int64_t steps() const { return pr.steps; }
+
+  __device__ __forceinline__ Pair of(int64_t p, int W) const {
+    int64_t base, na, nb;
+    pr.of(p, base, na, nb);
+    return Pair{keys + base * W, keys + (base + na) * W, pay + base,
+                pay + base + na, na, nb, base};
+  }
+};
+
+// jf_merge_path's one pair: runs A and B of their own, with their counts,
+// served by `tiles` tiles.
+struct TwoRuns {
+  Pair ab;
+  int64_t tiles;
+
+  __device__ __forceinline__ int64_t steps() const { return tiles; }
+
+  __device__ __forceinline__ Pair of(int64_t, int) const { return ab; }
+};
+
 // -- the wide partition pass -------------------------------------------------
 
 // splits_kernel above kNarrowCols columns ran far below its bound: one
@@ -353,28 +369,31 @@ __device__ __forceinline__ void wide_search(bool on, int64_t& lo, int64_t& hi,
   }
 }
 
-// splits_kernel's entries for rows of wk > kNarrowCols columns
+// splits_kernel's entries for rows of wk > kNarrowCols columns, on the
+// pairs of Src (ArrayPairs: a pass; TwoRuns: jf_merge_path, whose runs may
+// differ in length by any amount; the brackets hold for any pair, since
+// both the split and d - split grow with d)
+template <class Src>
 __global__ void __launch_bounds__(kThreads)
-wide_splits_kernel(const int64_t* __restrict__ keys, Pairs pr, int64_t tile,
-                   int64_t entries, int64_t* __restrict__ splits, int wk) {
+wide_splits_kernel(Src src, int64_t tile, int64_t entries,
+                   int64_t* __restrict__ splits, int wk) {
   const int64_t e =
       ((int64_t)blockIdx.x * kThreads + threadIdx.x) / kProbeLanes;
   const int lane = threadIdx.x & 31;
   const int q = lane % kProbeLanes;
   const unsigned group = ((1u << kProbeLanes) - 1u) << (lane - q);
   int64_t pair = -1, lo = 0, hi = 0, d = 0;
-  const int64_t* a = keys;
-  const int64_t* b = keys;
+  const int64_t* a = nullptr;
+  const int64_t* b = nullptr;
   if (e < entries) {
-    pair = e / (pr.steps + 1);
-    int64_t base, na, nb;
-    pr.of(pair, base, na, nb);
-    a = keys + base * wk;
-    b = a + na * wk;
-    const int64_t t = (e - pair * (pr.steps + 1)) * tile;
-    d = t < na + nb ? t : na + nb;
-    lo = d > nb ? d - nb : 0;
-    hi = d < na ? d : na;
+    pair = e / (src.steps() + 1);
+    const Pair p = src.of(pair, wk);
+    a = p.a;
+    b = p.b;
+    const int64_t t = (e - pair * (src.steps() + 1)) * tile;
+    d = t < p.na + p.nb ? t : p.na + p.nb;
+    lo = d > p.nb ? d - p.nb : 0;
+    hi = d < p.na ? d : p.na;
   }
   // the warp's lanes of this pair: lanes first .. last
   const unsigned same = __match_any_sync(0xffffffffu, pair);
@@ -602,37 +621,33 @@ __device__ __forceinline__ int split_staged(const int64_t* a, int na,
   return lo;
 }
 
-// A wide tile's windows: rows a, b of the array start A's and B's, row o
-// the output's; staged A then B, row r of the stage at r stride words.
+// A wide tile's window: row o of the output starts it; staged A's na
+// rows then B's nb, row r of the stage at r stride words.
 struct WideWin {
-  int64_t a, b, o;
+  int64_t o;
   int na, nb;
 };
 
-// Tile t of the pass from its splits s0, s1, with its copies started into
-// stage `st` (committed as one group).
-template <int WK, bool PAY>
-__device__ __forceinline__ WideWin wide_start(const Pairs& pr, int64_t t,
+// Tile t of Src's pairs from its splits s0, s1, with its copies started
+// into stage `st` (committed as one group). Rows need only 8-byte
+// alignment: every copy is 8 bytes.
+template <int WK, bool PAY, class Src>
+__device__ __forceinline__ WideWin wide_start(const Src& src, int64_t t,
                                               int64_t s0, int64_t s1,
-                                              const int64_t* ik,
-                                              const int64_t* ip, int64_t* st,
-                                              const WideShape& P, int W,
-                                              int S, uint32_t inv) {
-  const int64_t pair = t / pr.steps;
-  const int64_t d0 = (t - pair * pr.steps) * P.rows;
-  int64_t base, na, nb;
-  pr.of(pair, base, na, nb);
-  const int64_t d1 = d0 + P.rows < na + nb ? d0 + P.rows : na + nb;
+                                              int64_t* st, const WideShape& P,
+                                              int W, int S, uint32_t inv) {
+  const int64_t pair = t / src.steps();
+  const int64_t d0 = (t - pair * src.steps()) * P.rows;
+  const Pair p = src.of(pair, W);
+  const int64_t d1 = d0 + P.rows < p.na + p.nb ? d0 + P.rows : p.na + p.nb;
   WideWin w;
-  w.a = base + s0;
-  w.b = base + na + (d0 - s0);
-  w.o = base + d0;
+  w.o = p.o + d0;
   w.na = (int)(s1 - s0);
   w.nb = d1 > d0 ? (int)(d1 - d0) - w.na : 0;
   // word e of the window is A's word e, then B's word e - na W
   const int words_a = w.na * W;
-  const int64_t* ka = ik + w.a * W;
-  const int64_t* kb = ik + w.b * W;
+  const int64_t* ka = p.a + s0 * W;
+  const int64_t* kb = p.b + (d0 - s0) * W;
   for (int e = threadIdx.x; e < (w.na + w.nb) * W; e += kThreads) {
     const int r = wide_div<WK>(e, inv);
     cp_async8(st + r * S + (e - r * W),
@@ -640,8 +655,10 @@ __device__ __forceinline__ WideWin wide_start(const Pairs& pr, int64_t t,
   }
   if constexpr (PAY) {
     int64_t* sp = st + P.rows * S;
+    const int64_t* pa = p.pa + s0;
+    const int64_t* pb = p.pb + (d0 - s0);
     for (int r = threadIdx.x; r < w.na + w.nb; r += kThreads) {
-      cp_async8(sp + r, r < w.na ? ip + w.a + r : ip + w.b + (r - w.na));
+      cp_async8(sp + r, r < w.na ? pa + r : pb + (r - w.na));
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -671,8 +688,8 @@ __device__ __forceinline__ void wide_merge(const int64_t* st, const WideWin& w,
   __syncthreads();
 
   // the tile starts at an even row (tiles and pairs hold even row
-  // counts), so its words at a 16-byte boundary; with W odd a vector's
-  // second word may start the next row
+  // counts) of a 16-byte aligned output, so its words at a 16-byte
+  // boundary; with W odd a vector's second word may start the next row
   const int words = n * W;
   int64_t* out = ok + w.o * W;
   for (int c = threadIdx.x; 2 * c + 1 < words; c += kThreads) {
@@ -696,13 +713,11 @@ __device__ __forceinline__ void wide_merge(const int64_t* st, const WideWin& w,
   }
 }
 
-// pass_kernel's loop over the pairs' tiles on the wide stages. WK: 8 or
-// 13 at compile time, or 0, the width wk read at run time.
-template <int WK, bool PAY>
+// pass_kernel's loop over the tiles of Src's pairs on the wide stages.
+// WK: 8 or 13 at compile time, or 0, the width wk read at run time.
+template <int WK, bool PAY, class Src>
 __global__ void __launch_bounds__(kThreads, 1)
-wide_pass_kernel(const int64_t* __restrict__ ik,
-                 const int64_t* __restrict__ ip, Pairs pr,
-                 const int64_t* __restrict__ splits, int64_t tiles,
+wide_pass_kernel(Src src, const int64_t* __restrict__ splits, int64_t tiles,
                  int64_t* __restrict__ ok, int64_t* __restrict__ op, int wk,
                  uint32_t inv, WideShape P) {
   const int W = width<WK>(wk);
@@ -715,15 +730,14 @@ wide_pass_kernel(const int64_t* __restrict__ ik,
   // tile u's splits are entries e and e + 1, e = u + its pair
   auto splits_of = [&](int64_t u, int64_t& s0, int64_t& s1) {
     if (u < tiles) {
-      const int64_t e = u + u / pr.steps;
+      const int64_t e = u + u / src.steps();
       s0 = splits[e];
       s1 = splits[e + 1];
     }
   };
   int64_t s0, s1, n0 = 0, n1 = 0;
   splits_of(t, s0, s1);
-  WideWin w =
-      wide_start<WK, PAY>(pr, t, s0, s1, ik, ip, smem, P, W, S, inv);
+  WideWin w = wide_start<WK, PAY>(src, t, s0, s1, smem, P, W, S, inv);
   splits_of(t + step, n0, n1);
   for (int buf = 0;; buf ^= 1) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -732,7 +746,7 @@ wide_pass_kernel(const int64_t* __restrict__ ik,
     const int64_t next = t + step;
     WideWin wn;
     if (next < tiles) {
-      wn = wide_start<WK, PAY>(pr, next, n0, n1, ik, ip,
+      wn = wide_start<WK, PAY>(src, next, n0, n1,
                                smem + (buf ^ 1) * P.stage_words, P, W, S,
                                inv);
       splits_of(next + step, n0, n1);
@@ -747,27 +761,19 @@ wide_pass_kernel(const int64_t* __restrict__ ik,
 
 // -- launchers ----------------------------------------------------------------
 
-// Each launcher takes the key width wk: its instance's own (WK > 0), or
-// the wide instance's (WK = 0), read at run time.
+// jf_merge_path's instances WK = 1 .. kNarrowCols (wider keys:
+// wide_merge_path, below)
 template <int WK>
 int launch_merge(const void* ak, const void* ac, int64_t na, const void* bk,
-                 const void* bc, int64_t nb, void* ok, void* oc, int wk,
+                 const void* bc, int64_t nb, void* ok, void* oc,
                  cudaStream_t s) {
   const int64_t total = na + nb;
-  const int rows = WK > 0 ? Tile<WK>::kRows : wide_merge_rows(wk);
-  const size_t bytes = WK > 0 ? 0 : wide_merge_bytes(wk);
-  if constexpr (WK == 0) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        merge_path_kernel<WK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
   if (total > 0) {
-    const int64_t blocks = (total + rows - 1) / rows;
+    const int64_t blocks = (total + Tile<WK>::kRows - 1) / Tile<WK>::kRows;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    merge_path_kernel<WK><<<(unsigned)blocks, kThreads, bytes, s>>>(
+    merge_path_kernel<WK><<<(unsigned)blocks, kThreads, 0, s>>>(
         (const int64_t*)ak, (const int64_t*)ac, na, (const int64_t*)bk,
-        (const int64_t*)bc, nb, (int64_t*)ok, (int64_t*)oc, wk);
+        (const int64_t*)bc, nb, (int64_t*)ok, (int64_t*)oc);
   }
   return (int)cudaGetLastError();
 }
@@ -781,23 +787,36 @@ Pairs pairs_of(int64_t m, int64_t run, int64_t tile, int64_t* pairs) {
   return Pairs{m, run, (rows + tile - 1) / tile};
 }
 
+// The wide partition pass's launch: `entries` splits of Src's pairs
+template <class Src>
+int launch_wide_splits(const Src& src, int64_t tile, int64_t entries,
+                       void* splits, int wk, cudaStream_t s) {
+  const int64_t blocks =
+      (entries * kProbeLanes + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  wide_splits_kernel<Src><<<(unsigned)blocks, kThreads, 0, s>>>(
+      src, tile, entries, (int64_t*)splits, wk);
+  return (int)cudaGetLastError();
+}
+
 template <int WK>
 int launch_splits(const void* keys, int64_t m, int64_t run, int64_t tile,
                   void* splits, int wk, cudaStream_t s) {
-  if (m > 0) {
-    int64_t pairs;
-    const Pairs pr = pairs_of(m, run, tile, &pairs);
-    const int64_t threads =
-        pairs * (pr.steps + 1) * (WK > 0 ? 1 : kProbeLanes);
-    const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (m == 0) return (int)cudaGetLastError();
+  int64_t pairs;
+  const Pairs pr = pairs_of(m, run, tile, &pairs);
+  const int64_t entries = pairs * (pr.steps + 1);
+  if constexpr (WK == 0) {
+    return launch_wide_splits(
+        ArrayPairs{pr, (const int64_t*)keys, nullptr}, tile, entries,
+        splits, wk, s);
+  } else {
+    const int64_t blocks = (entries + kThreads - 1) / kThreads;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    auto kernel = wide_splits_kernel;
-    if constexpr (WK > 0) kernel = splits_kernel<WK>;
-    kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const int64_t*)keys, pr, tile, pairs * (pr.steps + 1),
-        (int64_t*)splits, wk);
+    splits_kernel<WK><<<(unsigned)blocks, kThreads, 0, s>>>(
+        (const int64_t*)keys, pr, tile, entries, (int64_t*)splits, wk);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <int WK, bool PAY>
@@ -842,16 +861,14 @@ int launch_pass(const void* keys, const void* pay, int64_t m, int64_t run,
                                        out_keys, nullptr, wk, s);
 }
 
-template <int WK, bool PAY>
-int launch_wide_tiles(const void* keys, const void* pay, int64_t m,
-                      int64_t run, const void* splits, void* out_keys,
-                      void* out_pay, int wk, cudaStream_t s) {
-  const WideShape P = wide_shape(pass_rows(wk, PAY), wk, PAY);
-  if (m == 0) return (int)cudaGetLastError();
-  int64_t pairs;
-  const Pairs pr = pairs_of(m, run, P.rows, &pairs);
-  const int64_t tiles = pairs * pr.steps;
-  auto kernel = wide_pass_kernel<WK, PAY>;
+// The wide tiles' launch: `tiles` tiles of Src's pairs, of P.rows rows,
+// one persistent block on each SM (more where P's stages are small)
+template <int WK, bool PAY, class Src>
+int launch_wide_tiles(const Src& src, int64_t tiles, const WideShape& P,
+                      const void* splits, void* out_keys, void* out_pay,
+                      int wk, cudaStream_t s) {
+  if (tiles == 0) return (int)cudaGetLastError();
+  auto kernel = wide_pass_kernel<WK, PAY, Src>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.bytes);
   int dev = 0, sms = 0, per_sm = 0;
@@ -867,19 +884,32 @@ int launch_wide_tiles(const void* keys, const void* pay, int64_t m,
   const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   const int64_t grid = tiles < resident ? tiles : resident;
   kernel<<<(unsigned)grid, kThreads, P.bytes, s>>>(
-      (const int64_t*)keys, (const int64_t*)pay, pr, (const int64_t*)splits,
-      tiles, (int64_t*)out_keys, (int64_t*)out_pay, wk, recip(wk), P);
+      src, (const int64_t*)splits, tiles, (int64_t*)out_keys,
+      (int64_t*)out_pay, wk, recip(wk), P);
   return (int)cudaGetLastError();
+}
+
+template <int WK, bool PAY>
+int wide_pass_tiles(const void* keys, const void* pay, int64_t m,
+                    int64_t run, const void* splits, void* out_keys,
+                    void* out_pay, int wk, cudaStream_t s) {
+  const WideShape P = wide_shape(pass_rows(wk, PAY), wk, PAY);
+  if (m == 0) return (int)cudaGetLastError();
+  int64_t pairs;
+  const Pairs pr = pairs_of(m, run, P.rows, &pairs);
+  return launch_wide_tiles<WK, PAY>(
+      ArrayPairs{pr, (const int64_t*)keys, (const int64_t*)pay},
+      pairs * pr.steps, P, splits, out_keys, out_pay, wk, s);
 }
 
 template <int WK>
 int launch_wide_pass(const void* keys, const void* pay, int64_t m,
                      int64_t run, const void* splits, void* out_keys,
                      void* out_pay, int wk, cudaStream_t s) {
-  return pay ? launch_wide_tiles<WK, true>(keys, pay, m, run, splits,
-                                           out_keys, out_pay, wk, s)
-             : launch_wide_tiles<WK, false>(keys, nullptr, m, run, splits,
-                                            out_keys, nullptr, wk, s);
+  return pay ? wide_pass_tiles<WK, true>(keys, pay, m, run, splits,
+                                         out_keys, out_pay, wk, s)
+             : wide_pass_tiles<WK, false>(keys, nullptr, m, run, splits,
+                                          out_keys, nullptr, wk, s);
 }
 
 // the wide pass: its compile-time instances at Wk 8 and 13, else the
@@ -901,15 +931,74 @@ int wide_pass(const void* keys, const void* pay, int64_t m, int64_t run,
                              wk, s);
 }
 
+// -- the wide merge_path -----------------------------------------------------
+
+// jf_merge_path above kNarrowCols columns (k > 112): the wide pass's two
+// kernels on the one pair of runs A and B (TwoRuns), the counts as the
+// payload. The partition pass searches each tile boundary once, 14 of a
+// warp's 16 between their neighbours' splits; the tiles run on persistent
+// blocks, the next tile's copies in flight in the other stage while this
+// one merges, rows at the odd stride wk | 1, and go out as 16-byte stores.
+// Bound on this card: bytes, (wk + 1) 8 bytes a row read and written.
+//
+// Its tile is one row a thread (merge_rows), fewer rows where 256 do not
+// fit: small stages let several blocks share an SM, one merging while
+// another's copies and stores are in flight. At A 2^22 + B 2^22 rows
+// (PERF.md, kernel_ab.py) this beat tiles of 3 rows a thread by 4% at Wk
+// 13 and 23% at Wk 16, and lost 4% to them at Wk 8, where 5 rows a
+// thread, the pass's tile, was 14% slower than one. A single launch, each
+// block's first warp searching its own tile's two boundaries, took 1.8-
+// 2.8x as long at that shape and 37% less at A 2^15 + B 2^15.
+
+// The tile rows of a wide merge_path (kernels/merge_path.py
+// merge_tile_rows): 256, or pass_rows' fewer where 256 do not fit.
+int merge_rows(int wk) {
+  const int top = pass_rows(wk, true);
+  return top < kThreads ? top : kThreads;
+}
+
+template <int WK>
+int launch_wide_merge(const TwoRuns& src, const WideShape& P, void* splits,
+                      void* ok, void* oc, int wk, cudaStream_t s) {
+  const int rc =
+      launch_wide_splits(src, P.rows, src.tiles + 1, splits, wk, s);
+  if (rc != cudaSuccess) return rc;
+  return launch_wide_tiles<WK, true>(src, src.tiles, P, splits, ok, oc, wk,
+                                     s);
+}
+
+int wide_merge_path(const void* ak, const void* ac, int64_t na,
+                    const void* bk, const void* bc, int64_t nb, void* ok,
+                    void* oc, int wk, int64_t tile, void* splits,
+                    cudaStream_t s) {
+  if (pass_rows(wk, true) < 2 || ((uintptr_t)ok | (uintptr_t)oc) & 15) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t total = na + nb;
+  if (tile != merge_rows(wk)) return (int)cudaErrorInvalidValue;
+  if (total == 0) return (int)cudaGetLastError();
+  const TwoRuns src{
+      Pair{(const int64_t*)ak, (const int64_t*)bk, (const int64_t*)ac,
+           (const int64_t*)bc, na, nb, 0},
+      (total + tile - 1) / tile};
+  const WideShape P = wide_shape((int)tile, wk, true);
+  switch (wk) {
+    case 8:
+      return launch_wide_merge<8>(src, P, splits, ok, oc, wk, s);
+    case 13:
+      return launch_wide_merge<13>(src, P, splits, ok, oc, wk, s);
+  }
+  return launch_wide_merge<0>(src, P, splits, ok, oc, wk, s);
+}
+
 using MergeFn = int (*)(const void*, const void*, int64_t, const void*,
-                        const void*, int64_t, void*, void*, int,
-                        cudaStream_t);
+                        const void*, int64_t, void*, void*, cudaStream_t);
 using SplitsFn = int (*)(const void*, int64_t, int64_t, int64_t, void*, int,
                          cudaStream_t);
 using PassFn = int (*)(const void*, const void*, int64_t, int64_t, int64_t,
                        const void*, void*, void*, int, cudaStream_t);
-// index wk for wk <= kNarrowCols, 0 (the wide instance) above
-constexpr MergeFn kMerge[] = {launch_merge<0>, launch_merge<1>,
+// index wk for wk <= kNarrowCols, 0 (the wide kernels) above
+constexpr MergeFn kMerge[] = {nullptr,         launch_merge<1>,
                               launch_merge<2>, launch_merge<3>,
                               launch_merge<4>, launch_merge<5>,
                               launch_merge<6>, launch_merge<7>};
@@ -926,16 +1015,23 @@ int instance(int wk) { return wk <= kNarrowCols ? wk : 0; }
 
 }  // namespace
 
-// Key widths wk >= 1; above kNarrowCols (7) the wide instances run, up to
+// Key widths wk >= 1; above kNarrowCols (7) the wide kernels run, up to
 // the width at which a jf_merge_pass tile still holds two rows
-// (kernels/merge_path.py MAX_KEY_COLS).
+// (kernels/merge_path.py MAX_KEY_COLS). Above kNarrowCols, `tile` must be
+// merge_rows(wk) (kernels/merge_path.py merge_tile_rows), `splits` must
+// hold ceil((na + nb) / tile) + 1 int64 entries, and out_keys and out_cnt
+// must be 16-byte aligned; up to kNarrowCols both are ignored.
 extern "C" int jf_merge_path(const void* a_keys, const void* a_cnt, int64_t na,
                              const void* b_keys, const void* b_cnt, int64_t nb,
                              void* out_keys, void* out_cnt, int wk,
-                             void* stream) {
-  if (wk < 1 || wide_merge_rows(wk) < 1) return (int)cudaErrorInvalidValue;
-  return kMerge[instance(wk)](a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys,
-                              out_cnt, wk, (cudaStream_t)stream);
+                             int64_t tile, void* splits, void* stream) {
+  if (wk < 1 || na < 0 || nb < 0) return (int)cudaErrorInvalidValue;
+  if (wk > kNarrowCols) {
+    return wide_merge_path(a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys,
+                           out_cnt, wk, tile, splits, (cudaStream_t)stream);
+  }
+  return kMerge[wk](a_keys, a_cnt, na, b_keys, b_cnt, nb, out_keys, out_cnt,
+                    (cudaStream_t)stream);
 }
 
 // The splits of a pass at tiles of `tile` rows into `splits`, pairs x

@@ -9,8 +9,8 @@ deduplicated runs leaves each shared key on two adjacent rows, A's count
 first (ops/count.fold_adjacent sums them).
 
 Keys of 1-7 columns (k <= 112) run the kernel's template instances; wider
-keys, up to MAX_KEY_COLS, its wide instance, which reads the width at run
-time, or merge_pass's instances at 8 and 13 columns (csrc/merge_path.cu).
+keys, up to MAX_KEY_COLS, its wide kernels, which read the width at run
+time, with instances at 8 and 13 columns (csrc/merge_path.cu).
 
 `merge_pass` is one pass of a merge sort (kernels/sort.py): every adjacent
 pair of sorted runs of L rows merged at once, the payload optional. On the
@@ -18,8 +18,11 @@ card a call is two kernel launches: `merge_splits` (the partition pass:
 where each output tile of `pass_tile_rows` rows starts in its pair's first
 run) and the tile merge that reads those splits. `merge_path.launches`,
 `merge_pass.launches` and `merge_splits.launches` count calls; a
-`merge_path` or `merge_splits` call is one kernel launch, a `merge_pass`
-call two (its `merge_splits` call counts there too).
+`merge_splits` call is one kernel launch, a `merge_pass` call two (its
+`merge_splits` call counts there too). A `merge_path` call is one kernel
+launch up to 7 columns; above, two: the wide partition pass on its one
+pair of runs, at tiles of `merge_tile_rows` rows, then the wide pass's
+tiles with the counts as payload (neither counted elsewhere).
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from jellyfish_tpu_torch.ops.count import sort_rows_plain
 
 __all__ = ["merge_path", "merge_path_plain", "merge_pass",
            "merge_pass_plain", "merge_splits", "merge_splits_plain",
-           "pass_tile_rows", "split_steps", "MAX_KEY_COLS",
+           "pass_tile_rows", "merge_tile_rows", "split_steps",
+           "MAX_KEY_COLS",
            "NARROW_KEY_COLS", "SHARED_BYTES"]
 
 NARROW_KEY_COLS = 7  # csrc/rows.cuh kNarrowCols: the WK template instances
@@ -42,7 +46,8 @@ SHARED_BYTES = 232448  # csrc/rows.cuh kSharedBytes: a block's 227 KB
 _P, _N = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "jf_merge_path": (ctypes.c_int,
-                      [_P, _P, _N, _P, _P, _N, _P, _P, ctypes.c_int, _P]),
+                      [_P, _P, _N, _P, _P, _N, _P, _P, ctypes.c_int, _N, _P,
+                       _P]),
     "jf_merge_splits": (ctypes.c_int,
                         [_P, _N, _N, _N, _P, ctypes.c_int, _P]),
     "jf_merge_pass": (ctypes.c_int,
@@ -85,12 +90,18 @@ def merge_path(a_keys, a_cnt, b_keys, b_cnt):
     nb = b_keys.shape[0]
     out_keys = torch.empty((na + nb, wk), dtype=torch.int64, device=dev)
     out_cnt = torch.empty(na + nb, dtype=torch.int64, device=dev)
+    tile, splits = 0, None
+    if wk > NARROW_KEY_COLS:
+        tile = merge_tile_rows(wk)
+        splits = torch.empty(-(-(na + nb) // tile) + 1, dtype=torch.int64,
+                             device=dev)
     fn = _build.load("merge_path", _SIGNATURES).jf_merge_path
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(a_keys.data_ptr(), a_cnt.data_ptr(), na,
                 b_keys.data_ptr(), b_cnt.data_ptr(), nb,
-                out_keys.data_ptr(), out_cnt.data_ptr(), wk, stream)
+                out_keys.data_ptr(), out_cnt.data_ptr(), wk, tile,
+                None if splits is None else splits.data_ptr(), stream)
     _build.check(rc, "merge_path")
     merge_path.launches += 1
     return out_keys, out_cnt
@@ -124,6 +135,14 @@ def pass_tile_rows(wk: int, payload: bool) -> int:
         if _pass_bytes(256 * items, wk, payload) <= SHARED_BYTES:
             return 256 * items
     return SHARED_BYTES // _pass_bytes(1, wk, payload) & ~1
+
+
+def merge_tile_rows(wk: int) -> int:
+    """Output rows of one tile of a wide merge_path (wk above 7 columns;
+    csrc/merge_path.cu merge_rows): one row a thread of 256, the smallest
+    of merge_pass' tiles with a payload, or pass_tile_rows' fewer rows
+    where 256 do not fit."""
+    return min(pass_tile_rows(wk, True), 256)
 
 
 def _widest_keys() -> int:

@@ -41,7 +41,11 @@ wide instance at the k = 127 grain (2^26 rows of Wk 8, 25% live) and its
 keep mask at a merge round's 4 x 2^20 rows of Wk 8, each also by its
 kernels' device time from torch.profiler; and merge_splits of the first
 pass beside that of runs of 2^22, and each sort_rows_blocked also by its
-merge_splits launches' device time from torch.profiler. Each
+merge_splits launches' device time from torch.profiler; and K1's wide
+merge_path (wide_merge_cases: A 2^22 + B 2^22 rows of Wk 8, 90% of keys
+in both, also with 84% of each run PAD rows, of Wk 13 and of Wk 16, and
+A 2^20 + B 2^20 and A 2^15 + B 2^15 of Wk 8), each call also split by
+torch.profiler into its partition pass and tiles. Each
 grain's top column holds the bits a count's sortkey leaves there. Needs
 a CUDA card; the wrappers' APIs must match across the trees.
 
@@ -75,11 +79,15 @@ INSERT_ROWS, INSERT_PAIRS, TILE = 1 << 24, 8_890_770, 4096
 INSERT_MERS, INSERT_HASHES = INSERT_PAIRS // 10, 10
 # the kernels a case's profiler time sums, by label prefix, and the name
 # of the sum: a K2 or Bloom call waits on the host, so its time follows the
-# host's pace; a wide grain sort's merge_splits launches are a share of it
-PROFILED = {"K2": ("compact_", "kernels"), "wide K2": ("compact_", "kernels"),
-            "bloom": ("", "kernels"),
+# host's pace; a wide grain sort's merge_splits launches are a share of it;
+# a wide merge_path call is a partition pass and a tile pass. Where the
+# third field is set, the call is also split into each device row
+PROFILED = {"K2": ("compact_", "kernels", True),
+            "wide K2": ("compact_", "kernels", True),
+            "bloom": ("", "kernels", False),
             "wide sort_rows_blocked": ("splits_kernel",
-                                       "merge_splits kernels")}
+                                       "merge_splits kernels", False),
+            "wide K1 merge_path": ("", "kernels", True)}
 
 
 def _smoke():
@@ -367,6 +375,52 @@ def wide_cases(dev, only=""):
         yield label, lambda: compact(keys, cnt, keep)[:2], 1
         del keys, cnt, keep
         torch.cuda.empty_cache()
+    yield from wide_merge_cases(dev, wanted)
+
+
+def wide_merge_cases(dev, wanted):
+    """K1's wide merge_path: two sorted runs of n rows (with counts) drawn
+    from one sorted pool of n / 0.9 rows, so that 90% of keys lie in both,
+    the pool's rows of a count's top limb (as wide_cases' grains) and the
+    PAD row last in each run; at the table's shape (k = 127, 2^22 + 2^22
+    rows, Wk 8), with 84% of each run PAD rows (a k = 127 grain's share),
+    at Wk 13 (k = 200) and Wk 16 (k = 250, the run-time instance), and at a
+    merge round's window (2^20 + 2^20) and the CLI k = 127 merge's (2^15 +
+    2^15)."""
+    import torch
+
+    from jellyfish_tpu_torch.kernels.merge_path import merge_path
+    from jellyfish_tpu_torch.ops.count import sort_rows_plain
+
+    g = torch.Generator(device=dev).manual_seed(18)
+
+    def runs(n, k, pad=0.0):
+        wk = (2 * k + 31) // 32
+        live = n - round(n * pad)
+        m = int(live / 0.9)
+        pool = torch.randint(0, 1 << 32, (m, wk), device=dev, generator=g)
+        pool[:, -1] >>= 32 * wk - 2 * k
+        pool = sort_rows_plain(pool)[0]
+        pad_rows = pool.new_full((n - live + 1, wk), (1 << 32) - 1)
+        a, b = (torch.cat([pool[torch.randperm(m, device=dev, generator=g)
+                                [:live - 1].sort().values], pad_rows])
+                .contiguous() for _ in range(2))
+        ac, bc = torch.randint(1, 1 << 20, (2, n), device=dev, generator=g)
+        return a, ac, b, bc
+
+    for n, k, pad in ((1 << 22, 127, 0.0), (1 << 22, 127, 0.84),
+                      (1 << 22, 200, 0.0), (1 << 22, 250, 0.0),
+                      (1 << 20, 127, 0.0), (1 << 15, 127, 0.0)):
+        e = n.bit_length() - 1
+        label = (f"wide K1 merge_path k = {k}, A 2^{e} + B 2^{e} rows, Wk "
+                 f"{(2 * k + 31) // 32}, 90% of keys in both"
+                 + (f", {round(100 * pad)}% PAD" if pad else ""))
+        if not wanted(label):
+            continue
+        a, ac, b, bc = runs(n, k, pad)
+        yield label, lambda: merge_path(a, ac, b, bc), 1
+        del a, ac, b, bc
+        torch.cuda.empty_cache()
 
 
 def _short(name: str) -> str:
@@ -405,10 +459,10 @@ def run_tree(tree: str, only: str = "") -> dict:
             # (each call's output freed before the next, as in cuda_ms)
             prof_rows = smoke.profiled(
                 lambda f=fn: [f() and None for _ in range(50)])[2]
-            part, what = PROFILED[prefix]
+            part, what, split = PROFILED[prefix]
             ms[f"{label}, {what} (profiler)"] = sum(
                 us / 50 for name, us, n in prof_rows if part in name) / 1e3
-            if "K2" in prefix:
+            if split:
                 # the call split: each device row a call, and the host gap
                 for name, us, n in prof_rows:
                     key = f"{label}, {_short(name)} (profiler)"

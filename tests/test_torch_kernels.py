@@ -73,7 +73,7 @@ def _merge_plain(a, b, ca, cb, wk):
     return mw.limbs_of_key_columns(k, wk).numpy().astype(np.uint32), c.numpy()
 
 
-@pytest.mark.parametrize("wk", [1, 2, 4])
+@pytest.mark.parametrize("wk", [1, 2, 4, 8, 13])
 def test_merge_path_plain_matches_pallas(probe, wk):
     rng = np.random.default_rng(7000 + wk)
     n = 2 * probe.T_OUT

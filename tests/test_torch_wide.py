@@ -1,12 +1,12 @@
 """The kernels' entries at key widths above 7 columns (k > 112), which run
 the wide instances on the card and here, on CPU tensors, their plain
 versions: block_sort, merge_pass, merge_splits and compact against a
-torch.sort LSD chain written out here, compact and merge_splits also
-against numpy at the edges of their wide kernels (compact also against
-experiments/pallas_compact in interpret mode), and the tile geometry that
-the wrappers share with the CUDA sources (csrc/merge_path.cu pass_rows,
-csrc/bitonic.cu wide_tile_bytes, csrc/compact.cu's walk of a tile's
-words). Exact: integer data."""
+torch.sort LSD chain written out here, compact, merge_splits and
+merge_path also against numpy at the edges of their wide kernels (compact
+also against experiments/pallas_compact in interpret mode), and the tile
+geometry that the wrappers share with the CUDA sources (csrc/merge_path.cu
+pass_rows and merge_rows, csrc/bitonic.cu wide_tile_bytes,
+csrc/compact.cu's walk of a tile's words). Exact: integer data."""
 
 import os
 import sys
@@ -25,7 +25,9 @@ from jellyfish_tpu_torch.kernels.merge_path import (
     SHARED_BYTES,
     _pass_bytes,
     merge_pass,
+    merge_path,
     merge_splits,
+    merge_tile_rows,
     pass_tile_rows,
     split_steps,
 )
@@ -371,6 +373,74 @@ def test_merge_splits_wide_edges(wk, run, m, kind):
     for tile in (1,) if wk == MAX_KEY_COLS else (1, pass_tile_rows(wk, False)):
         assert merge_splits(keys, run, tile).tolist() == _splits_oracle(
             x, run, tile)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+def test_merge_tile_rows_of_every_width(sms):
+    """A wide merge_path's tile (merge_tile_rows; csrc/merge_path.cu
+    merge_rows) at every width from 8 to 200 and at 1,000, 4,096 and
+    MAX_KEY_COLS: even, its two stages with the counts within the block's
+    shared memory, and the smallest of merge_pass' tiles with a payload
+    (5, 3 or 1 rows a thread of 256, or the fewer rows that fit), so that
+    for merges of 2 rows to 2^24 on cards of `sms` SMs the grid reaches
+    two tiles an SM wherever any of those tiles would."""
+    sizes = {2, 3, 255, 256, 257, 1 << 15, (1 << 16) + 1, 1 << 20, 1 << 24}
+    sizes |= {2 * sms * 256 + d for d in (-1, 0, 1)}
+    for wk in [*range(8, 201), 1000, 4096, MAX_KEY_COLS]:
+        top = pass_tile_rows(wk, True)
+        fits = [256 * i for i in (5, 3, 1) if 256 * i <= top] or [top]
+        tile = merge_tile_rows(wk)
+        assert tile >= 2 and tile % 2 == 0 and tile == min(fits)
+        assert _pass_bytes(tile, wk, True) <= SHARED_BYTES
+        for rows in sizes:
+            if any(-(-rows // t) >= 2 * sms for t in fits):
+                assert -(-rows // tile) >= 2 * sms
+    assert [merge_tile_rows(wk) for wk in (8, 13, 16, 32, 64)] == [
+        256, 256, 256, 256, 218]
+
+
+def _two_runs(kind, seed, na, nb, wk):
+    """Sorted runs A (na rows) and B (nb rows) of wk columns: all rows
+    equal; tied in every column but the lowest and the top, 84% of them
+    PAD, dealt at random into A and B; or one sorted whole, A below B or
+    above it."""
+    rng = np.random.default_rng(seed)
+    n = na + nb
+    x = np.tile(rng.integers(0, 1 << 32, wk, dtype=np.int64), (n, 1))
+    if kind != "equal":
+        x[:, 0] = rng.integers(0, 4, n)
+        x[:, -1] = rng.integers(0, 2, n)
+        x[rng.random(n) < 0.84] = M32
+    x = x[np.lexsort(x.T)]
+    if kind == "pad84":
+        idx = rng.permutation(n)
+        return x[np.sort(idx[:na])], x[np.sort(idx[na:])]
+    if kind == "above":
+        return x[nb:], x[:nb]
+    return x[:na], x[na:]
+
+
+@pytest.mark.parametrize("kind", ["equal", "pad84", "below", "above"])
+@pytest.mark.parametrize("wk,na,nb", [
+    *((wk, na, nb) for wk in (8, 13, 16, 64)
+      for na, nb in ((0, 0), (0, 5), (5, 0), (1, 0), (0, 1), (1, 1),
+                     (3, 2000), (2000, 3), (1281, 1280))),
+    *((MAX_KEY_COLS, na, nb) for na, nb in ((0, 5), (1, 1), (3, 20),
+                                            (21, 2)))])
+def test_merge_path_wide_edges(wk, na, nb, kind):
+    """merge_path at its wide kernels' edges against numpy's stable
+    lexsort of A then B: rows all equal, PAD rows and rows that tie in all
+    but two columns, A wholly below or above B; empty runs, one row, runs
+    of very different lengths, an odd total. The counts are each row's
+    place in A then B, so that a tie out of A-first order shows."""
+    a, b = _two_runs(kind, 1800 + wk + na + nb, na, nb, wk)
+    got_k, got_c = merge_path(
+        torch.from_numpy(a), torch.arange(na), torch.from_numpy(b),
+        torch.arange(na, na + nb))
+    x = np.concatenate([a, b])
+    order = np.lexsort(x.T)
+    np.testing.assert_array_equal(got_k.numpy(), x[order])
+    np.testing.assert_array_equal(got_c.numpy(), order)
 
 
 def test_scatter_word_walk_of_every_width():
