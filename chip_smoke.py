@@ -7,11 +7,12 @@ K2 compact.cu, K3 bitonic.cu, rows 9 and 10 window.cu, the Bloom insert's
 radix sort radix.cu), and beside them
 the native host library (jellyfish_tpu_torch/native/chunker.cpp), and
 holds each kernel's entry point against its plain PyTorch version at the
-shapes its path gives it and at the Pallas kernels' own shapes; row 8's
-fused passes of up to four steps (jf_exchange_group) also at Wk 2 and 7
-with a payload and Wk 4 keys only, each timed against the same steps one
-pass each, and row 9's windows inside and across either end of a run at
-odd and even offsets;
+shapes its path gives it and at the Pallas kernels' own shapes (rows 7,
+11 and 12 also at 2^24 rows of Wk 1); exchange_stages' strided-tile
+passes (jf_exchange_tiles, up to 12 steps a pass) also at Wk 2 and 7 with
+a payload and Wk 4 keys only, each timed against the same steps one pass
+each, and at their edges with flip (exchange_tiles_edges), and row 9's
+windows inside and across either end of a run at odd and even offsets;
 K1's merge_pass and its partition pass (merge_splits) at every key width,
 keys only and with a payload, in runs of 1, 2,048, 2^16 and 2^22 rows,
 and timed at the k = 63 grain's passes. Kernel times are device times
@@ -666,8 +667,10 @@ def ptxas_report(name):
 
 def phase_k3(dev):
     """K3's entry points and K1's merge_pass against their plain versions:
-    at the Pallas kernels' own shapes (kernel table rows 6, 7, 8, 11, 12)
-    and at a grain's shape (2^26 rows of 4 limbs, keys only; 2^24 rows of
+    at the Pallas kernels' own shapes (kernel table rows 6, 7, 8, 11, 12;
+    rows 7 and 11 in two passes and one, counted) and at 2^24 rows of Wk 1
+    (rows 7, 11 and 12, a mirrored run, 16 steps in two passes), at a
+    grain's shape (2^26 rows of 4 limbs, keys only; 2^24 rows of
     7 limbs with a row-index payload), plus a ragged row count;
     block_merge on bitonic tiles at Wk 2 (with and without a payload) and
     Wk 7 + payload, and on unsorted small tiles; merge_pass and
@@ -752,6 +755,52 @@ def phase_k3(dev):
         lambda: flip(x, x.shape[0]), lambda: flip_plain(x, x.shape[0]),
         2 * x.numel() * 8,
         library=lambda: torch.flip(x.view(-1, x.shape[0], 1), [1]))
+    # row 7's probe steps are two strided-tile passes of 6 (one pass would
+    # have 32 blocks of 16,384 rows: a small M's blocks are at most 4,096
+    # rows), row 11's one pass (3 and 4 passes before the strided tiles)
+    x7 = u32(4096 * 128, 1)
+    table["7 exchange_stages"]["passes"] = passes_of(
+        lambda: exchange_stages(x7, distances=d7), "row 7's probe", 2)
+    for t in (0, 1, 2):
+        passes = passes_of(
+            lambda: exchange_stages(x, distances=d11, transposes=t),
+            f"row 11's probe, {t} transposes", 1)
+    table["11 exchange_stages"]["passes"] = passes
+    del x7
+    # rows 7, 11 and 12 at 2^24 rows of Wk 1 (128 MiB, past the L2): the
+    # probes' steps, a mirrored run, a run of 16 steps (two passes), a
+    # tile of 2^17 rows reversed
+    x = u32(1 << 24, 1)
+    nbytes = 2 * x.numel() * 8
+    table["7 exchange_stages 2^24"] = hold(
+        "K3 exchange_stages 2^24 rows, Wk 1, 12 steps 2^18 ... 2^7 (row 7)",
+        lambda: exchange_stages(x, distances=d7),
+        lambda: exchange_stages_plain(x, distances=d7), nbytes)
+    table["7 exchange_stages 2^24"]["passes"] = passes_of(
+        lambda: exchange_stages(x, distances=d7), "row 7 at 2^24 rows", 1)
+    table["11 exchange_stages 2^24"] = hold(
+        "K3 exchange_stages 2^24 rows, Wk 1, 1 transpose + 10 steps 2^16 "
+        "... 2^7 (row 11)",
+        lambda: exchange_stages(x, distances=d11, transposes=1),
+        lambda: exchange_stages_plain(x, distances=d11, transposes=1), nbytes)
+    table["11 exchange_stages 2^24"]["passes"] = passes_of(
+        lambda: exchange_stages(x, distances=d11, transposes=1),
+        "row 11 at 2^24 rows", 1)
+    hold("K3 exchange_stages 2^24 rows, Wk 1, mirrored + 11 steps 2^18 ... "
+         "2^7", lambda: exchange_stages(x, distances=d7, mirror=True),
+         lambda: exchange_stages_plain(x, distances=d7, mirror=True))
+    d16 = [1 << 22 >> i for i in range(16)]  # 2^22 ... 2^7
+    hold("K3 exchange_stages 2^24 rows, Wk 1, mirrored + 15 steps 2^22 ... "
+         "2^7 (8 + 8)",
+         lambda: exchange_stages(x, distances=d16, mirror=True),
+         lambda: exchange_stages_plain(x, distances=d16, mirror=True))
+    passes_of(lambda: exchange_stages(x, distances=d16, mirror=True),
+              "16 steps at 2^24 rows", 2)
+    table["12 flip 2^24"] = hold(
+        "K3 flip 2^24 rows, Wk 1, tiles of 2^17 (row 12)",
+        lambda: flip(x, 1 << 17), lambda: flip_plain(x, 1 << 17), nbytes,
+        library=lambda: torch.flip(x.view(-1, 1 << 17, 1), [1]))
+    del x
 
     def grain(n, wk, distinct):
         """n rows of wk limbs drawn from `distinct` pooled rows (so rows
@@ -784,8 +833,10 @@ def phase_k3(dev):
     hold(f"K3 exchange_stages {m} rows, Wk 4, 3 steps",
          lambda: exchange_stages(x, distances=[1 << 25, 2048, 1]),
          lambda: exchange_stages_plain(x, distances=[1 << 25, 2048, 1]))
-    hold(f"K3 flip {m} rows, Wk 4, tile 2048",
-         lambda: flip(x, 2048), lambda: flip_plain(x, 2048))
+    table["12 flip wk=4"] = hold(
+        f"K3 flip {m} rows, Wk 4, tile 2048",
+        lambda: flip(x, 2048), lambda: flip_plain(x, 2048), 2 * row_bytes,
+        library=lambda: torch.flip(x.view(-1, 2048, 4), [1]))
     table["grain sort_rows"] = hold(
         f"sort_rows (K3 + 15 merge_pass) {m} rows, Wk 4, keys only",
         lambda: sort_rows(x), lambda: sort_rows_plain(x)[0], 2 * row_bytes)
@@ -923,11 +974,12 @@ def phase_k3(dev):
                     "gathers over the whole grain (no single PyTorch call "
                     "sorts multi-column rows)"),
         "flip": json_row(
-            "bitonic.flip", table["12 flip"], k3_src,
+            "bitonic.flip", table["12 flip 2^24"], k3_src,
             "experiments/pallas_stage_probe.py:112",
-            note="on no path (the Bloom path runs row 12's reversal as "
+            note="on no path (BitsArray's sort runs row 12's reversal as "
                  "exchange_stages' mirrored step): held against its plain "
-                 "version here"),
+                 "version here, timed at 2^24 rows of Wk 1 in tiles of "
+                 "2^17 (the probe's u32[1024, 128] in the k3_table)"),
         "merge_pass": json_row(
             "merge_path.merge_pass", pass_row,
             "jellyfish_tpu_torch/csrc/merge_path.cu",
@@ -1499,8 +1551,7 @@ def wide_splits_edges(dev, g):
 
 def one_pass_each(keys, payload, dist, mirror):
     """The steps of exchange_stages(keys, payload, dist, mirror) one
-    jf_exchange pass each, as before the fused passes: the yardstick the
-    fused call is timed against."""
+    pass each: the yardstick a call of several steps is timed against."""
     from jellyfish_tpu_torch.kernels.bitonic import exchange_stages
 
     for i, d in enumerate(dist):
@@ -1526,17 +1577,18 @@ def passes_of(fn, label, want):
 
 
 def phase_exchange(dev):
-    """Row 8's fused passes (jf_exchange_group) against
-    exchange_stages_plain, exact, beyond the insert's shapes (phase_bloom
-    holds those): BitsArray's rows (2^22, Wk 2 + payload, its last phase:
-    the mirrored step at 2^21, then plain steps down to its tile of 4096),
-    rows of 7 limbs with a payload (2^22 rows, three steps a pass, the
-    mirrored step at 2^21 down to 1024), 4 limbs keys only (2^24 rows,
-    plain steps 2^23 ... 2^12, and mirrored), runs of 2 and 3 steps, and
-    short distances down to 1 (a warp across several 2d-row blocks). The
-    first three are timed against the same steps one jf_exchange pass
-    each. Where a number of passes is given, the kernel passes that one
-    call launches are counted and held to it. Returns the timings."""
+    """exchange_stages' strided-tile passes (jf_exchange_tiles) against
+    exchange_stages_plain, exact, beyond the Bloom insert's and the probes'
+    shapes (phase_bloom and phase_k3 hold those): BitsArray's rows (2^22,
+    Wk 2 + payload, its last phase: the mirrored step at 2^21, then plain
+    steps down to its tile of 4096), rows of 7 limbs with a payload (2^22
+    rows, the mirrored step at 2^21 down to 1024: 12 steps, two passes), 4
+    limbs keys only (2^24 rows, plain steps 2^23 ... 2^12, and mirrored),
+    runs of 2 and 3 steps, and short distances down to 1 (a block across
+    several 2d-row blocks); then the edges (exchange_tiles_edges). The
+    first three are timed against the same steps one pass each. Where a
+    number of passes is given, the kernel passes that one call launches
+    are counted and held to it. Returns the timings."""
     from jellyfish_tpu_torch.kernels.bitonic import (
         exchange_stages,
         exchange_stages_plain,
@@ -1583,19 +1635,19 @@ def phase_exchange(dev):
                                            generator=g)
     dist = [m >> i for i in range(1, 11)]  # 2^21 ... 4096
     table["wk=2+payload"] = check(f"{m} rows, Wk 2 + payload", keys, pay,
-                                  dist, True, passes=3, timed=True)
+                                  dist, True, passes=1, timed=True)
     keys = rows(m, 7)
     dist = [m >> i for i in range(1, 13)]  # 2^21 ... 1024
     table["wk=7+payload"] = check(f"{m} rows, Wk 7 + payload", keys, pay,
-                                  dist, True, passes=4, timed=True)
+                                  dist, True, passes=2, timed=True)
     del keys, pay
     m = 1 << 24
     keys = rows(m, 4)
     dist = [m >> i for i in range(1, 13)]  # 2^23 ... 4096
     table["wk=4"] = check(f"{m} rows, Wk 4, keys only", keys, None, dist,
-                          False, passes=3, timed=True)
+                          False, passes=1, timed=True)
     check(f"{m} rows, Wk 4, keys only", keys, None, dist[:7], True,
-          passes=2)
+          passes=1)
     keys = rows(m, 1)
     pay = torch.randint(0, 1 << 32, (m,), device=dev, generator=g)
     check(f"{m} rows, Wk 1 + payload", keys, pay, [1 << 13, 1 << 12], False,
@@ -1613,7 +1665,74 @@ def phase_exchange(dev):
     check(f"{m} rows, Wk 6 + payload", keys, pay, [32, 16, 8, 4, 2], True)
     del keys, pay
     torch.cuda.empty_cache()
+    exchange_tiles_edges(dev)
     return table
+
+
+def exchange_tiles_edges(dev):
+    """The strided-tile pass and the flip kernel against their plain
+    versions, exact, at Wk 1-7, keys only and with a payload, on keys of
+    few values (ties, so that a payload out of place shows): runs longer
+    than a pass (16 steps, cut in two) plain and mirrored; the probes'
+    distances (s = 128) after 1 and 2 transposes, mirrored or not; 12
+    steps after a transpose; lone
+    transposed steps at s = 1 and s = 2^13; blocks wider than the array
+    (64 rows) and a last block that is cut short (3 x 2^13 rows, a block
+    across several 2d-row blocks); s below a sector's rows (4, 2); runs
+    broken by jumps. flip at tiles of 2, 64 and 2^13 rows, and of 64 rows
+    at an odd word offset (keys not 16-byte aligned)."""
+    from jellyfish_tpu_torch.kernels.bitonic import (
+        exchange_stages,
+        exchange_stages_plain,
+        flip,
+        flip_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    cases = (
+        (1 << 16, [1 << 15 >> i for i in range(16)], 0, False),
+        (1 << 16, [1 << 15 >> i for i in range(16)], 0, True),
+        (1 << 17, [128 << i for i in range(9, -1, -1)], 1, False),
+        (1 << 17, [128 << i for i in range(9, -1, -1)], 1, True),
+        (1 << 17, [128 << i for i in range(9, -1, -1)], 2, True),
+        (1 << 17, [32 << i for i in range(11, -1, -1)], 1, True),
+        (1 << 14, [1], 1, True),
+        (1 << 14, [1 << 13], 1, False),
+        (1 << 15, [1 << 14, 1 << 13, 64, 32, 16, 8, 4, 2, 1], 1, True),
+        (64, [8, 4, 2, 1], 0, True),
+        (64, [32, 16], 0, False),
+        (3 << 13, [4096 >> i for i in range(13)], 0, True),
+        (3 << 13, [4096 >> i for i in range(13)], 0, False),
+        (1 << 12, [4, 2], 0, True),
+        (1 << 13, [1 << 12, 1 << 11, 1 << 10, 64, 32, 1], 0, True),
+    )
+    held = 0
+    for wk in range(1, 8):
+        for m, dist, transposes, mirror in cases:
+            keys = torch.randint(0, 8, (m, wk), device=dev, generator=g)
+            pay = torch.randint(0, 1 << 40, (m,), device=dev, generator=g)
+            for p in (None, pay):
+                got = exchange_stages(keys, p, dist, transposes, mirror)
+                want = exchange_stages_plain(keys, p, dist, transposes,
+                                             mirror)
+                if max_abs_err(_outs(got), _outs(want)):
+                    raise AssertionError(
+                        f"exchange_stages {m} rows, Wk {wk}"
+                        f"{' + payload' if p is not None else ''}, "
+                        f"{transposes} transposes, mirror {mirror}, "
+                        f"distances {dist} disagrees with its plain version")
+                held += 1
+        for m, tile, at in ((1 << 14, 2, 0), (1 << 14, 64, 0),
+                            (1 << 15, 1 << 13, 0), (1 << 14, 64, 1)):
+            # at 1: keys at an odd word offset (not 16-byte aligned)
+            keys = torch.randint(0, 1 << 40, (m * wk + at,), device=dev,
+                                 generator=g)[at:].view(m, wk)
+            if not torch.equal(flip(keys, tile), flip_plain(keys, tile)):
+                raise AssertionError(f"flip {m} rows, Wk {wk}, tile {tile}, "
+                                     f"word offset {at} disagrees with its "
+                                     "plain version")
+            held += 1
+    log(f"exchange_tiles_edges: {held} holds exact")
 
 
 def phase_window(dev):
@@ -2950,7 +3069,7 @@ def phase_bloom(chunks, staged, table, dev):
                 2 * size * 16)
     xrow["passes"] = passes_of(
         lambda: exchange_stages(padded, pw, dist, mirror=True),
-        "the insert's last phase", 3)
+        "the insert's last phase", 2)
     xrow["steps_ms"] = cuda_ms(lambda: one_pass_each(padded, pw, dist, True))
     log(f"  the last phase in {xrow['passes']} passes; its steps one pass "
         f"each: {xrow['steps_ms']:.4f} ms")
@@ -2960,7 +3079,7 @@ def phase_bloom(chunks, staged, table, dev):
     hold(label, lambda: exchange_stages(padded, pw, five, mirror=True),
          lambda: exchange_stages_plain(padded, pw, five, mirror=True))
     passes_of(lambda: exchange_stages(padded, pw, five, mirror=True), label,
-              2)
+              1)
     bk, bw = bitonic_tiles(padded, pw, tile)
     merge_row = hold(
         f"K3 block_merge {size} rows, Wk 1 + payload, bitonic tiles of "

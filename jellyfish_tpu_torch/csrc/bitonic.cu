@@ -11,7 +11,7 @@
 // Keys are [M, WK] int64 rows compared as csrc/rows.cuh says; an optional
 // int64 payload [M] travels with its row. A step is ascending (of the
 // two rows it meets, the lower position gets the smaller) unless said
-// otherwise. Three entry points:
+// otherwise. Four entry points:
 //
 //   jf_block_sort sorts each tile of T = 2^log_t rows by the bitonic
 //     network: phase k = 2, 4, ..., T runs steps at distances k/2, ...,
@@ -26,20 +26,18 @@
 //     rule): it sorts a tile that is a bitonic sequence, as the pair sort
 //     of kernels/sort.py leaves each tile after its cross-tile steps. M is
 //     whole tiles.
-//   jf_exchange runs one step over the whole array in device memory, one
-//     thread a pair of rows: a plain step at distance d (row i meets
-//     i + d inside each 2d-row block), a flip (row j of each 2d-row
-//     block swapped with row 2d - 1 - j), or a mirrored step (the flip's
-//     partner with the plain step's compare: the Pallas flip and the
-//     exchange after it in one pass, as block_sort's first step of a
-//     phase, over the whole array). A payload is carried, not compared.
-//     `transpose` reads the input through the transpose of each 128 x 128
-//     block of positions, an index map rather than a data pass.
-//   jf_exchange_group runs 2 <= g <= 4 consecutive halving steps, at
-//     distances d, d/2, ..., s = d / 2^(g-1), the first plain or
-//     mirrored, in one read and one write of the array: the steps pair
-//     rows only within sets of 2^g rows, which one thread holds in
-//     registers (below).
+//   jf_exchange_tiles runs g consecutive halving steps, at distances d,
+//     d/2, ..., s = d / 2^(g-1), the first plain or mirrored (row j of each
+//     2d-row block meets row 2d - 1 - j: the Pallas flip and the exchange
+//     after it in one step), in one read and one write of the array, the
+//     input read through the transpose of each 128 x 128 block of
+//     positions or not (an index map rather than a data pass). The steps
+//     pair rows only within the strided tile of a residue j < s in each
+//     2d-row block (its T = 2d / s rows j + i s), where they are
+//     block_merge's steps at tile distances T/2, ..., 1 (stride_kernel,
+//     below). A payload is carried, not compared.
+//   jf_flip reverses each tile of 2^log_t rows (16-byte vectors; 8-byte
+//     words at odd Wk above 1 or where a pointer is not 16-byte aligned).
 //
 // The tile entries (one kernel, tile_kernel). A block takes B = max(T,
 // 32 E) rows (several tiles when T is small); each thread holds E rows
@@ -62,6 +60,39 @@
 // one 16-byte access). The device is read and written once, through
 // shared memory, coalesced.
 //
+// The strided-tile pass (stride_kernel). The steps of a pass pair rows only
+// within the strided tile of a residue j < s of each 2d-row block (rows j
+// + i s, i < T = 2d / s), where they are block_merge's steps at tile
+// distances T/2, ..., 1; a mirrored first step is one of them once the
+// tile's upper half is held reversed, from residue s - 1 - j. A block
+// holds whole tiles of residues side by side (4 at Wk 1-2, 2 at Wk 3, 1
+// from Wk 4; where s is smaller, whole 2d-row blocks), so that its reads
+// and writes fill 32-byte sectors (blocks of fewer residues measured up to
+// twice as slow on the card), residue-minor, in registers, E rows a
+// thread, in tile_kernel's layouts. Rows of one or two columns, and any
+// rows read through the transpose, are read straight into the registers
+// of the first steps' layout (or of the layout in which neighbouring
+// threads hold neighbouring rows, where that touches fewer sectors: the
+// caller's pick, kernels/bitonic.py stride_layouts; a tile read through
+// the transpose, row 11's, is contiguous) and written from the last's;
+// wider rows go through shared memory (`staged`), neighbouring threads on
+// neighbouring words. A block holds at most 128 KB, so one pass runs up
+// to 12 steps at Wk 1 (a tile of 4,096 rows, four residues) and 11 with a
+// payload, where the fused passes it replaces ran 4 (3 above four
+// columns) and took a transposed step alone; at 2^24 rows of Wk 1 it
+// reads and writes the array once where they did 3 or 4 times. The caller
+// cuts a longer run into passes of equal length (a 12-step run at 11 a
+// pass is 6 + 6, not 11 + 1), and where the array is too small to give
+// half the SMs a block of a long pass, into passes of blocks of at most
+// 4,096 rows (row 7's probe: 6 + 6), since a lone block's dependent steps
+// then take longer than two short passes.
+// Such a block fills its SM's registers, so its reads, steps and writes
+// take turns: the pass runs at half its bound (PERF.md). Splitting its
+// tiles across a cluster of smaller blocks, the rows of its first steps
+// swapped through the other blocks' shared memory, or a sector's residues
+// across a cluster, each block writing the others' rows into their shared
+// memory, measured slower.
+//
 // Bound on this card. The tile entries read and write each row of device
 // memory once (the bytes bound), but the full sort is bound by its
 // instructions: at T = 4096 each row meets another 78 times, and each
@@ -69,29 +100,13 @@
 // on 32-bit units. Hence the design: no pair is compared twice (as it is
 // when two threads trade rows by shuffles), compares carry no branches,
 // and the layout moves, which cost shared-memory traffic and barriers,
-// are few. The merge, with 12 steps, is closer to the bytes bound.
-// jf_exchange is bound by bytes: each step reads and writes every row
-// once, which is why the tile entries keep their steps on chip, and why
-// jf_exchange_group runs up to four cross-tile steps a pass. The counting
-// store merges sorted tiles with K1 passes; the pair sort of
+// are few. The merge, with 12 steps, is closer to the bytes bound, and so
+// is a strided-tile pass. jf_flip is bound by bytes. The
+// counting store merges sorted tiles with K1 passes; the pair sort of
 // kernels/sort.py (BitsArray's batch updates) runs its cross-tile steps on
-// jf_exchange_group (the phase at run L: the mirrored step at L and the
-// plain steps down to a tile, 2^24 rows in 1-3 passes where step by step
+// jf_exchange_tiles (the phase at run L: the mirrored step at L and the
+// plain steps down to a tile, 2^24 rows in 1-2 passes where step by step
 // took 1-12) and finishes each tile with jf_block_merge.
-//
-// The fused pass (group_kernel). Thread p of m / 2^g takes the low part j
-// = p mod s in the 2d-row block at blk = (p / s) 2d. Its registers i < H =
-// 2^(g-1) hold the lower half's rows blk + j + i s; registers H + i hold
-// the upper half's rows up + i s, with up = blk + d + j for a plain first
-// step and up = blk + d + (s - 1 - j) for a mirrored one: there the
-// upper rows are the mirror partners of the lower ones (row u < d of the
-// block meets 2d - 1 - u), and j -> s - 1 - j is a bijection, so every row
-// is held once. The first step pairs register i with i + H (plain) or
-// 2H - 1 - i (mirrored); the step at s 2^t pairs i with i + 2^t (bit t of
-// i clear), inside either half. Neighbouring threads hold neighbouring
-// rows in each register (in reverse order in a mirrored upper half), so
-// each register's loads and stores are coalesced once s >= 32; on the
-// route s is at least a tile (4096 rows at Wk 1).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,11 +115,9 @@
 
 namespace {
 
-constexpr int kStepThreads = 256;
+constexpr int kFlipThreads = 256;
 constexpr int64_t kPad = INT64_MAX;  // pad rows sort last
 constexpr int kTileBytes = 96 * 1024;  // kernels/bitonic.py SHARED_TILE_BYTES
-
-enum Mode { kExchange = 0, kFlip = 1, kMirror = 2 };
 
 // A row as the kernels hold it: [payload,] key column 0 .. WK - 1, so that
 // row_lt over columns [kLo, kCols) compares the key first and the payload
@@ -644,7 +657,7 @@ wide_sort_kernel(const int64_t* __restrict__ ik,
   }
 }
 
-// -- one step in device memory ----------------------------------------------
+// -- rows in device memory ---------------------------------------------------
 
 // position x as read through the transpose of its 128 x 128 block
 __device__ __forceinline__ int64_t transposed(int64_t x) {
@@ -667,74 +680,261 @@ __device__ __forceinline__ void store_row(int64_t* k, int64_t* p, int64_t x,
   for (int w = 0; w < WK; ++w) k[x * WK + w] = r[R::kCols - WK + w];
 }
 
-// ik may equal ok: each thread reads and writes only its own pair's rows
-// (when transposing, the wrapper passes another output).
-template <int WK, bool PAY>
-__global__ void __launch_bounds__(kStepThreads)
-exchange_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok,
-                int64_t* op, int64_t m, int log_d, int mode, int transpose) {
-  using R = Row<WK, PAY, false>;
-  const int64_t p = (int64_t)blockIdx.x * kStepThreads + threadIdx.x;
-  if (p >= (m >> 1)) return;
-  const int64_t d = (int64_t)1 << log_d;
-  const int64_t blk = (p >> log_d) << (log_d + 1);
-  const int64_t j = p & (d - 1);
-  const int64_t a = blk + j;
-  // kFlip and kMirror meet the mirrored partner
-  const int64_t b = mode == kExchange ? a + d : blk + 2 * d - 1 - j;
-  int64_t ra[R::kCols], rb[R::kCols];
-  load_row<R, WK>(ra, ik, ip, transpose ? transposed(a) : a);
-  load_row<R, WK>(rb, ik, ip, transpose ? transposed(b) : b);
-  if (mode == kFlip || R::before(rb, ra)) {
-    store_row<R, WK>(ok, op, a, rb);
-    store_row<R, WK>(ok, op, b, ra);
-  } else {
-    store_row<R, WK>(ok, op, a, ra);
-    store_row<R, WK>(ok, op, b, rb);
+// -- strided tiles in registers ----------------------------------------------
+
+// A block of the strided-tile pass holds at most kStrideBytes of rows (the
+// rows its registers hold while the steps run), in 2^kLogE rows a thread
+// (16 at one column, 8 at 2-4, else 4) and at most kStrideThreads threads.
+constexpr int kStrideBytes = 128 * 1024;  // kernels/bitonic.py STRIDE_BYTES
+constexpr int kStrideThreads = 1024;
+
+template <int C>
+struct StrideShape {
+  static constexpr int kLogE = C > 4 ? 2 : C == 1 ? 4 : 3;
+  static constexpr int kE = 1 << kLogE;
+  static constexpr int kLogWarp = kLogE + 5;  // rows a warp
+  static constexpr int kLogBytes = log2_floor(kStrideBytes / (8 * C));
+  static constexpr int kLogThreads = log2_floor(kStrideThreads);
+  // the largest block, in rows
+  static constexpr int kLogMaxB = kLogBytes < kLogThreads + kLogE
+                                      ? kLogBytes
+                                      : kLogThreads + kLogE;
+  static constexpr int kMaxThreads = 1 << (kLogMaxB - kLogE);
+};
+
+// The rows of one strided-tile pass (steps at d = s T/2, ..., s, T =
+// 2^log_t) and where a block of 2^log_b rows finds them. Tile q (the
+// block's first tile is blockIdx 2^(log_b - log_t)) is residue j = q mod s
+// of the 2d-row block q / s, its row i at x_v = blk + j + i s. The block
+// holds its tiles residue-minor, in x_v order: bits [0, a_lo) of a block
+// row r (a_lo = min(log_b - log_t, log_s)) are the tile's low bits, bits
+// [a_lo, a_lo + log_t) its row i, the rest the tile's other bits, so that
+// the steps are at bits a_lo + log_t - 1, ..., a_lo of r and x_v is the
+// block's first row plus r with those fields moved to their places. A
+// mirrored pass holds the upper half of each tile reversed, from residue s
+// - 1 - j: tile row T/2 + i' is x = x_v ^ (d - 1) = blk + 2d - 1 - (j + i'
+// s), so that the mirrored step is a plain one at tile distance T/2 and
+// the upper half's steps after it descend. A transposed read takes row x
+// from transposed(x). The caller gives the layouts the rows are read in and
+// written from (kernels/bitonic.py stride_layouts), and the host the x_v
+// offset of each of their registers (xv_in, xv_out).
+struct StrideMap {
+  int64_t m;
+  int log_s, log_t, log_b, transpose;
+  int staged;       // read and write through shared memory, by words
+  int j_in, j_out;  // the layouts of the read and of the write
+  int64_t xv_in[16], xv_out[16];
+
+  // x_v of block row r less that of the block's row 0
+  __host__ __device__ __forceinline__ int64_t offset(int r) const {
+    const int a_lo = log_b - log_t < log_s ? log_b - log_t : log_s;
+    const int64_t lo = r & ((1 << a_lo) - 1);
+    const int64_t i = (r >> a_lo) & ((1 << log_t) - 1);
+    const int64_t hi = r >> (a_lo + log_t);
+    return lo + (i << log_s) + (hi << (log_s + log_t));
+  }
+  // x_v of this block's row r
+  __device__ __forceinline__ int64_t place(int r) const {
+    const int64_t q0 = (int64_t)blockIdx.x << (log_b - log_t);
+    return ((q0 >> log_s) << (log_s + log_t)) +
+           (q0 & (((int64_t)1 << log_s) - 1)) + offset(r);
+  }
+  // the device row of x_v (before the transpose)
+  template <bool MIRROR>
+  __device__ __forceinline__ int64_t pos(int64_t xv) const {
+    const int log_d = log_s + log_t - 1;
+    return MIRROR && ((xv >> log_d) & 1) ? xv ^ (((int64_t)1 << log_d) - 1)
+                                         : xv;
+  }
+};
+
+// Rows a (the lower position) and b meet with the payload carried:
+// ascending, b goes first only when strictly before a; descending (desc),
+// a goes last only when strictly before b. Equal keys stay, as in
+// exchange_stages_plain.
+template <class R, bool DESC>
+__device__ __forceinline__ void carry_swap(int64_t* a, int64_t* b,
+                                           bool desc) {
+  if (DESC && desc ? R::before(a, b) : R::before(b, a)) {
+#pragma unroll
+    for (int c = 0; c < R::kCols; ++c) {
+      const int64_t x = a[c];
+      a[c] = b[c];
+      b[c] = x;
+    }
   }
 }
 
-// The most steps of a fused pass for rows of `cols` int64 columns: 2^G
-// rows a thread (16 for up to four columns, else 8), in registers.
-constexpr int max_group(int cols) { return cols <= 4 ? 4 : 3; }
-
-// G steps in one pass (the map is above), the first mirrored when MIRROR;
-// in place when ik equals ok.
-template <int WK, bool PAY, int G, bool MIRROR>
-__global__ void __launch_bounds__(kStepThreads, 1)
-group_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok, int64_t* op,
-             int64_t m, int log_s) {
-  using R = Row<WK, PAY, false>;
-  constexpr int N = 1 << G, H = N / 2;
-  const int64_t p = (int64_t)blockIdx.x * kStepThreads + threadIdx.x;
-  if (p >= (m >> G)) return;
-  const int64_t s = (int64_t)1 << log_s;
-  const int64_t j = p & (s - 1);
-  const int64_t blk = (p >> log_s) << (log_s + G);
-  const int64_t lo = blk + j;
-  const int64_t up = blk + ((int64_t)H << log_s) + (MIRROR ? s - 1 - j : j);
-  int64_t v[N][R::kCols];
+// In layout j, the steps at bits top, ..., lo of the block row (j <= lo <=
+// top < j + LOGE): registers e and e + 2^(b - j) meet; with DESC,
+// descending where the row's bit dir (>= top) is set.
+template <class R, int E, int LOGE, bool DESC>
+__device__ __forceinline__ void carry_steps(int64_t (&v)[E][R::kCols], int j,
+                                            int top, int lo, int dir) {
+  int down = 0;  // bit e: register e's row descends
+  if constexpr (DESC) {
+    if (dir >= j + LOGE) {
+      down = ((layout_base<LOGE>(j) >> dir) & 1) ? (1 << E) - 1 : 0;
+    } else {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    load_row<R, WK>(v[i], ik, ip,
-                    (i < H ? lo : up) + ((int64_t)(i & (H - 1)) << log_s));
-  }
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    cmp_swap<R>(v[i], v[MIRROR ? N - 1 - i : i + H], false);
-  }
-#pragma unroll
-  for (int t = G - 2; t >= 0; --t) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (!(i & (1 << t))) cmp_swap<R>(v[i], v[i | (1 << t)], false);
+      for (int e = 0; e < E; ++e) down |= ((e >> (dir - j)) & 1) << e;
     }
   }
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    store_row<R, WK>(ok, op,
-                     (i < H ? lo : up) + ((int64_t)(i & (H - 1)) << log_s),
-                     v[i]);
+  for (int i = LOGE - 1; i >= 0; --i) {
+    if (i <= top - j && i >= lo - j) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (!(e & (1 << i))) {
+          carry_swap<R, DESC>(v[e], v[e | (1 << i)], (down >> e) & 1);
+        }
+      }
+    }
+  }
+}
+
+// The steps at distances s 2^(log_t - 1), ..., s in one read and one
+// write of the block's rows, in registers: each thread reads its E rows
+// of layout j_in from device memory (pad rows past m), the registers move
+// between layouts through shared memory as tile_kernel's do, a group of
+// up to log E steps in each, and each thread writes its rows of layout
+// j_out (the caller's pick between the first, or last, steps' layout and
+// the one in which neighbouring threads hold neighbouring block rows).
+// Rows of several columns (`staged`) go through shared memory instead,
+// neighbouring threads on neighbouring words, as tile_kernel's do. In
+// place when ik is ok and the read is not transposed: a block reads and
+// writes only its own rows.
+template <int WK, bool PAY, bool MIRROR>
+__global__ void __launch_bounds__(StrideShape<WK + PAY>::kMaxThreads, 1)
+stride_kernel(const int64_t* ik, const int64_t* ip, int64_t* ok, int64_t* op,
+              const StrideMap map) {
+  using R = Row<WK, PAY, false>;
+  using S = StrideShape<WK + PAY>;
+  constexpr int C = R::kCols, E = S::kE, LOGE = S::kLogE;
+  extern __shared__ __align__(16) int64_t s[];  // the layout moves
+  const int a_lo = min(map.log_b - map.log_t, map.log_s);
+  const int jmax = map.log_b - LOGE;
+  const int rows = 1 << map.log_b, threads = rows >> LOGE;
+
+  int64_t v[E][C];
+  int j = map.j_in;
+  if (map.staged) {
+    for (int g = threadIdx.x; g < rows * WK; g += threads) {
+      const int r = g / WK, w = g - r * WK;
+      const int64_t xv = map.place(r);
+      int64_t* dst = s + swizzled<LOGE>(r) * C + PAY + w;
+      if (xv >= map.m) {
+        *dst = kPad;
+      } else {
+        cp_async8(dst, ik + map.pos<MIRROR>(xv) * WK + w);
+      }
+    }
+    if constexpr (PAY) {
+      for (int r = threadIdx.x; r < rows; r += threads) {
+        const int64_t xv = map.place(r);
+        int64_t* dst = s + swizzled<LOGE>(r) * C;
+        if (xv >= map.m) {
+          *dst = kPad;
+        } else {
+          cp_async8(dst, ip + map.pos<MIRROR>(xv));
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    const int b = layout_base<LOGE>(j);
+#pragma unroll
+    for (int e = 0; e < E; ++e) get_row<C, LOGE>(v[e], s, b | (e << j));
+  } else {
+    const int64_t x0 = map.place(layout_base<LOGE>(j));
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int64_t xv = x0 + map.xv_in[e];
+      if (xv >= map.m) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[e][c] = kPad;
+        continue;
+      }
+      int64_t x = map.pos<MIRROR>(xv);
+      if (map.transpose) x = transposed(x);
+      load_row<R, WK>(v[e], ik, ip, x);
+    }
+  }
+  int top = a_lo + map.log_t - 1;  // the bit of the next step
+  const int dir = top;  // a mirrored pass's upper halves descend
+  while (top >= a_lo) {
+    const int to = min(max(top - LOGE + 1, a_lo), jmax);
+    if (to != j) {
+      relayout<C, E, LOGE>(v, s, j, to);
+      j = to;
+    }
+    const int lo = max(j, a_lo);
+    carry_steps<R, E, LOGE, MIRROR>(v, j, top, lo, dir);
+    top = lo - 1;
+  }
+  if (map.staged) {
+    __syncthreads();
+    const int b = layout_base<LOGE>(j);
+#pragma unroll
+    for (int e = 0; e < E; ++e) put_row<C, LOGE>(s, b | (e << j), v[e]);
+    __syncthreads();
+    for (int g = threadIdx.x; g < rows * WK; g += threads) {
+      const int r = g / WK, w = g - r * WK;
+      const int64_t xv = map.place(r);
+      if (xv < map.m) {
+        ok[map.pos<MIRROR>(xv) * WK + w] = s[swizzled<LOGE>(r) * C + PAY + w];
+      }
+    }
+    if constexpr (PAY) {
+      for (int r = threadIdx.x; r < rows; r += threads) {
+        const int64_t xv = map.place(r);
+        if (xv < map.m) op[map.pos<MIRROR>(xv)] = s[swizzled<LOGE>(r) * C];
+      }
+    }
+    return;
+  }
+  if (j != map.j_out) relayout<C, E, LOGE>(v, s, j, map.j_out);
+  const int64_t x0 = map.place(layout_base<LOGE>(map.j_out));
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int64_t xv = x0 + map.xv_out[e];
+    if (xv < map.m) store_row<R, WK>(ok, op, map.pos<MIRROR>(xv), v[e]);
+  }
+}
+
+// -- the flip -------------------------------------------------------------------
+
+// Each tile of 2^log_t rows reversed, a thread a unit of the output,
+// neighbouring threads on neighbouring units: with VEC a 16-byte vector
+// (at WK 1 rows p, p + 1 (p even) of a tile, read as the vector of rows
+// T - 2 - p, T - 1 - p with its halves swapped; at even WK a row's
+// vectors move whole), else an 8-byte word (odd WK above 1, or an input
+// or output not 16-byte aligned). Two to eight vectors a thread measured
+// no faster.
+template <int WK, bool VEC>
+__global__ void __launch_bounds__(kFlipThreads)
+flip_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+            int64_t m, int log_t) {
+  constexpr int kRowUnits = !VEC ? WK : WK == 1 ? 1 : WK / 2;  // units a row
+  const int64_t t_mask = ((int64_t)1 << log_t) - 1;
+  const int64_t e = (int64_t)blockIdx.x * kFlipThreads + threadIdx.x;
+  if (e >= (VEC ? m * WK / 2 : m * WK)) return;
+  if constexpr (VEC && WK == 1) {
+    const int64_t p = 2 * e;  // rows p, p + 1 <- T - 2 - p, T - 1 - p
+    const longlong2 y = reinterpret_cast<const longlong2*>(
+        in)[((p & ~t_mask) | (t_mask - 1 - (p & t_mask))) / 2];
+    reinterpret_cast<longlong2*>(out)[e] = make_longlong2(y.y, y.x);
+  } else {
+    const int64_t r = e / kRowUnits, h = e - r * kRowUnits;
+    const int64_t src = ((r & ~t_mask) | (t_mask - (r & t_mask))) *
+                            kRowUnits + h;
+    if constexpr (VEC) {
+      reinterpret_cast<longlong2*>(out)[e] =
+          reinterpret_cast<const longlong2*>(in)[src];
+    } else {
+      out[e] = in[src];
+    }
   }
 }
 
@@ -775,73 +975,76 @@ int tiles_wk(const void* keys, const void* pay, void* out_keys,
 }
 
 template <int WK, bool PAY>
-int launch_step(const void* keys, const void* pay, void* out_keys,
-                void* out_pay, int64_t m, int log_d, int mode, int transpose,
-                cudaStream_t s) {
-  const int64_t blocks = ((m >> 1) + kStepThreads - 1) / kStepThreads;
+int launch_stride(const void* keys, const void* pay, void* out_keys,
+                  void* out_pay, int64_t m, int log_s, int g, int mirror,
+                  int transpose, int log_b, int staged, int j_in,
+                  int j_out, cudaStream_t s) {
+  using S = StrideShape<WK + PAY>;
+  const int jmax = log_b - S::kLogE;
+  if (log_b < S::kLogWarp || log_b > S::kLogMaxB || g > log_b ||
+      (staged && transpose) || j_in < 0 || j_in > jmax || j_out < 0 ||
+      j_out > jmax) {
+    return (int)cudaErrorInvalidValue;
+  }
+  StrideMap map{};
+  map.m = m;
+  map.log_s = log_s;
+  map.log_t = g;
+  map.log_b = log_b;
+  map.transpose = transpose;
+  map.staged = staged;
+  map.j_in = j_in;
+  map.j_out = j_out;
+  for (int e = 0; e < S::kE; ++e) {
+    map.xv_in[e] = map.offset(e << j_in);
+    map.xv_out[e] = map.offset(e << j_out);
+  }
+  const size_t bytes = ((size_t)(WK + PAY) << log_b) * sizeof(int64_t);
+  auto kernel = mirror ? stride_kernel<WK, PAY, true>
+                       : stride_kernel<WK, PAY, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  // blocks of whole 2d-row blocks (a tile a residue of each) or of 2^a
+  // residues of one
+  const int64_t blocks = (m + ((int64_t)1 << log_b) - 1) >> log_b;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if (blocks > 0) {
-    exchange_kernel<WK, PAY><<<(unsigned)blocks, kStepThreads, 0, s>>>(
+    kernel<<<(unsigned)blocks, 1u << (log_b - S::kLogE), bytes, s>>>(
         (const int64_t*)keys, (const int64_t*)pay, (int64_t*)out_keys,
-        (int64_t*)out_pay, m, log_d, mode, transpose);
+        (int64_t*)out_pay, map);
   }
   return (int)cudaGetLastError();
 }
 
 template <int WK>
-int step_wk(const void* keys, const void* pay, void* out_keys, void* out_pay,
-            int64_t m, int log_d, int mode, int transpose, cudaStream_t s) {
-  return pay ? launch_step<WK, true>(keys, pay, out_keys, out_pay, m, log_d,
-                                     mode, transpose, s)
-             : launch_step<WK, false>(keys, pay, out_keys, out_pay, m, log_d,
-                                      mode, transpose, s);
-}
-
-template <int WK, bool PAY, int G>
-int launch_group(const void* keys, const void* pay, void* out_keys,
-                 void* out_pay, int64_t m, int log_s, int mirror,
-                 cudaStream_t s) {
-  if constexpr (G > max_group(WK + PAY)) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    const int64_t blocks = ((m >> G) + kStepThreads - 1) / kStepThreads;
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    if (blocks > 0) {
-      auto kernel = mirror ? group_kernel<WK, PAY, G, true>
-                           : group_kernel<WK, PAY, G, false>;
-      kernel<<<(unsigned)blocks, kStepThreads, 0, s>>>(
-          (const int64_t*)keys, (const int64_t*)pay, (int64_t*)out_keys,
-          (int64_t*)out_pay, m, log_s);
-    }
-    return (int)cudaGetLastError();
-  }
-}
-
-template <int WK, bool PAY>
-int group_g(const void* keys, const void* pay, void* out_keys, void* out_pay,
-            int64_t m, int log_s, int g, int mirror, cudaStream_t s) {
-  switch (g) {
-    case 2:
-      return launch_group<WK, PAY, 2>(keys, pay, out_keys, out_pay, m,
-                                      log_s, mirror, s);
-    case 3:
-      return launch_group<WK, PAY, 3>(keys, pay, out_keys, out_pay, m,
-                                      log_s, mirror, s);
-    case 4:
-      return launch_group<WK, PAY, 4>(keys, pay, out_keys, out_pay, m,
-                                      log_s, mirror, s);
-  }
-  return (int)cudaErrorInvalidValue;
+int stride_wk(const void* keys, const void* pay, void* out_keys,
+              void* out_pay, int64_t m, int log_s, int g, int mirror,
+              int transpose, int log_b, int staged, int j_in, int j_out,
+              cudaStream_t s) {
+  return pay ? launch_stride<WK, true>(keys, pay, out_keys, out_pay, m,
+                                       log_s, g, mirror, transpose, log_b,
+                                       staged, j_in, j_out, s)
+             : launch_stride<WK, false>(keys, pay, out_keys, out_pay, m,
+                                        log_s, g, mirror, transpose, log_b,
+                                        staged, j_in, j_out, s);
 }
 
 template <int WK>
-int group_wk(const void* keys, const void* pay, void* out_keys,
-             void* out_pay, int64_t m, int log_s, int g, int mirror,
-             cudaStream_t s) {
-  return pay ? group_g<WK, true>(keys, pay, out_keys, out_pay, m, log_s, g,
-                                 mirror, s)
-             : group_g<WK, false>(keys, pay, out_keys, out_pay, m, log_s, g,
-                                  mirror, s);
+int flip_wk(const void* keys, void* out_keys, int64_t m, int log_t,
+            cudaStream_t s) {
+  const bool vec = (WK == 1 || WK % 2 == 0) &&
+                   (((uintptr_t)keys | (uintptr_t)out_keys) & 15) == 0;
+  const int64_t units = vec ? m * WK / 2 : m * WK;
+  const int64_t blocks = (units + kFlipThreads - 1) / kFlipThreads;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (blocks > 0) {
+    auto kernel = vec ? flip_kernel<WK, WK == 1 || WK % 2 == 0>
+                      : flip_kernel<WK, false>;
+    kernel<<<(unsigned)blocks, kFlipThreads, 0, s>>>(
+        (const int64_t*)keys, (int64_t*)out_keys, m, log_t);
+  }
+  return (int)cudaGetLastError();
 }
 
 int launch_wide_sort(const void* keys, const void* pay, void* out_keys,
@@ -868,8 +1071,9 @@ int launch_wide_sort(const void* keys, const void* pay, void* out_keys,
 
 using TileFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
                        cudaStream_t);
-using StepFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
-                       int, int, cudaStream_t);
+using StrideFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
+                         int, int, int, int, int, int, int, cudaStream_t);
+using FlipFn = int (*)(const void*, void*, int64_t, int, cudaStream_t);
 constexpr TileFn kSort[] = {
     nullptr,           tiles_wk<1, false>, tiles_wk<2, false>,
     tiles_wk<3, false>, tiles_wk<4, false>, tiles_wk<5, false>,
@@ -878,13 +1082,11 @@ constexpr TileFn kMerge[] = {
     nullptr,          tiles_wk<1, true>, tiles_wk<2, true>,
     tiles_wk<3, true>, tiles_wk<4, true>, tiles_wk<5, true>,
     tiles_wk<6, true>, tiles_wk<7, true>};
-constexpr StepFn kStep[] = {nullptr,    step_wk<1>, step_wk<2>, step_wk<3>,
-                            step_wk<4>, step_wk<5>, step_wk<6>, step_wk<7>};
-using GroupWkFn = int (*)(const void*, const void*, void*, void*, int64_t,
-                          int, int, int, cudaStream_t);
-constexpr GroupWkFn kGroup[] = {
-    nullptr,     group_wk<1>, group_wk<2>, group_wk<3>,
-    group_wk<4>, group_wk<5>, group_wk<6>, group_wk<7>};
+constexpr StrideFn kStride[] = {
+    nullptr,      stride_wk<1>, stride_wk<2>, stride_wk<3>,
+    stride_wk<4>, stride_wk<5>, stride_wk<6>, stride_wk<7>};
+constexpr FlipFn kFlipWk[] = {nullptr,    flip_wk<1>, flip_wk<2>, flip_wk<3>,
+                              flip_wk<4>, flip_wk<5>, flip_wk<6>, flip_wk<7>};
 
 }  // namespace
 
@@ -908,7 +1110,7 @@ extern "C" int jf_block_sort(const void* keys, const void* pay,
 // The plain steps at distances 2^(log_t - 1), ..., 1 on each tile of
 // 2^log_t rows (m a multiple of it; the tile as for jf_block_sort); the
 // key is compared and a payload carried. Keys of up to 7 columns, as for
-// jf_exchange and jf_exchange_group: the pair sort's rows have 1-2.
+// jf_exchange_tiles and jf_flip: the pair sort's rows have 1-2.
 extern "C" int jf_block_merge(const void* keys, const void* pay,
                               void* out_keys, void* out_pay, int64_t m,
                               int wk, int log_t, void* stream) {
@@ -919,40 +1121,36 @@ extern "C" int jf_block_merge(const void* keys, const void* pay,
                     (cudaStream_t)stream);
 }
 
-// One step at distance 2^log_d over m rows (m a multiple of 2^(log_d + 1)).
-// mode: 0 plain, 1 flip, 2 mirrored. A payload is carried. transpose: read
-// through the 128 x 128 block transpose (m a multiple of 16384; out must
-// not be the input).
-extern "C" int jf_exchange(const void* keys, const void* pay, void* out_keys,
-                           void* out_pay, int64_t m, int wk, int log_d,
-                           int mode, int transpose, void* stream) {
-  if (wk < 1 || wk > kNarrowCols || log_d < 0 || log_d > 62 || mode < 0 ||
-      mode > 2) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return kStep[wk](keys, pay, out_keys, out_pay, m, log_d, mode, transpose,
-                   (cudaStream_t)stream);
-}
-
-// The most steps one jf_exchange_group pass runs on rows of wk key columns
-// and a payload when `pay` is set: the launcher cuts its runs to it.
-extern "C" int jf_exchange_group_limit(int wk, int pay) {
-  return max_group(wk + (pay != 0));
-}
-
-// g consecutive halving steps at distances 2^(log_s + g - 1), ..., 2^log_s
-// over m rows (m a multiple of 2^(log_s + g)) in one pass, the first
-// mirrored when `mirror` is set; 2 <= g <= jf_exchange_group_limit(wk,
-// pay) (one step is jf_exchange's). A payload is carried. out may be the
-// input.
-extern "C" int jf_exchange_group(const void* keys, const void* pay,
+// g >= 1 consecutive halving steps at distances 2^(log_s + g - 1), ...,
+// 2^log_s over m rows (m a multiple of 2^(log_s + g)) in one pass of
+// strided tiles, blocks of 2^log_b >= 2^g rows (kernels/bitonic.py
+// pass_block_rows), read and written through shared memory by words when
+// `staged` is set (not with `transpose`), else read in layout j_in and
+// written from layout j_out (stride_layouts); the first step mirrored when
+// `mirror` is set, the input read through the 128 x 128 transpose when
+// `transpose` is (m a multiple of 16384; out must not be the input). A
+// payload is carried. Otherwise out may be the input.
+extern "C" int jf_exchange_tiles(const void* keys, const void* pay,
                                  void* out_keys, void* out_pay, int64_t m,
                                  int wk, int log_s, int g, int mirror,
-                                 void* stream) {
-  if (wk < 1 || wk > kNarrowCols || log_s < 0 || g < 2 || g > 4 ||
-      log_s + g > 62) {
+                                 int transpose, int log_b, int staged,
+                                 int j_in, int j_out, void* stream) {
+  if (wk < 1 || wk > kNarrowCols || log_s < 0 || g < 1 ||
+      log_s + g > 62 || (transpose && (m & 16383))) {
     return (int)cudaErrorInvalidValue;
   }
-  return kGroup[wk](keys, pay, out_keys, out_pay, m, log_s, g, mirror,
-                    (cudaStream_t)stream);
+  return kStride[wk](keys, pay, out_keys, out_pay, m, log_s, g, mirror,
+                     transpose, log_b, staged, j_in, j_out,
+                     (cudaStream_t)stream);
+}
+
+// Each tile of 2^log_t rows (1 <= log_t, m a multiple) reversed; out must
+// not be the input.
+extern "C" int jf_flip(const void* keys, void* out_keys, int64_t m, int wk,
+                       int log_t, void* stream) {
+  if (wk < 1 || wk > kNarrowCols || log_t < 1 || log_t > 62 ||
+      (m & (((int64_t)1 << log_t) - 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return kFlipWk[wk](keys, out_keys, m, log_t, (cudaStream_t)stream);
 }

@@ -13,11 +13,18 @@ here in row-major order: tile row r, lane c is position 128 r + c, so a
 step between tile rows r and r + m is a step at distance 128 m.
 
 An `exchange_stages` call runs its steps in kernel passes over device
-memory (`exchange_plan`): each run of up to four consecutive halving steps
-(three for rows of more than four columns: jf_exchange_group_limit) is one
-pass of jf_exchange_group, the first step of the run plain or mirrored;
-any other step (a lone distance, a transposed read, a flip) is one pass of
-jf_exchange.
+memory (`exchange_plan`): each run of consecutive halving steps is cut
+into the fewest passes of at most tile_pass_steps (12 at Wk 1 keys only,
+11 at Wk 1 + payload; 10 a pass where M rows would leave half the card's
+streaming multiprocessors without a block), of equal lengths; a pass is
+one launch of jf_exchange_tiles, which holds strided tiles (the rows of
+one residue of the pass's last distance s in each 2d-row block,
+`_sector_rows` residues side by side) on chip and runs the steps there,
+the first one plain or mirrored, read through the 128 x 128 transpose or
+not; a lone step is a pass of tiles of 2 rows. `flip` is jf_flip.
+`exchange_tiles_plain` is the card's route in plain PyTorch
+(`tile_pass_plain`: a pass's index map as the kernel lays out its
+blocks).
 
 `block_sort.launches`, `block_merge.launches`, `exchange_stages.launches`
 and `flip.launches` count the calls that launched each entry point on the
@@ -35,6 +42,7 @@ and the transposes (row 11) lie on no path.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -51,26 +59,30 @@ from jellyfish_tpu_torch.ops.count import row_order
 __all__ = [
     "Pass", "block_merge", "block_merge_plain", "block_sort",
     "block_sort_plain", "exchange_plan", "exchange_stages",
-    "exchange_stages_plain", "flip", "flip_plain", "tile_rows",
-    "STEP_KEY_COLS",
+    "exchange_stages_plain", "exchange_tiles_plain", "flip", "flip_plain",
+    "pass_block_rows", "stride_block_rows", "stride_layouts",
+    "tile_pass_plain",
+    "tile_pass_steps", "tile_rows",
+    "SMALL_BLOCK_ROWS", "STEP_KEY_COLS",
 ]
 
 SHARED_TILE_BYTES = 96 * 1024  # a tile's rows; csrc/bitonic.cu kTileBytes
+STRIDE_BYTES = 128 * 1024  # a strided-tile block's rows; kStrideBytes
+SMALL_BLOCK_ROWS = 4096    # a strided-tile block's rows at a small M
+_STRIDE_THREADS = 1024     # csrc/bitonic.cu kStrideThreads
 # block_merge, exchange_stages and flip take keys of at most 7 columns (the
 # pair sort's rows have 1-2); block_sort takes up to MAX_KEY_COLS
 STEP_KEY_COLS = NARROW_KEY_COLS
 PAD = (1 << 63) - 1            # INT64_MAX: pad rows sort last
 _SQUARE = 128                  # side of the transposed square blocks
 
-_EXCHANGE, _FLIP, _MIRROR = range(3)  # jf_exchange modes
-
 _P, _N, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "jf_block_sort": (_I, [_P, _P, _P, _P, _N, _I, _I, _P]),
     "jf_block_merge": (_I, [_P, _P, _P, _P, _N, _I, _I, _P]),
-    "jf_exchange": (_I, [_P, _P, _P, _P, _N, _I, _I, _I, _I, _P]),
-    "jf_exchange_group": (_I, [_P, _P, _P, _P, _N, _I, _I, _I, _I, _P]),
-    "jf_exchange_group_limit": (_I, [_I, _I]),
+    "jf_exchange_tiles": (_I, [_P, _P, _P, _P, _N, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _P]),
+    "jf_flip": (_I, [_P, _P, _N, _I, _I, _P]),
 }
 
 
@@ -88,34 +100,133 @@ def tile_rows(wk: int, payload: bool) -> int:
     return 1 << ((SHARED_BYTES // row).bit_length() - 1)
 
 
+def _stride_log_e(cols: int) -> int:
+    """log2 of the rows a thread holds in the strided-tile pass
+    (csrc/bitonic.cu StrideShape): 16 at one column, 8 at 2-4, else 4."""
+    return 2 if cols > 4 else 4 if cols == 1 else 3
+
+
+def stride_block_rows(wk: int, payload: bool) -> int:
+    """The strided-tile pass's largest block (csrc/bitonic.cu StrideShape
+    kLogMaxB): the largest power of two of rows of (wk + payload) int64
+    columns in STRIDE_BYTES, at most 1024 threads' rows."""
+    cols = wk + int(payload)
+    rows = 1 << ((STRIDE_BYTES // (8 * cols)).bit_length() - 1)
+    return min(rows, _STRIDE_THREADS << _stride_log_e(cols))
+
+
+def _sector_rows(wk: int) -> int:
+    """The consecutive rows (residues) a strided-tile block holds side by
+    side so that its reads and writes fill 32-byte sectors: 4 at Wk 1 and
+    2 (rows a thread reads and writes in registers by 8-byte words, as is
+    a payload; at Wk 2 two rows fill a sector, but four measured faster),
+    2 at Wk 3 and 1 from Wk 4 (rows staged through shared memory,
+    neighbouring threads on neighbouring words)."""
+    return 4 if wk <= 2 else 2 if wk == 3 else 1
+
+
+def _staged(wk: int, transposed: bool) -> bool:
+    """Whether a strided-tile pass reads and writes its rows through shared
+    memory by words (rows of 3 columns or more, read without the
+    transpose; from Wk 4 measured faster than by rows in registers, at Wk 2
+    slower) or by rows, straight into and out of registers."""
+    return wk > 2 and not transposed
+
+
+def tile_pass_steps(wk: int, payload: bool, m: int = 0,
+                    sms: int = 132) -> int:
+    """The most steps one strided-tile pass runs on these rows: T = 2^g
+    rows of each residue, the block's _sector_rows(wk) residues side by side
+    in stride_block_rows (12 at Wk 1 keys only, 11 at Wk 1 + payload, 10
+    at Wk 2 + payload).
+    Where M rows would give such passes fewer blocks than half the `sms`
+    streaming multiprocessors (an H100 SXM's 132 by default; M 0: no
+    such limit), blocks of at most SMALL_BLOCK_ROWS: a lone block of a
+    long pass takes longer than its rows in two short passes (PERF.md)."""
+    rows = stride_block_rows(wk, payload)
+    if m and m // rows < sms // 2:
+        rows = min(rows, SMALL_BLOCK_ROWS)
+    return (rows // _sector_rows(wk)).bit_length() - 1
+
+
+def pass_block_rows(wk: int, payload: bool, steps: int) -> int:
+    """The block of a strided-tile pass of `steps` steps: tiles of 2^steps
+    rows, _sector_rows(wk) residues side by side, at least four warps'
+    rows."""
+    rows = max(_sector_rows(wk) << steps, 128 << _stride_log_e(wk + payload))
+    return min(rows, stride_block_rows(wk, payload))
+
+
+@functools.lru_cache(maxsize=None)
+def stride_layouts(wk, payload, log_s, g, log_b, transposed, staged=False):
+    """The layouts (csrc/bitonic.cu stride_kernel) a strided-tile pass of
+    g steps at s = 2^log_s, blocks of 2^log_b rows, reads its rows in and
+    writes them from: the first (last) steps' own, or the one in which
+    neighbouring threads hold neighbouring block rows (`nat`) where a
+    warp's rows then touch fewer 32-byte sectors. A warp's 32 rows of one
+    register are a cube on five bits of the block row, each a bit of the
+    device row (through the transpose for a transposed read), and touch
+    2^(those bits at or above a sector's rows) sectors of keys (4 rows at
+    Wk 1, 2 at Wk 2, 1 from Wk 3: exact at Wk 1, 2 and 4; at 3, 5, 6 and 7
+    every layout ties) and of a payload (4 rows). A `staged` pass goes
+    through shared memory instead, its rows read into the first steps'
+    layout."""
+    log_e = _stride_log_e(wk + int(payload))
+    a_lo, nat = min(log_b - g, log_s), log_b - log_e
+    layouts = []  # each group of steps' layout, as stride_kernel runs them
+    top = a_lo + g - 1
+    while top >= a_lo:
+        layouts.append(min(max(top - log_e + 1, a_lo), nat))
+        top = max(layouts[-1], a_lo) - 1
+    first, last = layouts[0], layouts[-1]
+    if staged:
+        return first, last
+
+    def sectors(j, read):
+        keys = pays = 0
+        for b in range(5):  # the bits of the block row a warp's threads set
+            r = b if b < j else b + log_e
+            x = r if r < a_lo else r + log_s - a_lo  # its bit of x_v
+            if read and transposed and x < 14:
+                x = x + 7 if x < 7 else x - 7
+            keys += x >= {1: 2, 2: 1}.get(wk, 0)
+            pays += x >= 2
+        return (-(-wk // 4) << keys) + ((1 << pays) if payload else 0)
+
+    return (nat if sectors(nat, True) < sectors(first, True) else first,
+            nat if sectors(nat, False) < sectors(last, False) else last)
+
+
 class Pass(NamedTuple):
-    """One kernel pass of exchange_stages: steps at `distances`, the
-    first in `mode` (the others plain), the first reading its input
-    through the 128 x 128 transpose when `transposed`. Several distances
-    are one jf_exchange_group pass, one distance a jf_exchange pass."""
+    """One jf_exchange_tiles pass of exchange_stages: steps at
+    `distances`, the first mirrored when `mirrored`, the input read through
+    the 128 x 128 transpose when `transposed`."""
 
     distances: tuple
-    mode: int
+    mirrored: bool = False
     transposed: bool = False
 
 
-def exchange_plan(distances, mirror=False, transposes=0, limit=4):
+def exchange_plan(distances, mirror=False, transposes=0, limit=12):
     """The passes of exchange_stages(distances, transposes, mirror): the
-    distances cut, in order, into maximal runs of consecutive halvings of
-    at most `limit` steps, each one pass. A mirrored step can only start a
-    run. The transposed read of an odd number of transposes (row 11) takes
-    its first step alone."""
+    distances cut, in order, into maximal runs of consecutive halvings,
+    each run into the fewest passes of at most `limit` steps
+    (tile_pass_steps), of lengths that differ by at most one, the longer
+    first (a run of 12 at 11 a pass is 6 + 6, which measured faster than
+    11 + 1 on an H100 at every width timed, PERF.md). Only the first pass is mirrored, and only it
+    reads through the transpose (an odd number of transposes, row 11)."""
     plan, i = [], 0
     while i < len(distances):
-        mode = _MIRROR if mirror and i == 0 else _EXCHANGE
-        transposed = transposes % 2 == 1 and i == 0
         j = i + 1
-        if not transposed:
-            while (j < len(distances) and j - i < limit
-                   and 2 * distances[j] == distances[j - 1]):
-                j += 1
-        plan.append(Pass(tuple(distances[i:j]), mode, transposed))
-        i = j
+        while j < len(distances) and 2 * distances[j] == distances[j - 1]:
+            j += 1
+        run = j - i
+        parts = -(-run // limit)
+        for k in range(parts):
+            n = run // parts + (k < run % parts)
+            plan.append(Pass(tuple(distances[i:i + n]), mirror and not plan,
+                             transposes % 2 == 1 and not plan))
+            i += n
     return plan
 
 
@@ -212,6 +323,82 @@ def flip_plain(keys, tile):
     return keys.view(-1, tile, keys.shape[1]).flip(1).reshape(keys.shape)
 
 
+def tile_pass_plain(keys, payload, ps, block):
+    """One jf_exchange_tiles pass as the kernel lays out its rows: block b
+    of `block` rows holds tiles q = b block / T + (0 ... block / T - 1),
+    tile q the rows x_v = blk + j + i s (i < T) of residue j = q mod s of
+    the 2d-row block q / s; a mirrored pass holds the upper half reversed,
+    from residue s - 1 - j: tile row i >= T/2 is x_v ^ (d - 1), so that the
+    mirrored step is a plain one at tile distance T/2 and the upper half's
+    steps after it descend (equal keys stay); a transposed pass reads
+    through the 128 x 128 transpose. Rows past M are pad rows, neither read
+    nor written."""
+    m, wk = keys.shape
+    log_s, log_t = _log2(ps.distances[-1], "distance"), len(ps.distances)
+    t_rows, log_d = 1 << log_t, log_s + log_t - 1
+    blocks = -(-m // block)
+    q = (torch.arange(blocks)[:, None] * (block >> log_t)
+         + (torch.arange(block) >> log_t)[None]).reshape(-1)
+    i = torch.arange(block).repeat(blocks) & (t_rows - 1)
+    xv = (((q >> log_s) << (log_s + log_t)) + (q & ((1 << log_s) - 1))
+          + (i << log_s))
+    valid = xv < m
+    x = xv
+    if ps.mirrored:
+        x = torch.where((xv >> log_d) & 1 == 1, xv ^ ((1 << log_d) - 1), xv)
+    x = x[valid]
+    y = x
+    if ps.transposed:
+        y = (x & ~16383) | ((x & 127) << 7) | ((x >> 7) & 127)
+    k = keys.new_full((blocks * block, wk), PAD)
+    k[valid] = keys[y]
+    p = None
+    if payload is not None:
+        p = payload.new_full((blocks * block,), PAD)
+        p[valid] = payload[y]
+    if not ps.mirrored:
+        k, p = block_merge_plain(k, p, t_rows)
+    else:
+        half = t_rows // 2
+        k, p = exchange_stages_plain(k, p, [half])
+        k, p = k.view(-1, 2, half, wk), None if p is None else p.view(
+            -1, 2, half)
+        # the upper half descends: reversed, its steps ascend
+        lo = block_merge_plain(k[:, 0].reshape(-1, wk), None if p is None
+                               else p[:, 0].reshape(-1), half)
+        hi = block_merge_plain(k[:, 1].flip(1).reshape(-1, wk), None
+                               if p is None else p[:, 1].flip(1).reshape(-1),
+                               half)
+        k = torch.stack([lo[0].view(-1, half, wk),
+                         hi[0].view(-1, half, wk).flip(1)], 1).reshape(-1, wk)
+        if p is not None:
+            p = torch.stack([lo[1].view(-1, half), hi[1].view(-1, half)
+                             .flip(1)], 1).reshape(-1)
+    out_k = torch.empty_like(keys)
+    out_k[x] = k[valid]
+    if p is None:
+        return out_k, None
+    out_p = torch.empty_like(payload)
+    out_p[x] = p[valid]
+    return out_k, out_p
+
+
+def exchange_tiles_plain(keys, payload=None, distances=(), transposes=0,
+                         mirror=False, sms=132):
+    """exchange_stages on the card's route in plain PyTorch, on a card of
+    `sms` streaming multiprocessors: the passes of exchange_plan, each
+    gathered, merged and scattered back as jf_exchange_tiles lays out its
+    blocks (tile_pass_plain at pass_block_rows). Equals
+    exchange_stages_plain."""
+    m, wk = keys.shape
+    k, p = keys, payload
+    for ps in exchange_plan(list(distances), mirror, transposes,
+                            tile_pass_steps(wk, payload is not None, m, sms)):
+        block = pass_block_rows(wk, payload is not None, len(ps.distances))
+        k, p = tile_pass_plain(k, p, ps, block)
+    return k, p
+
+
 # -- kernels ---------------------------------------------------------------
 
 
@@ -228,6 +415,7 @@ class _Launcher:
         self.dev = dev
         with torch.cuda.device(dev):
             self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def tiles(self, entry, src, dst, m, wk, log_t):
         """jf_block_sort or jf_block_merge on tiles of 2^log_t rows."""
@@ -237,31 +425,33 @@ class _Launcher:
                 wk, log_t, self.stream)
         _build.check(rc, f"bitonic {entry}")
 
-    def group_limit(self, wk, payload):
-        """The most steps a jf_exchange_group pass runs on these rows."""
-        return self.lib.jf_exchange_group_limit(wk, int(payload is not None))
-
     def passes(self, src, dst, m, wk, plan):
-        """Launch the kernel passes of `plan`: the first reads `src` and
-        writes `dst`, the others update `dst` in place (each thread reads
-        and writes only its own rows). Returns the number launched."""
-        launched = 0
+        """Launch the jf_exchange_tiles passes of `plan`: the first reads
+        `src` and writes `dst`, the others update `dst` in place (each
+        block reads and writes only its own rows). Returns the number
+        launched."""
+        payload = src[1] is not None
         for i, ps in enumerate(plan):
             ik, ip = src if i == 0 else dst
+            g = len(ps.distances)
             log_s = _log2(ps.distances[-1], "distance")
+            log_b = _log2(pass_block_rows(wk, payload, g), "block")
+            staged = _staged(wk, ps.transposed)
             with torch.cuda.device(self.dev):
-                if len(ps.distances) > 1:
-                    rc = self.lib.jf_exchange_group(
-                        _ptr(ik), _ptr(ip), _ptr(dst[0]), _ptr(dst[1]), m,
-                        wk, log_s, len(ps.distances),
-                        int(ps.mode == _MIRROR), self.stream)
-                else:
-                    rc = self.lib.jf_exchange(
-                        _ptr(ik), _ptr(ip), _ptr(dst[0]), _ptr(dst[1]), m,
-                        wk, log_s, ps.mode, int(ps.transposed), self.stream)
+                rc = self.lib.jf_exchange_tiles(
+                    _ptr(ik), _ptr(ip), _ptr(dst[0]), _ptr(dst[1]), m, wk,
+                    log_s, g, int(ps.mirrored), int(ps.transposed), log_b,
+                    int(staged), *stride_layouts(wk, payload, log_s, g, log_b,
+                                                 ps.transposed, staged),
+                    self.stream)
             _build.check(rc, "bitonic exchange")
-            launched += 1
-        return launched
+        return len(plan)
+
+    def flip(self, src, dst, m, wk, log_t):
+        with torch.cuda.device(self.dev):
+            rc = self.lib.jf_flip(_ptr(src), _ptr(dst), m, wk, log_t,
+                                  self.stream)
+        _build.check(rc, "bitonic flip")
 
 
 def _empty_like(keys, payload):
@@ -328,7 +518,8 @@ def exchange_stages(keys, payload=None, distances=(), transposes=0,
     table; a mirrored first step takes row 12's place): at least one
     distance, each a power of two, M a multiple of twice each (and of
     128 * 128 for an odd number of transposes). The steps run in the
-    passes of exchange_plan, at most jf_exchange_group_limit's a pass.
+    passes of exchange_plan, at most tile_pass_steps(Wk, payload, M, the
+    card's streaming multiprocessors) a pass.
     Returns (keys, payload or None)."""
     _check(keys, payload)
     m, wk = keys.shape
@@ -344,7 +535,8 @@ def exchange_stages(keys, payload=None, distances=(), transposes=0,
                                      mirror)
     launcher = _Launcher(keys.device)
     plan = exchange_plan(list(distances), mirror, transposes,
-                         launcher.group_limit(wk, payload))
+                         tile_pass_steps(wk, payload is not None, m,
+                                         launcher.sms))
     out = _empty_like(keys, payload)
     exchange_stages.passes += launcher.passes((keys, payload), out, m, wk,
                                               plan)
@@ -359,8 +551,8 @@ exchange_stages.mirror_launches = 0
 
 
 def flip(keys, tile):
-    """Each tile of `tile` rows reversed (row 12 of the kernel table);
-    `tile` is a power of two >= 2 dividing M."""
+    """Each tile of `tile` rows reversed (row 12 of the kernel table; one
+    jf_flip launch); `tile` is a power of two >= 2 dividing M."""
     _check(keys)
     m, wk = keys.shape
     log_t = _log2(tile, "tile")
@@ -369,8 +561,7 @@ def flip(keys, tile):
     if keys.device.type == "cpu":
         return flip_plain(keys, tile)
     out = torch.empty_like(keys)
-    _Launcher(keys.device).passes((keys, None), (out, None), m, wk,
-                                  [Pass((tile // 2,), _FLIP)])
+    _Launcher(keys.device).flip(keys, out, m, wk, log_t)
     flip.launches += 1
     return out
 

@@ -11,12 +11,21 @@ wrappers with this checkout's chip_smoke.cuda_ms (device time, the stream
 held while the calls are enqueued) on the same seeded inputs, at the shapes
 of PERF.md's kernel table: row 9's windows (eight 2^20-row windows of a
 2^24-row slab a call, 1,500,000 rows apart, Wk 1 at odd and even offsets
-and Wk 4), row 10's rotation of the slab, rows 7, 8 and 11 at the Pallas
-probes' shapes, the standalone flip, K2's keep mask at the merge's round,
-K2 at a k = 21 grain (2^27 rows, 25% live; each K2 case also by its
-kernels' device time from torch.profiler),
-at the Bloom insert's shape (2^24 rows, Wk 1 + payload) row 8's last
-phase, row 12's mirrored step, block_sort, block_merge and the whole pair
+and Wk 4), row 10's rotation of the slab; exchange_stages and flip (the
+"row 7" ... "row 12" cases, step_cases): rows 7, 8 and 11 at the Pallas
+probes' shapes (row 11 with 0, 1 and 2 transposes), rows 7 and 11 at 2^24
+rows of Wk 1 keys only (row 7's steps also on whole tiles, distances
+2048 ... 1), row 8 at the Bloom insert's last phase (2^24 rows, Wk 1 +
+payload), row 12's mirrored step there, one BitsArray.set of 2^22 ids,
+exchange_stages at 2^26 rows of Wk 4 (steps 2^25, 2048, 1) and at 2^24
+rows of Wk 7 + payload (1 transpose, steps 2^23, 64, 1), and flip at the
+probe's shape, at 2^24 rows of Wk 1 in tiles of 2^17 and at 2^26 rows of
+Wk 4 in tiles of 2048, each beside torch.flip of the same view; each of
+these also by its kernels' device time from torch.profiler, and
+exchange_stages' kernel passes a call (exchange_stages.passes); K2's keep
+mask at the merge's round, K2 at a k = 21 grain (2^27 rows, 25% live;
+each K2 case also by its kernels' device time from torch.profiler), at
+the Bloom insert's shape block_sort, block_merge and the whole pair
 sort; K1's merge_pass at the k = 63 grain (2^26 rows, Wk 4, keys only) in
 runs of 2^22 and of 2,048 (its first pass) and at 2^24 rows of Wk 1 +
 payload in runs of 2^22, and K1's merge_path at row 1's shape (A 2^24 + B
@@ -55,11 +64,13 @@ time less the sum of its device rows.
 
 With --only, only the cases whose label starts with PREFIX run (and only
 their inputs are made: `--only wide` makes none of the narrow cases',
-`--only bloom` and `--only radix` only the insert's).
+`--only bloom` and `--only radix` only the insert's, `--only 'row '` only
+rows 7-12's).
 
 Prints one JSON line a run, then the card's name and power limit (nvidia-smi)
 and a JSON object of each case's times (ms a call; a window for row 9), one
 a run in the order given; writes the same to chiprun_out/kernel_ab.json.
+The object also holds exchange_stages' kernel passes a call, by case.
 """
 
 from __future__ import annotations
@@ -87,7 +98,8 @@ PROFILED = {"K2": ("compact_", "kernels", True),
             "bloom": ("", "kernels", False),
             "wide sort_rows_blocked": ("splits_kernel",
                                        "merge_splits kernels", False),
-            "wide K1 merge_path": ("", "kernels", True)}
+            "wide K1 merge_path": ("", "kernels", True),
+            "row ": ("", "kernels", True)}
 
 
 def _smoke():
@@ -106,15 +118,9 @@ def cases(dev, only=""):
     cases."""
     import torch
 
-    from jellyfish_tpu_torch.kernels.bitonic import (
-        block_merge,
-        block_sort,
-        exchange_stages,
-        flip,
-    )
+    from jellyfish_tpu_torch.kernels.bitonic import block_merge, block_sort
     from jellyfish_tpu_torch.kernels.compact import compact
     from jellyfish_tpu_torch.kernels.sort import sort_pairs_bitonic
-    from jellyfish_tpu_torch.kernels.window import roll_lanes, window_rows
 
     if only.startswith("wide"):
         return []
@@ -127,6 +133,44 @@ def cases(dev, only=""):
 
     def ints(hi, *shape):
         return torch.randint(0, hi, shape, device=dev, generator=g)
+
+    # rows 7-12's cases, made only where --only can select a "row " label
+    out = []
+    if only.startswith("row ") or "row ".startswith(only):
+        out = window_cases(dev, ints) + step_cases(dev, ints, cycle)
+    if only.startswith("row"):
+        return out
+    m = 4 << 20
+    pool = torch.sort(ints(1 << 62, m)).values
+    reps = ints(4, m) + 1
+    kk = torch.repeat_interleave(pool, reps)[:m].contiguous()[:, None]
+    is_new = torch.ones(m, dtype=torch.bool, device=dev)
+    is_new[1:] = kk[1:, 0] != kk[:-1, 0]
+    vals = ints(9, m)[torch.cumsum(is_new, 0) - 1]
+    keep = is_new & (vals <= 5)
+    out.append(("K2 compact with a keep mask, 4 x 2^20 rows, Wk 1",
+                lambda: compact(kk, vals, keep)[:2], 1))
+    ck = torch.sort(ints(1 << 62, 1 << 27)).values[:, None]
+    cc = ints(9, 1 << 27) * (ints(4, 1 << 27) == 0)
+    out.append(("K2 compact, 2^27 rows, Wk 1, 25% live",
+                lambda: compact(ck, cc)[:2], 1))
+    pos, pw = ints(1 << 32, INSERT_ROWS, 1), ints(3, INSERT_ROWS)
+    out.append(("K3 block_sort, 2^24 rows, Wk 1 + payload, tile 4096",
+                lambda: block_sort(pos, pw, TILE), 1))
+    out.append(("K3 block_merge, 2^24 rows, Wk 1 + payload, tile 4096",
+                lambda: block_merge(pos, pw, TILE), 1))
+    pairs, wb = pos[:INSERT_PAIRS].contiguous(), pw[:INSERT_PAIRS].contiguous()
+    out.append(("the pair sort, one insert's 8,890,770 pairs",
+                lambda: sort_pairs_bitonic(pairs, wb), 1))
+    out += merge_cases(dev, g, ints)
+    return out + bloom_cases(dev) + radix_cases(dev)
+
+
+def window_cases(dev, ints):
+    """Rows 9 and 10 at a merge's slab of 2^24 rows."""
+    import torch
+
+    from jellyfish_tpu_torch.kernels.window import roll_lanes, window_rows
 
     out = []
     for wk in (1, 4):
@@ -145,50 +189,77 @@ def cases(dev, only=""):
             out.append(("row 10 roll_lanes, Wk 1, keys and counts",
                         lambda: (roll_lanes(flat, shift),
                                  roll_lanes(cflat, shift)), 1))
+    return out
+
+
+def step_cases(dev, ints, cycle):
+    """exchange_stages and flip (rows 7, 8, 11 and 12): at the Pallas
+    probes' shapes, at 2^24 rows of Wk 1 (128 MiB, past the L2), at the
+    Bloom insert's last phase and its mirrored step (2^24 rows, Wk 1 +
+    payload), at 2^26 rows of Wk 4 and 2^24 of Wk 7 + payload; one
+    BitsArray.set of 2^22 ids (the route that launches them); flip beside
+    torch.flip of the same view."""
+    import torch
+
+    from jellyfish_tpu_torch.kernels.bitonic import exchange_stages, flip
+    from jellyfish_tpu_torch.ops.bitsarray import BitsArray
+
+    big = 1 << 24
+    out = []
     x7 = ints(1 << 32, 4096 * 128, 1)
-    d7 = cycle(4096, 12)
+    d7 = cycle(4096, 12)  # 2^18 ... 2^7
     out.append(("row 7 exchange_stages u32[4096, 128], 12 steps",
                 lambda: exchange_stages(x7, distances=d7), 1))
+    b1 = ints(1 << 32, big, 1)
+    out.append(("row 7 exchange_stages 2^24 rows, Wk 1, keys only, 12 steps "
+                "2^18 ... 2^7", lambda: exchange_stages(b1, distances=d7), 1))
+    d7c = [2048 >> i for i in range(12)]  # the same steps on whole tiles
+    out.append(("row 7 exchange_stages 2^24 rows, Wk 1, keys only, 12 steps "
+                "2048 ... 1 (contiguous tiles)",
+                lambda: exchange_stages(b1, distances=d7c), 1))
+    b4 = ints(1 << 32, 4 * big, 4)
+    d4 = [1 << 25, 2048, 1]
+    out.append(("row 7 exchange_stages 2^26 rows, Wk 4, keys only, steps "
+                "2^25, 2048, 1", lambda: exchange_stages(b4, distances=d4), 1))
     k8 = torch.stack([ints(64, 4096 * 128), ints(4, 4096 * 128)], 1)
     c8 = ints(1 << 32, 4096 * 128)
     out.append(("row 8 exchange_stages 3x u32[4096, 128], 12 steps",
                 lambda: exchange_stages(k8, c8, d7), 1))
-    x11 = ints(1 << 32, 1024 * 128, 1)
-    d11 = cycle(1024, 10)
-    out.append(("row 11 exchange_stages u32[1024, 128], 1 transpose + 10 "
-                "steps", lambda: exchange_stages(x11, distances=d11,
-                                                 transposes=1), 1))
-    out.append(("row 12 flip u32[1024, 128]",
-                lambda: flip(x11, x11.shape[0]), 1))
-    m = 4 << 20
-    pool = torch.sort(ints(1 << 62, m)).values
-    reps = ints(4, m) + 1
-    kk = torch.repeat_interleave(pool, reps)[:m].contiguous()[:, None]
-    is_new = torch.ones(m, dtype=torch.bool, device=dev)
-    is_new[1:] = kk[1:, 0] != kk[:-1, 0]
-    vals = ints(9, m)[torch.cumsum(is_new, 0) - 1]
-    keep = is_new & (vals <= 5)
-    out.append(("K2 compact with a keep mask, 4 x 2^20 rows, Wk 1",
-                lambda: compact(kk, vals, keep)[:2], 1))
-    ck = torch.sort(ints(1 << 62, 1 << 27)).values[:, None]
-    cc = ints(9, 1 << 27) * (ints(4, 1 << 27) == 0)
-    out.append(("K2 compact, 2^27 rows, Wk 1, 25% live",
-                lambda: compact(ck, cc)[:2], 1))
     pos, pw = ints(1 << 32, INSERT_ROWS, 1), ints(3, INSERT_ROWS)
     last = [INSERT_ROWS >> i for i in range(1, 13)]  # 2^23 ... 4096
     out.append(("row 8 exchange_stages, the insert's last phase",
                 lambda: exchange_stages(pos, pw, last, mirror=True), 1))
+    ids = ints(1 << 32, 1 << 22)
+    ids[: 1 << 21] %= 1 << 16  # repeated ids
+    bits = BitsArray(2, 1 << 32, device=dev)
+    out.append(("row 8 BitsArray.set of 2^22 ids",
+                lambda: bits.set(ids, ids >> 7), 1))
+    x11 = ints(1 << 32, 1024 * 128, 1)
+    d11 = cycle(1024, 10)  # 2^16 ... 2^7
+    for t in (1, 0, 2):
+        out.append((f"row 11 exchange_stages u32[1024, 128], {t} "
+                    f"transpose{'' if t == 1 else 's'} + 10 steps",
+                    lambda t=t: exchange_stages(x11, distances=d11,
+                                                transposes=t), 1))
+    out.append(("row 11 exchange_stages 2^24 rows, Wk 1, keys only, 1 "
+                "transpose + 10 steps 2^16 ... 2^7",
+                lambda: exchange_stages(b1, distances=d11, transposes=1), 1))
+    b7, p7 = ints(1 << 32, big, 7), ints(1 << 40, big)
+    out.append(("row 11 exchange_stages 2^24 rows, Wk 7 + payload, 1 "
+                "transpose + steps 2^23, 64, 1",
+                lambda: exchange_stages(b7, p7, [1 << 23, 64, 1],
+                                        transposes=1), 1))
     out.append(("row 12 mirrored step at 2^23, 2^24 rows",
                 lambda: exchange_stages(pos, pw, last[:1], mirror=True), 1))
-    out.append(("K3 block_sort, 2^24 rows, Wk 1 + payload, tile 4096",
-                lambda: block_sort(pos, pw, TILE), 1))
-    out.append(("K3 block_merge, 2^24 rows, Wk 1 + payload, tile 4096",
-                lambda: block_merge(pos, pw, TILE), 1))
-    pairs, wb = pos[:INSERT_PAIRS].contiguous(), pw[:INSERT_PAIRS].contiguous()
-    out.append(("the pair sort, one insert's 8,890,770 pairs",
-                lambda: sort_pairs_bitonic(pairs, wb), 1))
-    out += merge_cases(dev, g, ints)
-    return out + bloom_cases(dev) + radix_cases(dev)
+    for label, x, tile in (("u32[1024, 128]", x11, x11.shape[0]),
+                           ("2^24 rows, Wk 1, tiles of 2^17", b1, 1 << 17),
+                           ("2^26 rows, Wk 4, tiles of 2048", b4, 2048)):
+        out.append((f"row 12 flip {label}", lambda x=x, t=tile: flip(x, t),
+                    1))
+        out.append((f"row 12 torch.flip {label}",
+                    lambda x=x, t=tile: torch.flip(
+                        x.view(-1, t, x.shape[1]), [1]), 1))
+    return out
 
 
 def radix_cases(dev):
@@ -444,11 +515,18 @@ def run_tree(tree: str, only: str = "") -> dict:
     _build.build([p.stem for p in _build.CSRC.glob("*.cu")])
     smoke = _smoke()
     dev = torch.device("cuda", 0)
-    ms = {}
+    from jellyfish_tpu_torch.kernels.bitonic import exchange_stages
+
+    ms, passes = {}, {}
     for label, fn, calls in itertools.chain(cases(dev, only),
                                             wide_cases(dev, only)):
         if not label.startswith(only):
             continue
+        if label.startswith("row "):  # exchange_stages' passes a call
+            before = exchange_stages.passes
+            fn()
+            if exchange_stages.passes > before:
+                passes[label] = exchange_stages.passes - before
         ms[label] = smoke.cuda_ms(fn, reps=10) / calls
         prefix = next((p for p in PROFILED if label.startswith(p)), None)
         if prefix is not None:
@@ -458,7 +536,7 @@ def run_tree(tree: str, only: str = "") -> dict:
             # kernel's mean over 50 calls in one profiler window, summed
             # (each call's output freed before the next, as in cuda_ms)
             prof_rows = smoke.profiled(
-                lambda f=fn: [f() and None for _ in range(50)])[2]
+                lambda f=fn: [None for _ in range(50) if f() is None])[2]
             part, what, split = PROFILED[prefix]
             ms[f"{label}, {what} (profiler)"] = sum(
                 us / 50 for name, us, n in prof_rows if part in name) / 1e3
@@ -470,7 +548,7 @@ def run_tree(tree: str, only: str = "") -> dict:
                 ms[f"{label}, host gap (the call less its device rows)"] = (
                     ms[label] - sum(us for _, us, _ in prof_rows) / 50 / 1e3)
         torch.cuda.synchronize()
-    return {"tree": tree, "ms": ms}
+    return {"tree": tree, "ms": ms, "passes": passes}
 
 
 def main() -> int:
@@ -500,7 +578,10 @@ def main() -> int:
     # a label one tree lacks (a kernel of its own in a call's split) is null
     labels = dict.fromkeys(label for r in runs for label in r["ms"])
     table = {label: [r["ms"].get(label) for r in runs] for label in labels}
-    result = {"card": card, "trees": trees, "ms": table}
+    passes = {label: [r["passes"].get(label) for r in runs]
+              for label in dict.fromkeys(x for r in runs for x in r["passes"])}
+    result = {"card": card, "trees": trees, "ms": table,
+              "exchange_stages passes": passes}
     os.makedirs(HERE / "chiprun_out", exist_ok=True)
     (HERE / "chiprun_out" / "kernel_ab.json").write_text(
         json.dumps(result, indent=1))

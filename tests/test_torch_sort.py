@@ -6,8 +6,10 @@ Rows of the kernel table (PERF.md): 6 experiments/pallas_sort_proto.py
 sort_kernel, run in interpret mode; 7 and 8 pallas_probe2._xchg1 and
 _xchg3 and 11 pallas_stage_probe.make_kernel (interpret mode), whose u32
 [R, 128] tiles are runs of key rows in row-major order here; 12 the flip
-of pallas_stage_probe, x[::-1, ::-1]. On CPU tensors the wrappers take the
-plain path and launch nothing.
+of pallas_stage_probe, x[::-1, ::-1]. Rows 7 and 11 also through
+exchange_tiles_plain, the card's route (the passes of exchange_plan, each
+strided-tile pass laid out as jf_exchange_tiles lays out its blocks). On
+CPU tensors the wrappers take the plain path and launch nothing.
 """
 
 import os
@@ -30,9 +32,16 @@ from jellyfish_tpu_torch.kernels.bitonic import (
     exchange_plan,
     exchange_stages,
     exchange_stages_plain,
+    exchange_tiles_plain,
     flip,
     flip_plain,
+    pass_block_rows,
+    stride_block_rows,
+    stride_layouts,
+    tile_pass_plain,
+    tile_pass_steps,
     tile_rows,
+    SMALL_BLOCK_ROWS,
 )
 from jellyfish_tpu_torch.kernels.merge_path import (
     MAX_KEY_COLS,
@@ -164,6 +173,49 @@ def test_exchange_stages_plain_matches_stage_probe(probes, transposes):
     got, _ = exchange_stages_plain(
         _col(x), distances=[m * sp.C for m in _cycle(sp.R, n)],
         transposes=transposes)
+    np.testing.assert_array_equal(_tile(got, x.shape), want)
+
+
+def test_exchange_tiles_plain_matches_xchg1(probes):
+    """Row 7 on the card's route: the probe's 14 steps (a run of 12, then
+    2) as strided-tile passes, keys only and with a payload carried."""
+    p2 = probes[1]
+    rng = np.random.default_rng(701)
+    x = _u32(rng, (p2.R, p2.C), hi=1000)  # many ties
+    ms = _cycle(p2.R, 14)
+    want = jnp.asarray(x)
+    for m in ms:
+        want = p2._xchg1(want, m)
+    dist = [m * p2.C for m in ms]
+    assert len(exchange_plan(dist, limit=tile_pass_steps(1, False))) == 2
+    got, p = exchange_tiles_plain(_col(x), distances=dist)
+    assert p is None
+    np.testing.assert_array_equal(_tile(got, x.shape), np.asarray(want))
+    pay = torch.arange(x.size)
+    got, p = exchange_tiles_plain(_col(x), pay, dist)
+    np.testing.assert_array_equal(_tile(got, x.shape), np.asarray(want))
+    assert torch.equal(p, exchange_stages_plain(_col(x), pay, dist)[1])
+
+
+@pytest.mark.parametrize("transposes", [0, 1, 2])
+def test_exchange_tiles_plain_matches_stage_probe(probes, transposes):
+    """Row 11 on the card's route: make_kernel(12, t) in interpret mode,
+    the transposed read (odd t) in the first strided-tile pass, with the
+    run of 10 steps it starts."""
+    sp = probes[2]
+    rng = np.random.default_rng(1110 + transposes)
+    x = _u32(rng, (sp.R, sp.C))
+    n = 12
+    want = np.asarray(pl.pallas_call(
+        sp.make_kernel(n, transposes),
+        out_shape=jax.ShapeDtypeStruct((sp.R, sp.C), jnp.uint32),
+        interpret=True)(jnp.asarray(x)))
+    dist = [m * sp.C for m in _cycle(sp.R, n)]
+    plan = exchange_plan(dist, False, transposes, tile_pass_steps(1, False))
+    assert [len(ps.distances) for ps in plan] == [10, 2]
+    assert plan[0].transposed == (transposes % 2 == 1)
+    got, _ = exchange_tiles_plain(_col(x), distances=dist,
+                                  transposes=transposes)
     np.testing.assert_array_equal(_tile(got, x.shape), want)
 
 
@@ -644,45 +696,7 @@ def test_pair_sort_matches_lax_sort_in_long_phases(tile, m):
     assert exchange_stages.launches == exchange_stages.passes == 0
 
 
-# -- the fused passes of exchange_stages (row 8, jf_exchange_group) -------
-
-
-def exchange_group_plain(keys, payload, s, g, mirror=False):
-    """One jf_exchange_group pass as the kernel lays it out: the steps at
-    distances s 2^(g-1), ..., s, the first mirrored if asked. Each of the
-    M / 2^g threads gathers its 2^g rows (register i < H = 2^(g-1): row
-    blk + j + i s of its 2d-row block's lower half; register H + i: row
-    blk + d + j' + i s of the upper half, j' = s - 1 - j when mirrored,
-    else j), runs the g steps between its registers, and scatters them
-    back."""
-    m, wk = keys.shape
-    n, h, d = 1 << g, 1 << (g - 1), s << (g - 1)
-    p = torch.arange(m >> g)
-    j = p % s
-    blk = (p // s) * 2 * d
-    i = torch.arange(h) * s
-    up = s - 1 - j if mirror else j
-    idx = torch.cat([(blk + j)[:, None] + i, (blk + d + up)[:, None] + i], 1)
-    k = keys[idx]
-    pv = None if payload is None else payload[idx]
-    first = [(r, n - 1 - r) if mirror else (r, r + h) for r in range(h)]
-    steps = [first] + [[(r, r | 1 << t) for r in range(n) if not r >> t & 1]
-                       for t in range(g - 2, -1, -1)]
-    for pairs in steps:
-        a, b = (torch.tensor(x) for x in zip(*pairs))
-        swap = mw.mw_less(k[:, b], k[:, a])
-        k[:, a], k[:, b] = (mw.mw_select(swap, k[:, b], k[:, a]),
-                            mw.mw_select(swap, k[:, a], k[:, b]))
-        if pv is not None:
-            pv[:, a], pv[:, b] = (torch.where(swap, pv[:, b], pv[:, a]),
-                                  torch.where(swap, pv[:, a], pv[:, b]))
-    out_k = torch.empty_like(keys)
-    out_k[idx.reshape(-1)] = k.reshape(-1, wk)
-    if pv is None:
-        return out_k, None
-    out_p = torch.empty_like(payload)
-    out_p[idx.reshape(-1)] = pv.reshape(-1)
-    return out_k, out_p
+# -- the strided-tile passes of exchange_stages (jf_exchange_tiles) ---------
 
 
 @pytest.mark.parametrize("mirror", [False, True])
@@ -690,16 +704,24 @@ def exchange_group_plain(keys, payload, s, g, mirror=False):
 @pytest.mark.parametrize("payload", [True, False])
 @pytest.mark.parametrize("wk", [1, 2, 7])
 def test_exchange_group_plain_is_the_steps(wk, payload, g, mirror):
-    """One fused pass as the kernel lays out its rows (each thread's 2^g
-    rows gathered, the g steps run between them, scattered back) equals
-    the steps at distances s 2^(g-1), ..., s one at a time, keys and
-    payload, at s = 1 (a warp across many blocks) and s > 1."""
+    """One strided-tile pass as the kernel lays out its blocks
+    (tile_pass_plain: each block's tiles gathered, the g steps run between
+    their rows, scattered back) equals the steps at distances s 2^(g-1),
+    ..., s one at a time, keys and payload, at s = 1 (a block across many
+    2d-row blocks), s below and above a sector's rows, and s = 128 (the
+    probes')."""
     rng = np.random.default_rng(8000 + 100 * wk + 10 * g + payload)
-    for s in (1, 2, 16):
+    for s in (1, 2, 16, 128):
         m = 4 * (s << g)
         keys, pay = _pairs(rng, m, wk, payload)
-        dist = [s << t for t in range(g - 1, -1, -1)]
-        got = exchange_group_plain(keys, pay, s, g, mirror)
+        dist = tuple(s << t for t in range(g - 1, -1, -1))
+        for block in (1 << g, max(1 << g, min(m, 128 << g))):
+            got = tile_pass_plain(keys, pay, Pass(dist, mirror), block)
+            want = exchange_stages_plain(keys, pay, dist, mirror=mirror)
+            assert torch.equal(got[0], want[0])
+            assert not payload or torch.equal(got[1], want[1])
+        block = pass_block_rows(wk, payload, g)
+        got = tile_pass_plain(keys, pay, Pass(dist, mirror), block)
         want = exchange_stages_plain(keys, pay, dist, mirror=mirror)
         assert torch.equal(got[0], want[0])
         assert (got[1] is None) == (not payload)
@@ -713,52 +735,76 @@ def _route(phase, tile=4096):
 
 
 def test_exchange_plan_of_the_route():
-    """The route's phases of 1-12 steps make 1, 1, 1, 1, 2, 2, 2, 2, 3, 3,
-    3, 3 passes (24 an insert, from 78 steps), each run of four steps one
-    pass, the mirrored step first in its phase's first pass; at rows of
-    more than four columns (csrc/bitonic.cu max_group) three steps a
-    pass."""
-    passes = [exchange_plan(_route(k), True, 0, 4)
+    """The route's phases of 1-12 steps at its rows (Wk 1 + payload, 11
+    steps a strided-tile pass: tile_pass_steps) make one pass each but the
+    last, which makes 2 of 6 steps (13 an insert, from 78 steps; 24 with
+    four steps a pass before), the mirrored step first in its phase's
+    first pass; at Wk 7 + payload also 11 steps a pass (12 steps: 6 + 6),
+    at BitsArray's rows (Wk 2 + payload) 10, and `limit` cuts as given."""
+    limit = tile_pass_steps(1, True)
+    assert limit == 11
+    passes = [exchange_plan(_route(k), True, 0, limit)
               for k in range(1, 13)]
-    assert [len(p) for p in passes] == [1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3]
-    assert sum(map(len, passes)) == 24
+    assert [len(p) for p in passes] == [1] * 11 + [2]
+    assert sum(map(len, passes)) == 13
     for k, plan in zip(range(1, 13), passes):
         assert [d for ps in plan for d in ps.distances] == _route(k)
-        assert [ps.mode for ps in plan] == [2] + [0] * (len(plan) - 1)
-        assert all(len(ps.distances) <= 4 for ps in plan)
+        assert [ps.mirrored for ps in plan] == [True] + [False] * (
+            len(plan) - 1)
+        assert all(len(ps.distances) <= limit for ps in plan)
         assert not any(ps.transposed for ps in plan)
-    assert exchange_plan(_route(12), True) == [
-        Pass((1 << 23, 1 << 22, 1 << 21, 1 << 20), 2),
-        Pass((1 << 19, 1 << 18, 1 << 17, 1 << 16), 0),
-        Pass((1 << 15, 1 << 14, 1 << 13, 1 << 12), 0)]
-    assert exchange_plan(_route(5), True) == [
-        Pass((1 << 16, 1 << 15, 1 << 14, 1 << 13), 2), Pass((1 << 12,), 0)]
-    assert exchange_plan(_route(1), True) == [Pass((4096,), 2)]
+    assert exchange_plan(_route(12), True, 0, limit) == [
+        Pass(tuple(_route(12)[:6]), True), Pass(tuple(_route(12)[6:]), False)]
+    assert tile_pass_steps(2, True) == 10
+    assert [len(exchange_plan(_route(k), True, 0, 10)) for k in
+            range(1, 11)] == [1] * 10
+    assert exchange_plan(_route(12), True, 0, tile_pass_steps(1, False)) == [
+        Pass(tuple(_route(12)), True)]
+    assert exchange_plan(_route(5), True, 0, limit) == [
+        Pass((1 << 16, 1 << 15, 1 << 14, 1 << 13, 1 << 12), True)]
+    assert exchange_plan(_route(1), True) == [Pass((4096,), True)]
+    wide = exchange_plan(_route(12, 1024), True, 0, tile_pass_steps(7, True))
+    assert [len(ps.distances) for ps in wide] == [6, 6]
     wide = exchange_plan(_route(12, 1024), True, 0, 3)
     assert [len(ps.distances) for ps in wide] == [3, 3, 3, 3]
 
 
 @pytest.mark.parametrize("dist,mirror,transposes,limit,want", [
-    # isolated distances: one jf_exchange pass each
+    # isolated distances: one pass each
     ([1 << 12, 64, 1], False, 0, 4, [(1 << 12,), (64,), (1,)]),
     # runs longer than the limit, and runs broken by a jump
     ([64, 32, 16, 8, 4, 2, 1], False, 0, 4, [(64, 32, 16, 8), (4, 2, 1)]),
-    ([64, 32, 16, 8, 4, 2, 1], True, 0, 3, [(64, 32, 16), (8, 4, 2), (1,)]),
+    ([64, 32, 16, 8, 4, 2, 1], True, 0, 3, [(64, 32, 16), (8, 4), (2, 1)]),
     ([8, 4, 16, 8, 8], False, 0, 4, [(8, 4), (16, 8), (8,)]),
-    # a transposed read takes its first step alone; two transposes cancel
-    ([512, 256, 128, 64, 32], False, 1, 4, [(512,), (256, 128, 64, 32)]),
-    ([512, 256, 128, 64, 32], False, 2, 4, [(512, 256, 128, 64), (32,)]),
-    ([512, 256], True, 1, 4, [(512,), (256,)]),
+    # a transposed read starts the first run; two transposes cancel
+    ([512, 256, 128, 64, 32], False, 1, 4, [(512, 256, 128), (64, 32)]),
+    ([512, 256, 128, 64, 32], False, 2, 4, [(512, 256, 128), (64, 32)]),
+    ([512, 256], True, 1, 4, [(512, 256)]),
+    # the limits of shared memory (tile_pass_steps): 12 steps at Wk 1 keys
+    # only and Wk 4, 11 at Wk 1 + payload and Wk 7 + payload, 10 at Wk 2 +
+    # payload and at a small M; a run of more is cut into equal passes
+    ([1 << 15 >> i for i in range(16)], False, 1, 12,
+     [tuple(1 << 15 >> i for i in range(8)),
+      tuple(1 << 15 >> i for i in range(8, 16))]),
+    ([1 << 13 >> i for i in range(12)], True, 0, 11,
+     [tuple(1 << 13 >> i for i in range(6)),
+      tuple(1 << 13 >> i for i in range(6, 12))]),
+    ([1 << 13 >> i for i in range(12)], True, 1, 12,
+     [tuple(1 << 13 >> i for i in range(12))]),
+    ([1 << 14, 1 << 13, 64, 32, 16, 8, 4, 2, 1], True, 1, 11,
+     [(1 << 14, 1 << 13), (64, 32, 16, 8, 4, 2, 1)]),
 ])
 def test_exchange_plan_cuts(dist, mirror, transposes, limit, want):
     """exchange_plan as a pure function: maximal runs of consecutive
-    halvings of at most `limit` steps, in order; only the first pass can
-    be mirrored or transposed. Run through the plain models (fused passes
-    by exchange_group_plain, lone steps by exchange_stages_plain) the plan
-    equals exchange_stages_plain on the whole list."""
+    halvings, each cut into the fewest passes of at most `limit` steps, of
+    lengths that differ by at most one, the longer first, in order; only
+    the first pass can be mirrored or transposed. Run through the plain
+    model of a pass (tile_pass_plain, a lone step a pass of tiles of 2
+    rows) the plan equals exchange_stages_plain on the whole list."""
     plan = exchange_plan(dist, mirror, transposes, limit)
     assert [ps.distances for ps in plan] == want
-    assert [ps.mode for ps in plan] == [2 * mirror] + [0] * (len(plan) - 1)
+    assert [ps.mirrored for ps in plan] == [mirror] + [False] * (
+        len(plan) - 1)
     assert [ps.transposed for ps in plan] == (
         [transposes % 2 == 1] + [False] * (len(plan) - 1))
     rng = np.random.default_rng(8100 + len(dist))
@@ -766,13 +812,148 @@ def test_exchange_plan_cuts(dist, mirror, transposes, limit, want):
     keys, pay = _pairs(rng, m, 2, True)
     k, p = keys, pay
     for ps in plan:
-        if len(ps.distances) > 1:
-            k, p = exchange_group_plain(k, p, ps.distances[-1],
-                                        len(ps.distances), ps.mode == 2)
-        else:
-            k, p = exchange_stages_plain(k, p, ps.distances,
-                                         int(ps.transposed), ps.mode == 2)
+        k, p = tile_pass_plain(k, p, ps,
+                               pass_block_rows(2, True, len(ps.distances)))
     want_k, want_p = exchange_stages_plain(keys, pay, dist, transposes,
                                            mirror)
     assert torch.equal(k, want_k) and torch.equal(p, want_p)
 
+
+def test_tile_pass_shape():
+    """The strided-tile pass's blocks (csrc/bitonic.cu StrideShape): at
+    most 128 KB of rows and 1,024 threads; the steps a pass takes leave
+    room for a sector's rows side by side (4 at Wk 1-2, 2 at Wk 3, 1 from
+    Wk 4), and at an M that would leave half the streaming multiprocessors
+    without a block of such a pass, blocks of at most SMALL_BLOCK_ROWS; a
+    pass's block holds whole tiles, at least four warps and a sector's
+    rows of residues side by side."""
+    assert [stride_block_rows(wk, False) for wk in range(1, 8)] == [
+        16384, 8192, 4096, 4096, 2048, 2048, 2048]
+    assert [stride_block_rows(wk, True) for wk in range(1, 8)] == [
+        8192, 4096, 4096, 2048, 2048, 2048, 2048]
+    assert [tile_pass_steps(wk, False) for wk in range(1, 8)] == [
+        12, 11, 11, 12, 11, 11, 11]
+    assert [tile_pass_steps(wk, True) for wk in range(1, 8)] == [
+        11, 10, 11, 11, 11, 11, 11]
+    # row 7's probe (2^19 rows: 32 blocks of 16,384) and 2^20 rows take 10
+    # steps a pass, 2^21 (128 blocks) 12; row 11's probe 10; the insert's
+    # rows 11; a card of 128 multiprocessors has half of them at 2^20 rows
+    assert [tile_pass_steps(1, False, 1 << k) for k in (17, 19, 20, 21, 24)
+            ] == [10, 10, 10, 12, 12]
+    assert tile_pass_steps(1, False, 1 << 20, sms=128) == 12
+    assert tile_pass_steps(1, True, 1 << 24) == 11
+    assert tile_pass_steps(7, True, 1 << 16) == 11  # blocks of 2,048 rows
+    assert SMALL_BLOCK_ROWS == 4096
+    for wk in range(1, 8):
+        sector = 4 if wk <= 2 else 2 if wk == 3 else 1
+        for payload in (False, True):
+            cols = wk + payload
+            log_e = 4 if cols == 1 else 3 if cols <= 4 else 2
+            for g in range(1, tile_pass_steps(wk, payload) + 1):
+                block = pass_block_rows(wk, payload, g)
+                assert block & (block - 1) == 0 and block >= sector << g
+                assert block * cols * 8 <= 128 * 1024
+                assert 128 <= block >> log_e <= 1024  # threads
+    # the probes' and the 2^24-row shapes: row 7, row 11, row 8's last phase
+    assert pass_block_rows(1, False, 12) == 16384
+    assert pass_block_rows(1, False, 10) == 4096
+    assert pass_block_rows(1, True, 11) == 8192
+
+
+def _warp_sectors(wk, payload, log_s, g, log_b, j, mirror, transposed):
+    """The 32-byte sectors of keys and payload that warp 0's first
+    register touches in layout j of a strided-tile pass, counted row by
+    row (csrc/bitonic.cu StrideMap: block row r at x_v, a mirrored upper
+    half reflected, a transposed read through the 128 x 128 transpose)."""
+    log_e = 4 if wk + payload == 1 else 3 if wk + payload <= 4 else 2
+    a_lo, log_d = min(log_b - g, log_s), log_s + g - 1
+    keys, pays = set(), set()
+    for t in range(32):
+        r = ((t >> j) << (j + log_e)) | (t & ((1 << j) - 1))
+        x = ((r & ((1 << a_lo) - 1)) + (((r >> a_lo) & ((1 << g) - 1))
+                                         << log_s)
+             + ((r >> (a_lo + g)) << (log_s + g)))
+        if mirror and (x >> log_d) & 1:
+            x ^= (1 << log_d) - 1
+        if transposed:
+            x = (x & ~16383) | ((x & 127) << 7) | ((x >> 7) & 127)
+        keys.update(range(x * wk * 8 // 32, ((x + 1) * wk * 8 - 1) // 32 + 1))
+        pays.add(x * 8 // 32)
+    return len(keys) + (len(pays) if payload else 0)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("payload", [False, True])
+@pytest.mark.parametrize("wk", [1, 2, 4])
+def test_stride_layouts(wk, payload, transposed):
+    """The layouts a strided-tile pass reads in and writes from: the first
+    (last) steps' own, unless the layout of neighbouring block rows makes
+    a warp touch fewer 32-byte sectors, mirrored or not, the read through
+    the transpose or not, at every s, number of steps and block the
+    kernel takes; a staged pass (through shared memory, never with the
+    transpose) stays in the steps' layouts. The sectors are counted row by
+    row. Rows of 4 key columns touch a sector each in every layout, so
+    without a payload the steps' own always win."""
+    cols = wk + payload
+    log_e = 4 if cols == 1 else 3 if cols <= 4 else 2
+    top_b = stride_block_rows(wk, payload).bit_length() - 1
+    picks = set()
+    for log_s in range(15):
+        for g in range(1, tile_pass_steps(wk, payload) + 1):
+            for log_b in range(max(g, log_e + 5), top_b + 1):
+                a_lo, nat = min(log_b - g, log_s), log_b - log_e
+                steps = []  # each group of up to log E steps' layout
+                bit = a_lo + g - 1
+                while bit >= a_lo:
+                    steps.append(min(max(bit - log_e + 1, a_lo), nat))
+                    bit = max(steps[-1], a_lo) - 1
+                if not transposed:
+                    assert stride_layouts(wk, payload, log_s, g, log_b,
+                                          False, True) == (steps[0], steps[-1])
+                j_in, j_out = stride_layouts(wk, payload, log_s, g, log_b,
+                                             transposed)
+                for mirror in (False, True):
+                    for j, own, read in ((j_in, steps[0], True),
+                                         (j_out, steps[-1], False)):
+                        count = [_warp_sectors(wk, payload, log_s, g, log_b,
+                                               x, mirror, read and transposed)
+                                 for x in (own, nat)]
+                        assert j == (nat if count[1] < count[0] else own)
+                        picks.add(j == nat and nat != own)
+    assert picks == ({False, True} if wk < 4 or payload else {False})
+
+
+@pytest.mark.parametrize("transposes", [0, 1, 2])
+@pytest.mark.parametrize("payload", [False, True])
+@pytest.mark.parametrize("wk", [1, 2, 4, 7])
+def test_exchange_tiles_plain_is_exchange_stages(wk, payload, transposes):
+    """The card's route in plain PyTorch equals exchange_stages_plain for
+    every kind of plan: runs longer than a pass (cut in two), runs broken
+    by jumps, lone steps, the probes' distances, a mirrored first step or
+    not, blocks wider than the array and a last block cut short, on keys
+    with ties (so that a payload out of place shows)."""
+    rng = np.random.default_rng(9000 + 100 * wk + 10 * transposes + payload)
+    square = 128 * 128
+    cases = [
+        (1 << 15, [1 << 14 >> i for i in range(15)], False),
+        (1 << 15, [1 << 14 >> i for i in range(15)], True),
+        (1 << 15, [128 << i for i in range(6, -1, -1)], True),
+        (1 << 14, [1 << 13, 64, 32, 16, 1], True),
+        (1 << 14, [1], True),
+        (3 << 13, [4096 >> i for i in range(13)], True),
+        (3 << 13, [4096 >> i for i in range(13)], False),
+    ]
+    if not transposes:
+        cases += [(64, [8, 4, 2, 1], True), (8, [2, 1], False),
+                  (1 << 12, [4, 2], True)]
+    for m, dist, mirror in cases:
+        if transposes and m % square:
+            m = square
+        keys = torch.from_numpy(rng.integers(0, 6, (m, wk)))
+        pay = torch.from_numpy(rng.integers(0, 1 << 40, m)) if payload \
+            else None
+        got = exchange_tiles_plain(keys, pay, dist, transposes, mirror)
+        want = exchange_stages_plain(keys, pay, dist, transposes, mirror)
+        assert torch.equal(got[0], want[0]), (m, dist, mirror)
+        assert (got[1] is None) == (not payload)
+        assert not payload or torch.equal(got[1], want[1])
