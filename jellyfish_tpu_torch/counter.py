@@ -16,6 +16,14 @@ the filtered run goes to the store as a counted run (`insert_run`).
 finalize_np() yields the whole table in the reference's dump order
 (ascending (pos, key)). With restrict_to (`count --if`) it yields the
 allowed mers instead, each with its count or 0.
+
+The counter records its own spans in `self.trace` (trace.py), which its
+stores share: `pipeline` around each batch's (or chunk's) pipeline;
+`finalize` around finalize_np, and inside it `finalize.merge` (the
+store's last flush and final merge), `finalize.recover` (the mers out of
+their sortkeys) and one `finalize.to_host` (with its `bytes`) for each
+copy of an output to the host together with its conversion. reset() ends
+a job and appends its summary to `self.trace.jobs`.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from jellyfish_tpu_torch.ops.mers import (
     extract_mers_phased,
 )
 from jellyfish_tpu_torch.store import SortedCountStore
+from jellyfish_tpu_torch.trace import Trace
 
 __all__ = ["MerCounter", "ceil_log2"]
 
@@ -170,8 +179,10 @@ class MerCounter:
             self._A = masks_of_matrix(self.matrix, self.W)
             self._Ainv = inverse_masks_of_matrix(self.matrix, self.W)
         self._pad = mw.pad_key(self.W)
+        self.trace = Trace()
         self.store = SortedCountStore(self.W, self.device, key_bits=c,
-                                      pack_resting=pack_resting)
+                                      pack_resting=pack_resting,
+                                      trace=self.trace)
         self.mer_filter = mer_filter
         self._restrict_store: SortedCountStore | None = None
 
@@ -190,12 +201,14 @@ class MerCounter:
         """B equal-length host-packed chunks (L >= k) -> (premasked
         sortkey columns [B * 16 * Mp, Wk], n_valid scalar) on the
         device."""
-        pw = self._words(pwords)
-        vb = self._words(validbits)
-        L = int(pw.shape[-1]) * 16
-        mers, valid = extract_mers_packed(pw, vb, self.k, L, self.canonical)
-        return _premasked(mers.reshape(-1, self.W), valid.reshape(-1),
-                          self._A, self.k, self.lsize)
+        with self.trace.span("pipeline"):
+            pw = self._words(pwords)
+            vb = self._words(validbits)
+            L = int(pw.shape[-1]) * 16
+            mers, valid = extract_mers_packed(pw, vb, self.k, L,
+                                              self.canonical)
+            return _premasked(mers.reshape(-1, self.W), valid.reshape(-1),
+                              self._A, self.k, self.lsize)
 
     def add_chunks_packed_batch(self, pwords, validbits) -> None:
         """Count the k-mers of B equal-length host-packed chunks:
@@ -234,12 +247,14 @@ class MerCounter:
         if len(chunk_u8) < self.k:
             return
         if self.mer_filter is not None:
-            keys, mers, counts = self.chunk_counts(chunk_u8)
+            with self.trace.span("pipeline"):
+                keys, mers, counts = self.chunk_counts(chunk_u8)
             self.store.insert_run(keys, self.mer_filter(mers, counts))
         else:
-            keys, n_valid = _chunk_pipeline(
-                self._chunk(chunk_u8), self._A, self.k, self.lsize,
-                self.canonical)
+            with self.trace.span("pipeline"):
+                keys, n_valid = _chunk_pipeline(
+                    self._chunk(chunk_u8), self._A, self.k, self.lsize,
+                    self.canonical)
             self.store.insert_raw(keys, n_valid)
 
     def add_mers_np(self, mers_int_iterable, value: int = 1) -> None:
@@ -260,7 +275,8 @@ class MerCounter:
         each with its count, 0 if it was never counted. reset() keeps the
         restriction, so every --disk partial is restricted too."""
         self._restrict_store = SortedCountStore(self.W, self.device,
-                                                key_bits=2 * self.k)
+                                                key_bits=2 * self.k,
+                                                trace=self.trace)
         for chunk_u8 in chunks_iter:
             if len(chunk_u8) < self.k:
                 continue
@@ -270,23 +286,34 @@ class MerCounter:
 
     # -- extraction -----------------------------------------------------------
 
+    def _to_host(self, t, dtype) -> np.ndarray:
+        """A finalize output copied to the host and converted to dtype,
+        as one `finalize.to_host` span."""
+        with self.trace.span("finalize.to_host",
+                             bytes=t.numel() * t.element_size()):
+            return t.cpu().numpy().astype(dtype)
+
     def _corrected(self, store):
         """Finalize `store`: (key columns [n, Wk] on the device, counts [n]
         uint64 on the host), the PAD entry's pad rows removed and the entry
-        dropped if that leaves it at 0."""
-        keys, counts, pads = store.finalize()
-        counts = counts.cpu().numpy().astype(np.uint64)
+        dropped if that leaves it at 0; a dropped entry is not copied."""
+        with self.trace.span("finalize.merge"):
+            keys, counts, pads = store.finalize()
+        pad_count = 0
         if pads and len(counts) and bool((keys[-1] == self._pad).all()):
             # the PAD entry holds the pad rows, plus one real mer if one
             # maps to the PAD key (the sortkey is a bijection)
-            if int(counts[-1]) < pads:
+            pad_count = int(counts[-1])
+            if pad_count < pads:
                 raise AssertionError(
                     "pad accounting mismatch: PAD entry holds "
-                    f"{int(counts[-1])} < {pads} pads"
+                    f"{pad_count} < {pads} pads"
                 )
-            counts[-1] -= np.uint64(pads)
-            if counts[-1] == 0:
+            if pad_count == pads:
                 keys, counts = keys[:-1], counts[:-1]
+        counts = self._to_host(counts, np.uint64)
+        if pad_count > pads:
+            counts[-1] -= np.uint64(pads)
         return keys, counts
 
     def _empty(self):
@@ -294,20 +321,23 @@ class MerCounter:
                 np.zeros(0, dtype=np.uint64))
 
     def _mers_np(self, keys) -> np.ndarray:
-        mers = _recover_mers(keys, self._Ainv, self.k, self.lsize, self.W)
-        return mers.cpu().numpy().astype(np.uint32)
+        with self.trace.span("finalize.recover"):
+            mers = _recover_mers(keys, self._Ainv, self.k, self.lsize,
+                                 self.W)
+        return self._to_host(mers, np.uint32)
 
     def finalize_np(self):
         """Return (mer limbs [n, W] uint32, counts [n] uint64) in hash
         order (the reference's dump order: ascending (pos, key))."""
-        keys, counts = self._corrected(self.store)
-        if self._restrict_store is not None:
-            # before the emptiness check: an empty count still dumps the
-            # allowed mers at 0
-            return self._apply_restriction(keys, counts)
-        if len(counts) == 0:
-            return self._empty()
-        return self._mers_np(keys), counts
+        with self.trace.span("finalize"):
+            keys, counts = self._corrected(self.store)
+            if self._restrict_store is not None:
+                # before the emptiness check: an empty count still dumps
+                # the allowed mers at 0
+                return self._apply_restriction(keys, counts)
+            if len(counts) == 0:
+                return self._empty()
+            return self._mers_np(keys), counts
 
     def _apply_restriction(self, keys, counts):
         """--if output: the allowed mers in their hash order, each with its
@@ -321,8 +351,7 @@ class MerCounter:
         if len(counts):
             def view(cols):
                 limbs = mw.limbs_of_key_columns(cols, self.W)
-                return _sortkey_order_view(
-                    limbs.cpu().numpy().astype(np.uint32))
+                return _sortkey_order_view(self._to_host(limbs, np.uint32))
 
             kv, av = view(keys), view(akeys)
             pos = np.minimum(np.searchsorted(kv, av), len(kv) - 1)
@@ -338,4 +367,7 @@ class MerCounter:
         return mw.to_ints(mers), counts
 
     def reset(self) -> None:
+        """End the job: the store empties and the trace appends the job's
+        summary."""
         self.store.reset()
+        self.trace.end_job()

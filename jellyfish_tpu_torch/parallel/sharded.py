@@ -129,9 +129,9 @@ def _owner_of_sortkeys(keys, k: int, n_shards: int):
 
 class _ShardedStore:
     """The shards' stores, one SortedCountStore on each shard's device:
-    `count --disk` spills on the sum of their bytes and resets them all.
-    With a process group the sum is over every rank's shards (one
-    all_reduce, a collective every rank makes)."""
+    `count --disk` spills on the sum of their bytes. With a process group
+    the sum is over every rank's shards (one all_reduce, a collective
+    every rank makes)."""
 
     def __init__(self, stores, group=None, device=None):
         self.stores = list(stores)
@@ -145,10 +145,6 @@ class _ShardedStore:
         t = torch.tensor([n], dtype=torch.int64, device=self.device)
         dist.all_reduce(t, group=self.group)
         return int(t.item())
-
-    def reset(self) -> None:
-        for s in self.stores:
-            s.reset()
 
 
 class ShardedMerCounter:
@@ -298,7 +294,8 @@ class ShardedMerCounter:
         stores = []
         for s in self.shards:
             s._restrict_store = SortedCountStore(self.W, s.device,
-                                                 key_bits=2 * self.k)
+                                                 key_bits=2 * self.k,
+                                                 trace=s.trace)
             stores.append(s._restrict_store)
         chunks = (c for c in chunks_iter if len(c) >= self.k)
         while True:
@@ -411,10 +408,10 @@ class ShardedMerCounter:
         keys, counts = s._corrected(s.store)
         if len(counts):
             mers = _recover_mers(keys, s._Ainv, self.k, self.lsize, self.W)
-            counts = self.mer_filter(
+            counts = s._to_host(self.mer_filter(
                 mers.to(self.device),
                 torch.from_numpy(counts.astype(np.int64)).to(self.device),
-            ).cpu().numpy().astype(np.uint64)
+            ), np.uint64)
         if s._restrict_store is not None:
             return s._apply_restriction(keys, counts)
         keep = counts > 0
@@ -460,4 +457,7 @@ class ShardedMerCounter:
         return mw.to_ints(mers), counts
 
     def reset(self) -> None:
-        self.store.reset()
+        """End the job on every shard (MerCounter.reset: its store and its
+        trace)."""
+        for s in self.shards:
+            s.reset()

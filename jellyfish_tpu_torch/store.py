@@ -25,7 +25,12 @@ limbs, pow2 sort groups and the asynchronous resolve):
   - with pack_resting (`count --packed-store`), a run that a merge puts at
     level >= 2 and the resting run are held bit-packed
     (ops/packed_run.py) and unpacked when a merge or a finalize takes
-    them, as in the JAX package.
+    them, as in the JAX package;
+  - each grain is a `store.grain` span of its owner's trace (rows_in raw
+    rows, rows_out rows put into level 0) and each merge of two or more
+    runs a `store.merge` span (rows_in the rows of every pairwise K1
+    merge's two inputs, rows_out the merged run's rows); a store made
+    without a trace records nothing.
 
 Every run is exact: sorted, each key once, its count beside it, no PAD
 rows except the one PAD entry whose count is the number of pad rows
@@ -43,6 +48,7 @@ from jellyfish_tpu_torch.kernels.merge_path import merge_path
 from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.count import consolidate_premasked, fold_adjacent
 from jellyfish_tpu_torch.ops.packed_run import PackedRun, pack_run, unpack_run
+from jellyfish_tpu_torch.trace import OFF
 
 __all__ = ["SortedCountStore"]
 
@@ -62,14 +68,17 @@ class SortedCountStore:
     """Grain-consolidating count store (see module docstring).
 
     W is the limb count of the keys (store key columns as in
-    ops/multiword.key_columns). pack_resting needs key_bits (2k)."""
+    ops/multiword.key_columns). pack_resting needs key_bits (2k). `trace`
+    is the owner's trace.Trace (MerCounter.trace)."""
 
     def __init__(self, W: int, device, branch: int = 8,
                  consolidate_rows: int | None = None,
-                 key_bits: int | None = None, pack_resting: bool = False):
+                 key_bits: int | None = None, pack_resting: bool = False,
+                 trace=None):
         if pack_resting and key_bits is None:
             raise ValueError("pack_resting needs key_bits")
         self.W = W
+        self.trace = OFF if trace is None else trace
         self.key_bits = key_bits
         self.pack_resting = bool(pack_resting)
         self.packed = 0  # runs packed since construction
@@ -133,13 +142,16 @@ class SortedCountStore:
         that every row ingested so far sits in a compacted run."""
         if not self.raw:
             return
+        rows = self.raw_rows
         runs, self.raw, self.raw_rows = self.raw, [], 0
         self._cold = False
-        keys = runs[0] if len(runs) == 1 else torch.cat(runs)
-        del runs
-        s, c = consolidate_premasked(keys)
-        del keys
-        k2, c2, _ = compact(s, c)
+        with self.trace.span("store.grain", rows_in=rows) as span:
+            keys = runs[0] if len(runs) == 1 else torch.cat(runs)
+            del runs
+            s, c = consolidate_premasked(keys)
+            del keys
+            k2, c2, _ = compact(s, c)
+            span.add("rows_out", k2.shape[0])
         self.levels[0].append((k2, c2))
         self._maybe_merge()
 
@@ -179,20 +191,24 @@ class SortedCountStore:
         self.packed += 1
         return pack_run(keys, counts, self.key_bits)
 
-    @staticmethod
-    def _merge(runs):
+    def _merge(self, runs):
         """Merge exact runs pairwise into one exact run."""
-        while len(runs) > 1:
-            nxt = []
-            for i in range(0, len(runs) - 1, 2):
-                (ak, ac), (bk, bc) = runs[i], runs[i + 1]
-                keys, counts = merge_path(ak, ac, bk, bc)
-                counts = fold_adjacent(keys, counts)
-                k2, c2, _ = compact(keys, counts)
-                nxt.append((k2, c2))
-            if len(runs) % 2:
-                nxt.append(runs[-1])
-            runs = nxt
+        if len(runs) == 1:
+            return runs[0]
+        with self.trace.span("store.merge") as span:
+            while len(runs) > 1:
+                nxt = []
+                for i in range(0, len(runs) - 1, 2):
+                    (ak, ac), (bk, bc) = runs[i], runs[i + 1]
+                    span.add("rows_in", ak.shape[0] + bk.shape[0])
+                    keys, counts = merge_path(ak, ac, bk, bc)
+                    counts = fold_adjacent(keys, counts)
+                    k2, c2, _ = compact(keys, counts)
+                    nxt.append((k2, c2))
+                if len(runs) % 2:
+                    nxt.append(runs[-1])
+                runs = nxt
+            span.add("rows_out", runs[0][0].shape[0])
         return runs[0]
 
     # -- inspection -----------------------------------------------------------

@@ -1,0 +1,25 @@
+"""Host seconds a job spends in the program's finalize.to_host spans
+(jellyfish_tpu_torch/trace.py): from launching each copy of the table out
+of the device until its host array has the output dtype, the wait for
+device work queued before the copy included. Read from the program's own
+summaries of the window's untraced jobs (the warm-up job left out), the
+median over them; a program without `counter.trace` gives nothing."""
+
+from statistics import median
+
+SPANS = []
+
+
+def _jobs(counter):
+    trace = getattr(counter, "trace", None)
+    return None if trace is None else list(trace.jobs)
+
+
+COUNTERS = {"program.jobs": _jobs}
+
+
+def read(record):
+    jobs = (record.get("counters") or {}).get("program.jobs") or []
+    per_job = [j["finalize.to_host"]["host_ns"] / 1e9 for j in jobs[1:]
+               if "finalize.to_host" in j]
+    return median(per_job) if per_job else None
