@@ -4,7 +4,7 @@
 
 Builds the CUDA kernels from jellyfish_tpu_torch/csrc (K1 merge_path.cu,
 K2 compact.cu, K3 bitonic.cu, rows 9 and 10 window.cu, the Bloom insert's
-radix sort radix.cu), and beside them
+radix sort radix.cu, the fused chunk pipeline sortkeys.cu), and beside them
 the native host library (jellyfish_tpu_torch/native/chunker.cpp), and
 holds each kernel's entry point against its plain PyTorch version at the
 shapes its path gives it and at the Pallas kernels' own shapes (rows 7,
@@ -15,7 +15,12 @@ each, and at their edges with flip (exchange_tiles_edges), and row 9's
 windows inside and across either end of a run at odd and even offsets;
 K1's merge_pass and its partition pass (merge_splits) at every key width,
 keys only and with a payload, in runs of 1, 2,048, 2^16 and 2^22 rows,
-and timed at the k = 63 grain's passes. Kernel times are device times
+and timed at the k = 63 grain's passes; the fused chunk pipeline
+(phase_sortkeys) bit for bit against its plain route at the count's batch
+of 8 chunks of 2^20 bases (k = 21 canonical and hashed, k = 1, 17 and 32
+not canonical under the identity hash, k = 32 under a 40-bit hash; int32
+and int64 words), timed there, and launched once a batch by the
+full-size k = 21 count and never at k = 63 or 127. Kernel times are device times
 (cuda_ms); K2's keep mask, whose call waits on the host, by the profiler. Runs `count` end to end through
 the CLI at k = 21, 33, 63 and 100 with every record checked against a
 numpy oracle; merges 4 parts of the k = 63 input in small windows (every
@@ -378,6 +383,7 @@ def _wrappers() -> dict:
         merge_splits,
     )
     from jellyfish_tpu_torch.kernels.radix import radix_sort_pairs
+    from jellyfish_tpu_torch.kernels.sortkeys import sortkeys
     from jellyfish_tpu_torch.kernels.window import roll_lanes, window_rows
 
     return {"merge_path": merge_path, "merge_pass": merge_pass,
@@ -386,7 +392,7 @@ def _wrappers() -> dict:
             "block_merge": block_merge,
             "exchange_stages": exchange_stages, "flip": flip,
             "window_rows": window_rows, "roll_lanes": roll_lanes,
-            "radix_sort_pairs": radix_sort_pairs}
+            "radix_sort_pairs": radix_sort_pairs, "sortkeys": sortkeys}
 
 
 def kernel_counts() -> dict:
@@ -1911,6 +1917,94 @@ def phase_radix(dev):
     del k, p
     torch.cuda.empty_cache()
     return dict(holds=len(edges))
+
+
+SORTKEYS_CASES = ((21, 27, True), (1, 0, False), (17, 0, False),
+                  (32, 0, False), (32, 40, True), (21, 27, False))
+
+
+def phase_sortkeys(dev):
+    """The fused chunk pipeline (kernels/sortkeys.py, csrc/sortkeys.cu)
+    held bit for bit against its plain route at the count's batch shape:
+    BATCH chunks of CHUNK_LEN bases of 150-base reads, with runs of N at
+    the start, the middle and the end and 32 T's (whose key at k = 32
+    under the identity hash is the PAD key). Cases (k, lsize, canonical),
+    lsize 0 the identity hash: k = 21 canonical under the hash of -s 100M
+    (lsize 27), k = 1, 17 and 32 not canonical under the identity hash,
+    k = 32 canonical under a 40-bit hash (64-bit table entries) and k = 21
+    not canonical; each on numpy's words as int32 and, for k = 21, the
+    same words as int64 values. Then at k = 21 canonical: the kernel's
+    time beside its bound (the input's and the output's bytes) and the
+    plain route's, and MerCounter.packed_sortkeys of the host's words (the
+    count's entry, its two copies to the card included). Returns the
+    kernel table's row."""
+    from jellyfish_tpu_torch.counter import MerCounter
+    from jellyfish_tpu_torch.gf2 import GF2Matrix
+    from jellyfish_tpu_torch.io.parse import pack_chunk
+    from jellyfish_tpu_torch.kernels.sortkeys import (
+        hash_tables,
+        sortkeys,
+        sortkeys_plain,
+    )
+    from jellyfish_tpu_torch.ops.hashing import masks_of_matrix
+    from jellyfish_tpu_torch.ops.multiword import PAD_PACKED, nwords
+
+    chunks = synth_chunks(BATCH, CHUNK_LEN, seed=2323)
+    chunks[0, :3] = ord("N")
+    chunks[1, CHUNK_LEN // 2:CHUNK_LEN // 2 + 40] = ord("N")
+    chunks[2, -5:] = ord("N")
+    chunks[3, 1000:1032] = ord("T")
+    packed = [pack_chunk(c) for c in chunks]
+    host = [np.stack([p[j] for p in packed]) for j in (0, 1)]
+    pw, vb = (torch.from_numpy(h.view(np.int32)).to(dev) for h in host)
+    pw64, vb64 = (torch.from_numpy(h.astype(np.int64)).to(dev) for h in host)
+    row = None
+    for k, lsize, canonical in SORTKEYS_CASES:
+        c = 2 * k
+        masks = (masks_of_matrix(GF2Matrix.random_invertible(
+            lsize, c, np.random.default_rng(k)), nwords(c)) if lsize
+            else None)
+        tables = hash_tables(masks, k, dev)
+        args = (k, lsize or c, canonical, masks)
+        label = (f"sortkeys k = {k}, canonical {canonical}, "
+                 f"{f'lsize {lsize}' if lsize else 'identity'}, "
+                 f"{BATCH} x {CHUNK_LEN} bases")
+        before = sortkeys.launches
+        keys, n_valid = sortkeys(pw, vb, *args, tables)
+        torch.cuda.synchronize()
+        if sortkeys.launches != before + 1:
+            raise AssertionError(f"{label}: not one launch a call")
+        if k == 32 and not lsize:
+            pads = int((keys == PAD_PACKED).sum())
+            if pads <= keys.shape[0] - int(n_valid):
+                raise AssertionError(f"{label}: no real key on the PAD key")
+        del keys, n_valid
+        timed = k == 21 and canonical
+        nbytes = (8 * BATCH * 16 * ((CHUNK_LEN - k) // 16 + 1)
+                  + 4 * (pw.numel() + vb.numel()))
+        got = hold(label, lambda: sortkeys(pw, vb, *args, tables),
+                   lambda: sortkeys_plain(pw, vb, *args),
+                   nbytes=nbytes if timed else None)
+        if k == 21:
+            hold(f"{label}, int64 words",
+                 lambda: sortkeys(pw64, vb64, *args, tables),
+                 lambda: sortkeys_plain(pw, vb, *args))
+        if timed:
+            row = dict(name="sortkeys", route="cuda",
+                       source="jellyfish_tpu_torch/csrc/sortkeys.cu",
+                       replaces="jellyfish_tpu/counter.py:75 "
+                       "_chunk_pipeline_packed_batch (XLA-fused; no "
+                       "Pallas kernel)", **got)
+    counter = MerCounter(21, 100_000_000, canonical=True,
+                         rng=np.random.default_rng(21), device=dev)
+    row["counter_ms"] = cuda_ms(
+        lambda: counter.packed_sortkeys(host[0], host[1]))
+    row["launches_per_batch"] = 1
+    log(f"  sortkeys: MerCounter.packed_sortkeys of the host's words "
+        f"{row['counter_ms']:.4f} ms a batch")
+    del pw, vb, pw64, vb64, counter
+    torch.cuda.empty_cache()
+    return {"sortkeys": row}
 
 
 def phase_cli(tmp, k, n_bases, genome_len, seed, need, read_len=150):
@@ -4199,7 +4293,7 @@ def main() -> int:
     with ThreadPoolExecutor(1) as pool:
         host_lib = pool.submit(native.get_lib)
         _build.build(["merge_path", "compact", "bitonic", "window",
-                      "radix"])
+                      "radix", "sortkeys"])
         if host_lib.result() is None:
             raise AssertionError(f"the native host library did not build: "
                                  f"{native.build_error()}")
@@ -4210,6 +4304,7 @@ def main() -> int:
     ptxas_report("window")
     ptxas_report("compact")
     ptxas_report("radix")
+    ptxas_report("sortkeys")
 
     lap("kernels")
     rows = phase_kernels(dev)
@@ -4224,6 +4319,8 @@ def main() -> int:
     rows.update(win_rows)
     lap("radix")
     radix_table = phase_radix(dev)
+    lap("sortkeys")
+    rows.update(phase_sortkeys(dev))
     with tempfile.TemporaryDirectory() as tmp:
         lap("cli")
         seq21 = phase_cli(tmp, 21, 32_000_000, 4_000_000, seed=21,
@@ -4288,7 +4385,8 @@ def main() -> int:
         # and roll_lanes the full-size merge's; the wide instances' rows
         # the k = 127 count's, the keep mask's the k = 127 CLI merge's.
         # flip lies on no path and reports the bc's 0
-        path = {"merge_path": 21, "compact": 21, "block_sort": 63,
+        path = {"sortkeys": 21, "merge_path": 21, "compact": 21,
+                "block_sort": 63,
                 "merge_pass": 63, "merge_splits": 63,
                 "block_sort_wide": 127, "merge_pass_wide": 127,
                 "merge_pass_wide_later": 127,
@@ -4312,12 +4410,18 @@ def main() -> int:
                    "exchange_stages_mirror": "exchange_stages.mirror"}
         full, launches, tables = {}, {"merge127": merge127_launches}, {}
         for k in K_FULL:
+            # the fused pipeline takes keys of one column (2k <= 64)
             need = ([n for n, run in path.items()
-                     if run in (21, 63) and (k == 63 or run == k)]
+                     if run in (21, 63) and (k == 63 or run == k)
+                     and (k == 21 or n != "sortkeys")]
                     if k < 127 else WIDE_NEED)
             launches[k], full[k], tables[k] = phase_full(
                 k, chunks, staged, need, compare_lsd=k == 63)
             torch.cuda.empty_cache()
+        fused = {k: launches[k]["sortkeys"] for k in K_FULL}
+        if fused != {21: CHUNKS // BATCH, 63: 0, 127: 0}:
+            raise AssertionError(f"sortkeys launches by k: {fused}, not one "
+                                 "a batch at k = 21 and none above 32")
         del tables[127]  # later phases take the k = 21 and 63 tables
         table = tables[21]
         mode_launches, modes = {}, {}

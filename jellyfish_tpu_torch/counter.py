@@ -1,12 +1,16 @@
 """The k-mer counting engine on the GPU (the counterpart of
 jellyfish_tpu/counter.py).
 
-Per batch of host-packed chunks, or per ASCII chunk, plain PyTorch on the
-device:
+Per batch of host-packed chunks, or per ASCII chunk:
 
     2-bit codes + validity bitstream (or ASCII -> codes) -> phase-major
-    window extraction -> canonical fold -> GF(2) hash (AND + XOR-fold
-    parity) -> hash-order sortkeys as store key columns, premasked to PAD
+    window extraction -> canonical fold -> GF(2) hash -> hash-order
+    sortkeys as store key columns, premasked to PAD
+
+A batch of packed chunks with keys of one packed column (2k <= 64) runs
+on the card as one kernel (kernels/sortkeys.py); longer keys, ASCII
+chunks and CPU tensors run it in plain PyTorch (the hash as AND +
+XOR-fold parity).
 
 No per-batch sort: raw runs accumulate in SortedCountStore, whose grain
 consolidations and merges run the hand-written kernels. With a mer filter
@@ -18,7 +22,8 @@ finalize_np() yields the whole table in the reference's dump order
 allowed mers instead, each with its count or 0.
 
 The counter records its own spans in `self.trace` (trace.py), which its
-stores share: `pipeline` around each batch's (or chunk's) pipeline;
+stores share: `pipeline` around each batch's (or chunk's) pipeline
+(a packed batch's with its `rows` and the kernel's `fused_rows`);
 `finalize` around finalize_np, and inside it `finalize.merge` (the
 store's last flush and final merge), `finalize.recover` (the mers out of
 their sortkeys) and one `finalize.to_host` (with its `bytes`) for each
@@ -34,6 +39,12 @@ import torch
 from jellyfish_tpu_torch.device import resolve_device
 from jellyfish_tpu_torch.gf2 import GF2Matrix
 from jellyfish_tpu_torch.kernels.merge_path import MAX_KEY_COLS
+from jellyfish_tpu_torch.kernels.sortkeys import (
+    hash_tables,
+    premasked,
+    sortkeys,
+    sortkeys_plain,
+)
 from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.hashing import (
     inverse_masks_of_matrix,
@@ -42,11 +53,7 @@ from jellyfish_tpu_torch.ops.hashing import (
     sortkey_of_mers,
 )
 from jellyfish_tpu_torch.ops.count import consolidate_premasked
-from jellyfish_tpu_torch.ops.mers import (
-    encode_codes,
-    extract_mers_packed,
-    extract_mers_phased,
-)
+from jellyfish_tpu_torch.ops.mers import encode_codes, extract_mers_phased
 from jellyfish_tpu_torch.store import SortedCountStore
 from jellyfish_tpu_torch.trace import Trace
 
@@ -57,20 +64,11 @@ def ceil_log2(x: int) -> int:
     return max(0, (int(x) - 1).bit_length())
 
 
-def _premasked(mers, valid, masks, k, lsize):
-    """Mers [N, W] -> (sortkey columns [N, Wk], invalid windows carrying
-    the PAD key; the valid count, a device scalar)."""
-    sk = sortkey_of_mers(mers, masks, k, lsize)
-    cols = torch.where(valid[:, None], mw.key_columns(sk),
-                       mw.pad_key(sk.shape[-1]))
-    return cols.contiguous(), valid.sum()
-
-
 def _chunk_pipeline(chunk_u8, masks, k, lsize, canonical):
     """ASCII chunk [L] uint8 -> (premasked sortkey columns [16*Mp, Wk],
     n_valid scalar)."""
     mers, valid = extract_mers_phased(encode_codes(chunk_u8), k, canonical)
-    return _premasked(mers, valid, masks, k, lsize)
+    return premasked(mers, valid, masks, k, lsize)
 
 
 def _dedup(sk, n_valid):
@@ -178,6 +176,10 @@ class MerCounter:
         else:
             self._A = masks_of_matrix(self.matrix, self.W)
             self._Ainv = inverse_masks_of_matrix(self.matrix, self.W)
+        # the fused pipeline's hash tables (2k <= 64, on the card)
+        self._tables = (hash_tables(self._A, self.k, self.device)
+                        if mw.packs(self.W) and self.device.type == "cuda"
+                        else None)
         self._pad = mw.pad_key(self.W)
         self.trace = Trace()
         self.store = SortedCountStore(self.W, self.device, key_bits=c,
@@ -189,26 +191,32 @@ class MerCounter:
     # -- ingestion ------------------------------------------------------------
 
     def _words(self, x) -> torch.Tensor:
-        """Packed 32-bit words (numpy uint32, or a tensor of int64 word
-        values) -> int64 tensor on the device, values 0 .. 2^32-1."""
+        """Packed 32-bit words (numpy uint32, or a tensor of int32 bit
+        patterns or int64 word values) -> a tensor on the device: numpy's
+        words as int32 bit patterns, copied as they are."""
         if isinstance(x, torch.Tensor):
-            return x.to(device=self.device, dtype=torch.int64)
+            return x.to(self.device)
         x = np.ascontiguousarray(x, dtype=np.uint32).view(np.int32)
-        t = torch.from_numpy(x).to(self.device)
-        return t.to(torch.int64) & mw.M32
+        return torch.from_numpy(x).to(self.device)
 
     def packed_sortkeys(self, pwords, validbits):
         """B equal-length host-packed chunks (L >= k) -> (premasked
-        sortkey columns [B * 16 * Mp, Wk], n_valid scalar) on the
-        device."""
-        with self.trace.span("pipeline"):
+        sortkey columns [B * 16 * Mp, Wk], n_valid scalar) on the device:
+        one kernel on the card for keys of one packed column (2k <= 64),
+        the plain pipeline otherwise. The `pipeline` span counts the rows
+        (`rows`) and those the kernel wrote (`fused_rows`)."""
+        with self.trace.span("pipeline") as span:
             pw = self._words(pwords)
             vb = self._words(validbits)
-            L = int(pw.shape[-1]) * 16
-            mers, valid = extract_mers_packed(pw, vb, self.k, L,
-                                              self.canonical)
-            return _premasked(mers.reshape(-1, self.W), valid.reshape(-1),
-                              self._A, self.k, self.lsize)
+            args = (self.k, self.lsize, self.canonical, self._A)
+            if mw.packs(self.W):
+                keys, n_valid = sortkeys(pw, vb, *args, self._tables)
+            else:
+                keys, n_valid = sortkeys_plain(pw, vb, *args)
+            fused = mw.packs(self.W) and keys.is_cuda
+            span.add("rows", keys.shape[0])
+            span.add("fused_rows", keys.shape[0] if fused else 0)
+            return keys, n_valid
 
     def add_chunks_packed_batch(self, pwords, validbits) -> None:
         """Count the k-mers of B equal-length host-packed chunks:

@@ -36,7 +36,10 @@ cells, 10 hashes) of 889,077 seeded mers, 8,890,770 probe pairs as chunk
 torch.profiler (an insert waits on the host). The "radix" case times the
 insert's sort alone, `radix_sort_pairs` of 8,890,770 seeded pairs below
 2^30 (a tree whose csrc/ holds only radix.cu serves: a variant of that
-kernel). The wide cases (labels
+kernel). The "pipeline" cases time the count's chunk pipeline,
+MerCounter.packed_sortkeys of one batch (8 chunks of 2^20 bases, k = 21,
+-C, -s 100M), from numpy's words on the host and from int64 words on the
+card, each also split by torch.profiler into its kernels. The wide cases (labels
 from "wide", keys above 7 columns) time the grain sort of k = 127 (2^26
 rows of Wk 8, keys only) at 40% and at 84% PAD rows (the share of a
 full-size k = 127 count): K3's block_sort, K1's merge_pass on its first
@@ -65,7 +68,7 @@ time less the sum of its device rows.
 With --only, only the cases whose label starts with PREFIX run (and only
 their inputs are made: `--only wide` makes none of the narrow cases',
 `--only bloom` and `--only radix` only the insert's, `--only 'row '` only
-rows 7-12's).
+rows 7-12's, `--only pipeline` only the chunk pipeline's).
 
 Prints one JSON line a run, then the card's name and power limit (nvidia-smi)
 and a JSON object of each case's times (ms a call; a window for row 9), one
@@ -99,7 +102,8 @@ PROFILED = {"K2": ("compact_", "kernels", True),
             "wide sort_rows_blocked": ("splits_kernel",
                                        "merge_splits kernels", False),
             "wide K1 merge_path": ("", "kernels", True),
-            "row ": ("", "kernels", True)}
+            "row ": ("", "kernels", True),
+            "pipeline": ("::", "kernels", True)}
 
 
 def _smoke():
@@ -128,6 +132,8 @@ def cases(dev, only=""):
         return bloom_cases(dev)
     if only.startswith("radix"):
         return radix_cases(dev)
+    if only.startswith("pipeline"):
+        return pipeline_cases(dev)
     cycle = _smoke()._cycle
     g = torch.Generator(device=dev).manual_seed(88)
 
@@ -163,7 +169,7 @@ def cases(dev, only=""):
     out.append(("the pair sort, one insert's 8,890,770 pairs",
                 lambda: sort_pairs_bitonic(pairs, wb), 1))
     out += merge_cases(dev, g, ints)
-    return out + bloom_cases(dev) + radix_cases(dev)
+    return out + bloom_cases(dev) + radix_cases(dev) + pipeline_cases(dev)
 
 
 def window_cases(dev, ints):
@@ -274,6 +280,36 @@ def radix_cases(dev):
     pay = torch.randint(0, 3, (INSERT_PAIRS,), device=dev, generator=g)
     return [(f"radix_sort_pairs, {INSERT_PAIRS:,} pairs below 2^30",
              lambda: radix_sort_pairs(keys, pay, 30), 1)]
+
+
+def pipeline_cases(dev):
+    """The count's chunk pipeline at its batch: MerCounter.packed_sortkeys
+    of 8 chunks of 2^20 bases of 150-base reads (k = 21, -C, -s 100M),
+    from numpy's uint32 words on the host (the count's input: two copies
+    to the card a call) and from int64 words already on the card."""
+    import numpy as np
+    import torch
+
+    from jellyfish_tpu_torch.counter import MerCounter
+
+    chunks = _smoke().synth_chunks(8, 1 << 20, seed=2323)
+    t = (chunks >> 1) & 3
+    codes = (t ^ (t >> 1)).astype(np.uint32)
+    pw = (codes.reshape(8, -1, 16)
+          << (2 * (15 - np.arange(16, dtype=np.uint32)))).sum(
+              axis=2, dtype=np.uint32)
+    ok = np.isin(chunks | 0x20, np.frombuffer(b"acgt", np.uint8))
+    vb = (ok.astype(np.uint32).reshape(8, -1, 32)
+          << np.arange(32, dtype=np.uint32)).sum(axis=2, dtype=np.uint32)
+    counter = MerCounter(21, 100_000_000, canonical=True,
+                         rng=np.random.default_rng(21), device=dev)
+    pw64, vb64 = (torch.from_numpy(x.astype(np.int64)).to(dev)
+                  for x in (pw, vb))
+    label = "pipeline k = 21 -C -s 100M, 8 x 2^20 bases"
+    return [(f"{label}, host words",
+             lambda: counter.packed_sortkeys(pw, vb), 1),
+            (f"{label}, int64 words on the card",
+             lambda: counter.packed_sortkeys(pw64, vb64), 1)]
 
 
 def bloom_cases(dev):
