@@ -25,10 +25,11 @@ The counter records its own spans in `self.trace` (trace.py), which its
 stores share: `pipeline` around each batch's (or chunk's) pipeline
 (a packed batch's with its `rows` and the kernel's `fused_rows`);
 `finalize` around finalize_np, and inside it `finalize.merge` (the
-store's last flush and final merge), `finalize.recover` (the mers out of
-their sortkeys) and one `finalize.to_host` (with its `bytes`) for each
-copy of an output to the host together with its conversion. reset() ends
-a job and appends its summary to `self.trace.jobs`.
+store's last flush and final merge, with the `pads` it returns),
+`finalize.recover` (the mers out of their sortkeys) and one
+`finalize.to_host` (with its `bytes`) for each copy of an output to the
+host together with its conversion. reset() ends a job and appends its
+summary to `self.trace.jobs`.
 """
 
 from __future__ import annotations
@@ -305,8 +306,9 @@ class MerCounter:
         """Finalize `store`: (key columns [n, Wk] on the device, counts [n]
         uint64 on the host), the PAD entry's pad rows removed and the entry
         dropped if that leaves it at 0; a dropped entry is not copied."""
-        with self.trace.span("finalize.merge"):
+        with self.trace.span("finalize.merge") as span:
             keys, counts, pads = store.finalize()
+            span.add("pads", pads)
         pad_count = 0
         if pads and len(counts) and bool((keys[-1] == self._pad).all()):
             # the PAD entry holds the pad rows, plus one real mer if one

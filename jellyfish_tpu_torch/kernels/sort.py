@@ -34,7 +34,16 @@ from jellyfish_tpu_torch.kernels.bitonic import (
 )
 from jellyfish_tpu_torch.kernels.merge_path import merge_pass
 
-__all__ = ["sort_rows_blocked", "sort_pairs_bitonic", "sort_pairs_plain"]
+__all__ = ["sort_rows_blocked", "merge_passes", "sort_pairs_bitonic",
+           "sort_pairs_plain"]
+
+
+def merge_passes(m: int, wk: int, tile=None) -> int:
+    """The merge passes sort_rows_blocked makes over m rows of wk key
+    columns in tiles of `tile` rows (default: the keys-only tile),
+    ceil(log2(m / tile)); 0 where one tile holds them."""
+    tile = tile or tile_rows(wk, False)
+    return ((m - 1) // tile).bit_length() if m > 0 else 0
 
 
 def sort_rows_blocked(keys, payload=None, tile=None):
@@ -50,10 +59,8 @@ def sort_rows_blocked(keys, payload=None, tile=None):
     m, wk = keys.shape
     tile = tile or tile_rows(wk, payload is not None)
     keys, payload = block_sort(keys, payload, tile)
-    run = tile
-    while run < m:
-        keys, payload = merge_pass(keys, run, payload)
-        run *= 2
+    for p in range(merge_passes(m, wk, tile=tile)):
+        keys, payload = merge_pass(keys, tile << p, payload)
     return keys, payload
 
 

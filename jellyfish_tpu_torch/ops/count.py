@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["row_order", "sort_rows", "sort_rows_plain",
-           "consolidate_premasked", "fold_adjacent"]
+__all__ = ["row_order", "sort_rows", "sort_rows_plain", "sort_passes",
+           "segment_counts", "consolidate_premasked", "fold_adjacent"]
 
 
 def row_order(keys, payload=None):
@@ -53,6 +53,17 @@ def sort_rows(keys):
     return sort_rows_blocked(keys.contiguous())[0]
 
 
+def sort_passes(m: int, wk: int) -> int:
+    """The merge passes sort_rows makes over m rows of wk key columns: 0
+    for the one torch.sort of a packed column, else those of
+    kernels/sort.sort_rows_blocked."""
+    if wk == 1:
+        return 0
+    from jellyfish_tpu_torch.kernels.sort import merge_passes
+
+    return merge_passes(m, wk)
+
+
 def _row_changes(keys):
     """[M-1] bool: row i+1 differs from row i."""
     return (keys[1:] != keys[:-1]).any(dim=1)
@@ -69,6 +80,12 @@ def consolidate_premasked(keys):
     Returns (sorted keys [M, Wk], counts [M] int64) masked: each segment's
     length sits on its LAST row, every other row has count 0."""
     s = sort_rows(keys)
+    return s, segment_counts(s)
+
+
+def segment_counts(s):
+    """Sorted keys [M, Wk] -> counts [M] int64 masked: each run of equal
+    rows' length on its LAST row, 0 on every other row."""
     M = s.shape[0]
     is_last = torch.ones(M, dtype=torch.bool, device=s.device)
     is_last[:-1] = _row_changes(s)
@@ -76,7 +93,7 @@ def consolidate_premasked(keys):
     ends = torch.nonzero(is_last).squeeze(1)
     counts = torch.zeros(M, dtype=torch.int64, device=s.device)
     counts[ends] = torch.diff(ends, prepend=ends.new_full((1,), -1))
-    return s, counts
+    return counts
 
 
 def fold_adjacent(keys, counts):

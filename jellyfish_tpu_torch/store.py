@@ -27,9 +27,11 @@ limbs, pow2 sort groups and the asynchronous resolve):
     (ops/packed_run.py) and unpacked when a merge or a finalize takes
     them, as in the JAX package;
   - each grain is a `store.grain` span of its owner's trace (rows_in raw
-    rows, rows_out rows put into level 0) and each merge of two or more
-    runs a `store.merge` span (rows_in the rows of every pairwise K1
-    merge's two inputs, rows_out the merged run's rows); a store made
+    rows, rows_out rows put into level 0), its sort inside it a
+    `store.sort` span (rows, cols the key columns Wk, passes the merge
+    passes of the blocked sort, 0 for torch.sort), and each merge of two
+    or more runs a `store.merge` span (rows_in the rows of every pairwise
+    K1 merge's two inputs, rows_out the merged run's rows); a store made
     without a trace records nothing.
 
 Every run is exact: sorted, each key once, its count beside it, no PAD
@@ -46,7 +48,8 @@ import torch
 from jellyfish_tpu_torch.kernels.compact import compact
 from jellyfish_tpu_torch.kernels.merge_path import merge_path
 from jellyfish_tpu_torch.ops import multiword as mw
-from jellyfish_tpu_torch.ops.count import consolidate_premasked, fold_adjacent
+from jellyfish_tpu_torch.ops import count as count_ops
+from jellyfish_tpu_torch.ops.count import fold_adjacent
 from jellyfish_tpu_torch.ops.packed_run import PackedRun, pack_run, unpack_run
 from jellyfish_tpu_torch.trace import OFF
 
@@ -148,9 +151,14 @@ class SortedCountStore:
         with self.trace.span("store.grain", rows_in=rows) as span:
             keys = runs[0] if len(runs) == 1 else torch.cat(runs)
             del runs
-            s, c = consolidate_premasked(keys)
+            wk = keys.shape[1]
+            with self.trace.span("store.sort", rows=rows, cols=wk,
+                                 passes=count_ops.sort_passes(rows, wk)):
+                # through the module: a wrapper put on ops.count.sort_rows
+                # sees the grain's sort
+                s = count_ops.sort_rows(keys)
             del keys
-            k2, c2, _ = compact(s, c)
+            k2, c2, _ = compact(s, count_ops.segment_counts(s))
             span.add("rows_out", k2.shape[0])
         self.levels[0].append((k2, c2))
         self._maybe_merge()

@@ -56,13 +56,15 @@ def test_span_tree_of_a_job():
     _feed(c, _chunks(5))
     c.store.flush()
     assert _tree(c.trace) == {("pipeline", None), ("store.grain", None),
+                              ("store.sort", "store.grain"),
                               ("store.merge", None)}
     _feed(c, _chunks(6, 3))  # a backlog that finalize's flush takes
     c.finalize_np()
     assert _tree(c.trace) == {
         ("pipeline", None), ("store.grain", None), ("store.merge", None),
         ("finalize", None), ("finalize.merge", "finalize"),
-        ("store.grain", "finalize.merge"), ("store.merge", "finalize.merge"),
+        ("store.grain", "finalize.merge"), ("store.sort", "store.grain"),
+        ("store.merge", "finalize.merge"),
         ("finalize.recover", "finalize"), ("finalize.to_host", "finalize")}
     for s in c.trace.spans:
         assert 0 < s.start_ns <= s.end_ns
