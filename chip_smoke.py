@@ -16,11 +16,13 @@ windows inside and across either end of a run at odd and even offsets;
 K1's merge_pass and its partition pass (merge_splits) at every key width,
 keys only and with a payload, in runs of 1, 2,048, 2^16 and 2^22 rows,
 and timed at the k = 63 grain's passes; the fused chunk pipeline
-(phase_sortkeys) bit for bit against its plain route at the count's batch
-of 8 chunks of 2^20 bases (k = 21 canonical and hashed, k = 1, 17 and 32
-not canonical under the identity hash, k = 32 under a 40-bit hash; int32
-and int64 words), timed there, and launched once a batch by the
-full-size k = 21 count and never at k = 63 or 127. Kernel times are device times
+(phase_sortkeys, both its kernels) bit for bit against its plain route
+at the count's batch of 8 chunks of 2^20 bases (k = 21 canonical and
+hashed, k = 1, 17 and 32 not canonical under the identity hash, k = 32
+under a 40-bit hash; the limb keys at k = 55 canonical and hashed, k = 64
+with its PAD preimage and k = 33; int32 and int64 words), timed there at
+k = 21 and 55, and launched once a batch by the full-size k = 21 and 63
+counts and never at k = 127. Kernel times are device times
 (cuda_ms); K2's keep mask, whose call waits on the host, by the profiler. Runs `count` end to end through
 the CLI at k = 21, 33, 63 and 100 with every record checked against a
 numpy oracle; merges 4 parts of the k = 63 input in small windows (every
@@ -1920,24 +1922,28 @@ def phase_radix(dev):
 
 
 SORTKEYS_CASES = ((21, 27, True), (1, 0, False), (17, 0, False),
-                  (32, 0, False), (32, 40, True), (21, 27, False))
+                  (32, 0, False), (32, 40, True), (21, 27, False),
+                  (55, 27, True), (64, 40, False), (33, 27, False))
 
 
 def phase_sortkeys(dev):
-    """The fused chunk pipeline (kernels/sortkeys.py, csrc/sortkeys.cu)
-    held bit for bit against its plain route at the count's batch shape:
-    BATCH chunks of CHUNK_LEN bases of 150-base reads, with runs of N at
-    the start, the middle and the end and 32 T's (whose key at k = 32
+    """The fused chunk pipeline (kernels/sortkeys.py, csrc/sortkeys.cu), both
+    kernels, held bit for bit against its plain route at the count's batch
+    shape: BATCH chunks of CHUNK_LEN bases of 150-base reads, with runs of
+    N at the start, the middle and the end and 32 T's (whose key at k = 32
     under the identity hash is the PAD key). Cases (k, lsize, canonical),
     lsize 0 the identity hash: k = 21 canonical under the hash of -s 100M
     (lsize 27), k = 1, 17 and 32 not canonical under the identity hash,
     k = 32 canonical under a 40-bit hash (64-bit table entries) and k = 21
-    not canonical; each on numpy's words as int32 and, for k = 21, the
-    same words as int64 values. Then at k = 21 canonical: the kernel's
-    time beside its bound (the input's and the output's bytes) and the
-    plain route's, and MerCounter.packed_sortkeys of the host's words (the
-    count's entry, its two copies to the card included). Returns the
-    kernel table's row."""
+    not canonical; the limb-key kernel at k = 55 canonical under the hash
+    of -s 100M (4 limbs), k = 64 not canonical under a 40-bit hash with
+    its PAD preimage (the mer whose sortkey is all-ones limbs) spliced
+    into chunk 4, and k = 33 not canonical (3 limbs); each on numpy's words
+    as int32 and, for k = 21 and 55, the same words as int64 values. Then
+    at k = 21 and k = 55 canonical: each kernel's time beside its bound
+    (the input's and the output's bytes) and the plain route's, and
+    MerCounter.packed_sortkeys of the host's words (the count's entry, its
+    two copies to the card included). Returns the kernel table's rows."""
     from jellyfish_tpu_torch.counter import MerCounter
     from jellyfish_tpu_torch.gf2 import GF2Matrix
     from jellyfish_tpu_torch.io.parse import pack_chunk
@@ -1946,65 +1952,90 @@ def phase_sortkeys(dev):
         sortkeys,
         sortkeys_plain,
     )
-    from jellyfish_tpu_torch.ops.hashing import masks_of_matrix
-    from jellyfish_tpu_torch.ops.multiword import PAD_PACKED, nwords
+    from jellyfish_tpu_torch.ops import multiword as mw
+    from jellyfish_tpu_torch.ops.hashing import (
+        inverse_masks_of_matrix,
+        masks_of_matrix,
+        mers_of_sortkeys,
+    )
 
     chunks = synth_chunks(BATCH, CHUNK_LEN, seed=2323)
     chunks[0, :3] = ord("N")
     chunks[1, CHUNK_LEN // 2:CHUNK_LEN // 2 + 40] = ord("N")
     chunks[2, -5:] = ord("N")
     chunks[3, 1000:1032] = ord("T")
-    packed = [pack_chunk(c) for c in chunks]
-    host = [np.stack([p[j] for p in packed]) for j in (0, 1)]
-    pw, vb = (torch.from_numpy(h.view(np.int32)).to(dev) for h in host)
-    pw64, vb64 = (torch.from_numpy(h.astype(np.int64)).to(dev) for h in host)
-    row = None
+
+    def upload(chunks):
+        packed = [pack_chunk(c) for c in chunks]
+        host = [np.stack([p[j] for p in packed]) for j in (0, 1)]
+        return host, [torch.from_numpy(h.view(np.int32)).to(dev)
+                      for h in host]
+
+    host, (pw, vb) = upload(chunks)
+    rows = {}
     for k, lsize, canonical in SORTKEYS_CASES:
-        c = 2 * k
-        masks = (masks_of_matrix(GF2Matrix.random_invertible(
-            lsize, c, np.random.default_rng(k)), nwords(c)) if lsize
-            else None)
+        c, W = 2 * k, mw.nwords(2 * k)
+        Wk = 1 if mw.packs(W) else W
+        matrix = (GF2Matrix.random_invertible(
+            lsize, c, np.random.default_rng(k)) if lsize else None)
+        masks = masks_of_matrix(matrix, W) if lsize else None
         tables = hash_tables(masks, k, dev)
         args = (k, lsize or c, canonical, masks)
         label = (f"sortkeys k = {k}, canonical {canonical}, "
                  f"{f'lsize {lsize}' if lsize else 'identity'}, "
                  f"{BATCH} x {CHUNK_LEN} bases")
+        cpw, cvb = pw, vb
+        if k == 64:  # a real window on the PAD limbs
+            ones = mw.from_ints([(1 << c) - 1], W)
+            mer = int(mw.to_ints(mers_of_sortkeys(
+                ones, inverse_masks_of_matrix(matrix, W), k, lsize))[0])
+            spliced = chunks.copy()
+            spliced[4, 2000:2000 + k] = np.frombuffer(b"ACGT", np.uint8)[
+                [(mer >> (2 * (k - 1 - i))) & 3 for i in range(k)]]
+            _, (cpw, cvb) = upload(spliced)
         before = sortkeys.launches
-        keys, n_valid = sortkeys(pw, vb, *args, tables)
+        keys, n_valid = sortkeys(cpw, cvb, *args, tables)
         torch.cuda.synchronize()
         if sortkeys.launches != before + 1:
             raise AssertionError(f"{label}: not one launch a call")
-        if k == 32 and not lsize:
-            pads = int((keys == PAD_PACKED).sum())
+        if keys.shape[1] != Wk:
+            raise AssertionError(f"{label}: {keys.shape[1]} key columns")
+        if (k == 32 and not lsize) or k == 64:
+            pads = int((keys == mw.pad_key(W)).all(dim=1).sum())
             if pads <= keys.shape[0] - int(n_valid):
                 raise AssertionError(f"{label}: no real key on the PAD key")
         del keys, n_valid
-        timed = k == 21 and canonical
-        nbytes = (8 * BATCH * 16 * ((CHUNK_LEN - k) // 16 + 1)
-                  + 4 * (pw.numel() + vb.numel()))
-        got = hold(label, lambda: sortkeys(pw, vb, *args, tables),
-                   lambda: sortkeys_plain(pw, vb, *args),
+        timed = k in (21, 55) and canonical
+        nbytes = (8 * Wk * BATCH * 16 * ((CHUNK_LEN - k) // 16 + 1)
+                  + 4 * (cpw.numel() + cvb.numel()))
+        got = hold(label, lambda: sortkeys(cpw, cvb, *args, tables),
+                   lambda: sortkeys_plain(cpw, cvb, *args),
                    nbytes=nbytes if timed else None)
-        if k == 21:
+        if k in (21, 55):
+            pw64, vb64 = (x.to(torch.int64) & mw.M32 for x in (cpw, cvb))
             hold(f"{label}, int64 words",
                  lambda: sortkeys(pw64, vb64, *args, tables),
-                 lambda: sortkeys_plain(pw, vb, *args))
+                 lambda: sortkeys_plain(cpw, cvb, *args))
+            del pw64, vb64
         if timed:
-            row = dict(name="sortkeys", route="cuda",
-                       source="jellyfish_tpu_torch/csrc/sortkeys.cu",
-                       replaces="jellyfish_tpu/counter.py:75 "
-                       "_chunk_pipeline_packed_batch (XLA-fused; no "
-                       "Pallas kernel)", **got)
-    counter = MerCounter(21, 100_000_000, canonical=True,
-                         rng=np.random.default_rng(21), device=dev)
-    row["counter_ms"] = cuda_ms(
-        lambda: counter.packed_sortkeys(host[0], host[1]))
-    row["launches_per_batch"] = 1
-    log(f"  sortkeys: MerCounter.packed_sortkeys of the host's words "
-        f"{row['counter_ms']:.4f} ms a batch")
-    del pw, vb, pw64, vb64, counter
+            name = "sortkeys" if k <= 32 else "sortkeys_limbs"
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="jellyfish_tpu_torch/csrc/sortkeys.cu",
+                replaces="jellyfish_tpu/counter.py:75 "
+                "_chunk_pipeline_packed_batch (XLA-fused; no Pallas "
+                "kernel)", **got)
+            counter = MerCounter(k, 100_000_000, canonical=True,
+                                 rng=np.random.default_rng(k), device=dev)
+            rows[name]["counter_ms"] = cuda_ms(
+                lambda: counter.packed_sortkeys(host[0], host[1]))
+            rows[name]["launches_per_batch"] = 1
+            log(f"  {name}: MerCounter.packed_sortkeys (k = {k}) of the "
+                f"host's words {rows[name]['counter_ms']:.4f} ms a batch")
+            del counter
+    del pw, vb, cpw, cvb
     torch.cuda.empty_cache()
-    return {"sortkeys": row}
+    return rows
 
 
 def phase_cli(tmp, k, n_bases, genome_len, seed, need, read_len=150):
@@ -3545,7 +3576,7 @@ def phase_sharded(staged, tables, dev, runs=SHARD_RUNS):
                    profile_s=t_prof, **shares)
         log(f"full size k={k} -d {P} on one card: "
             f"{json.dumps(row)}; launches {launches[name]}")
-        need = ["merge_path", "compact"] + (
+        need = ["merge_path", "compact", "sortkeys"] + (
             ["block_sort", "merge_pass"] if k > 32 else [])
         missed = [n for n in need if launches[name][n] == 0]
         if not same or missed:
@@ -4326,10 +4357,10 @@ def main() -> int:
         seq21 = phase_cli(tmp, 21, 32_000_000, 4_000_000, seed=21,
                           need=["compact"])
         phase_cli(tmp, 33, 4_000_000, 1_000_000, seed=33,
-                  need=["compact", "block_sort", "merge_pass",
+                  need=["sortkeys", "compact", "block_sort", "merge_pass",
                         "merge_splits"])
         phase_cli(tmp, 63, 12_000_000, 3_000_000, seed=63,
-                  need=["compact", "block_sort", "merge_pass",
+                  need=["sortkeys", "compact", "block_sort", "merge_pass",
                         "merge_splits", "merge_path"])
         phase_cli(tmp, 100, 2_000_000, 1_000_000, seed=100,
                   need=["compact", "block_sort", "merge_pass",
@@ -4385,7 +4416,8 @@ def main() -> int:
         # and roll_lanes the full-size merge's; the wide instances' rows
         # the k = 127 count's, the keep mask's the k = 127 CLI merge's.
         # flip lies on no path and reports the bc's 0
-        path = {"sortkeys": 21, "merge_path": 21, "compact": 21,
+        path = {"sortkeys": 21, "sortkeys_limbs": 63,
+                "merge_path": 21, "compact": 21,
                 "block_sort": 63,
                 "merge_pass": 63, "merge_splits": 63,
                 "block_sort_wide": 127, "merge_pass_wide": 127,
@@ -4400,7 +4432,7 @@ def main() -> int:
                 "window_rows": "merge", "roll_lanes": "merge",
                 "compact_keep": "merge"}
         # the keep-mask row counts the launches of the compact wrapper
-        counter = {"compact_keep": "compact",
+        counter = {"compact_keep": "compact", "sortkeys_limbs": "sortkeys",
                    "block_sort_bloom": "block_sort",
                    **{f"{n}_wide": n for n in WIDE_NEED},
                    "merge_pass_wide_later": "merge_pass",
@@ -4410,18 +4442,19 @@ def main() -> int:
                    "exchange_stages_mirror": "exchange_stages.mirror"}
         full, launches, tables = {}, {"merge127": merge127_launches}, {}
         for k in K_FULL:
-            # the fused pipeline takes keys of one column (2k <= 64)
+            # the fused pipeline takes keys of up to 4 limbs (2k <= 128)
             need = ([n for n, run in path.items()
                      if run in (21, 63) and (k == 63 or run == k)
-                     and (k == 21 or n != "sortkeys")]
+                     and n in kernel_counts()]
                     if k < 127 else WIDE_NEED)
             launches[k], full[k], tables[k] = phase_full(
                 k, chunks, staged, need, compare_lsd=k == 63)
             torch.cuda.empty_cache()
         fused = {k: launches[k]["sortkeys"] for k in K_FULL}
-        if fused != {21: CHUNKS // BATCH, 63: 0, 127: 0}:
+        if fused != {21: CHUNKS // BATCH, 63: CHUNKS // BATCH, 127: 0}:
             raise AssertionError(f"sortkeys launches by k: {fused}, not one "
-                                 "a batch at k = 21 and none above 32")
+                                 "a batch at k = 21 and 63 and none above "
+                                 "64")
         del tables[127]  # later phases take the k = 21 and 63 tables
         table = tables[21]
         mode_launches, modes = {}, {}

@@ -7,10 +7,10 @@ Per batch of host-packed chunks, or per ASCII chunk:
     window extraction -> canonical fold -> GF(2) hash -> hash-order
     sortkeys as store key columns, premasked to PAD
 
-A batch of packed chunks with keys of one packed column (2k <= 64) runs
-on the card as one kernel (kernels/sortkeys.py); longer keys, ASCII
-chunks and CPU tensors run it in plain PyTorch (the hash as AND +
-XOR-fold parity).
+A batch of packed chunks with keys of up to 4 limbs (2k <= 128) runs on
+the card as one kernel (kernels/sortkeys.py); longer keys, ASCII chunks
+and CPU tensors run it in plain PyTorch (the hash as AND + XOR-fold
+parity).
 
 No per-batch sort: raw runs accumulate in SortedCountStore, whose grain
 consolidations and merges run the hand-written kernels. With a mer filter
@@ -41,6 +41,7 @@ from jellyfish_tpu_torch.device import resolve_device
 from jellyfish_tpu_torch.gf2 import GF2Matrix
 from jellyfish_tpu_torch.kernels.merge_path import MAX_KEY_COLS
 from jellyfish_tpu_torch.kernels.sortkeys import (
+    MAX_K as SORTKEYS_MAX_K,
     hash_tables,
     premasked,
     sortkeys,
@@ -177,9 +178,10 @@ class MerCounter:
         else:
             self._A = masks_of_matrix(self.matrix, self.W)
             self._Ainv = inverse_masks_of_matrix(self.matrix, self.W)
-        # the fused pipeline's hash tables (2k <= 64, on the card)
+        # the fused pipeline's hash tables (2k <= 128, on the card)
+        self._fused = self.k <= SORTKEYS_MAX_K
         self._tables = (hash_tables(self._A, self.k, self.device)
-                        if mw.packs(self.W) and self.device.type == "cuda"
+                        if self._fused and self.device.type == "cuda"
                         else None)
         self._pad = mw.pad_key(self.W)
         self.trace = Trace()
@@ -203,18 +205,18 @@ class MerCounter:
     def packed_sortkeys(self, pwords, validbits):
         """B equal-length host-packed chunks (L >= k) -> (premasked
         sortkey columns [B * 16 * Mp, Wk], n_valid scalar) on the device:
-        one kernel on the card for keys of one packed column (2k <= 64),
-        the plain pipeline otherwise. The `pipeline` span counts the rows
+        one kernel on the card for keys of up to 4 limbs (2k <= 128), the
+        plain pipeline otherwise. The `pipeline` span counts the rows
         (`rows`) and those the kernel wrote (`fused_rows`)."""
         with self.trace.span("pipeline") as span:
             pw = self._words(pwords)
             vb = self._words(validbits)
             args = (self.k, self.lsize, self.canonical, self._A)
-            if mw.packs(self.W):
+            if self._fused:
                 keys, n_valid = sortkeys(pw, vb, *args, self._tables)
             else:
                 keys, n_valid = sortkeys_plain(pw, vb, *args)
-            fused = mw.packs(self.W) and keys.is_cuda
+            fused = self._fused and keys.is_cuda
             span.add("rows", keys.shape[0])
             span.add("fused_rows", keys.shape[0] if fused else 0)
             return keys, n_valid

@@ -1,21 +1,24 @@
 """The chunk pipeline of host-packed chunks in one kernel (csrc/sortkeys.cu):
 B chunks -> the premasked sortkey columns of their windows and the valid
-count, for keys of one packed column (2k <= 64).
+count, for keys of one packed column (2k <= 64) and of 3 or 4 limb
+columns (64 < 2k <= 128), one kernel for each width.
 
-`sortkeys` launches the kernel on CUDA tensors and runs `sortkeys_plain`
-on CPU tensors; any other device raises, and so does 2k > 64, whose keys
-are limb columns (MerCounter takes `sortkeys_plain` for those). The plain
-version is ops/mers.extract_mers_packed, then `premasked`: windows in
-phase-major order (batch b, phase phi, slot m is row b 16 Mp + phi Mp + m,
-window start 16m + phi), the canonical fold, the GF(2) hash and the
+`sortkeys` launches a kernel on CUDA tensors and runs `sortkeys_plain` on
+CPU tensors; any other device raises, and so does 2k > 128 (MerCounter
+takes `sortkeys_plain` for those). The plain version is
+ops/mers.extract_mers_packed, then `premasked`: windows in phase-major
+order (batch b, phase phi, slot m is row b 16 Mp + phi Mp + m, window
+start 16m + phi), the canonical fold, the GF(2) hash and the
 (pos << (2k - l)) | (key >> l) sortkey as store key columns, invalid or
 out-of-range windows the PAD key. Both give the same tensors bit for bit.
 
-The kernel hashes by per-byte column tables (`byte_tables`): entry [i, v]
+The kernels hash by per-byte column tables (`byte_tables`): entry [i, v]
 is pos of the key whose only set bits are byte v at byte i, so pos of any
 key is the XOR of one entry a key byte. `hash_tables` puts them on the
-device once per counter. `sortkeys.launches` counts calls that launched
-on the card, one kernel launch each.
+device once per counter. Above 2k = 64 only tables are taken (MerCounter
+always hashes such keys); the identity hash raises there.
+`sortkeys.launches` counts calls that launched on the card, one kernel
+launch each.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from jellyfish_tpu_torch.ops.mers import extract_mers_packed
 __all__ = ["byte_tables", "hash_tables", "premasked", "sortkeys",
            "sortkeys_plain"]
 
-MAX_K = 32  # keys of 2k <= 64 bits, one packed column
+MAX_K = 64  # keys of 2k <= 128 bits: one packed column, or 3-4 limbs
 _WORD_DTYPES = (torch.int32, torch.int64)
 
 _P, _N, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -101,12 +104,15 @@ def sortkeys_plain(pwords, validbits, k, lsize, canonical, masks):
 
 def _checked(pwords, validbits, k, lsize, masks):
     if not 1 <= k <= MAX_K:
-        raise ValueError(f"sortkeys takes 1 <= k <= {MAX_K} (keys of one "
-                         f"packed column), not k = {k}")
-    if not 1 <= lsize <= 2 * k or (masks is not None
-                                   and masks.shape[0] != lsize):
-        raise ValueError(f"sortkeys: lsize {lsize} not in 1..{2 * k}, or "
-                         "not the masks' rows")
+        raise ValueError(f"sortkeys takes 1 <= k <= {MAX_K} (keys of at "
+                         f"most 4 limbs), not k = {k}")
+    if not mw.packs(mw.nwords(2 * k)) and masks is None:
+        raise ValueError(f"sortkeys: k = {k} keys take a hash's tables; the "
+                         "identity hash runs only at 2k <= 64")
+    if not 1 <= lsize <= min(2 * k, 64) or (masks is not None
+                                            and masks.shape[0] != lsize):
+        raise ValueError(f"sortkeys: lsize {lsize} not in "
+                         f"1..{min(2 * k, 64)}, or not the masks' rows")
     if pwords.dtype not in _WORD_DTYPES or validbits.dtype != pwords.dtype:
         raise ValueError("sortkeys takes int32 or int64 words, both of one "
                          f"dtype; got {pwords.dtype} and {validbits.dtype}")
@@ -127,10 +133,11 @@ def _checked(pwords, validbits, k, lsize, masks):
 
 def sortkeys(pwords, validbits, k, lsize, canonical, masks, tables=None):
     """B host-packed chunks (pwords [B, L/16], validbits [B, ceil(L/32)],
-    int32 or int64 words, L a multiple of 16 and >= k, 2k <= 64) ->
-    (premasked sortkey columns [B * 16 * Mp, 1] int64, n_valid int64
-    scalar). `tables` (hash_tables of masks, on the card) is made from
-    masks when not given."""
+    int32 or int64 words, L a multiple of 16 and >= k, 2k <= 128) ->
+    (premasked sortkey columns [B * 16 * Mp, Wk] int64, n_valid int64
+    scalar): Wk 1 at k <= 32, else the nwords(2k) limbs. `tables`
+    (hash_tables of masks, on the card) is made from masks when not
+    given."""
     L = _checked(pwords, validbits, k, lsize, masks)
     dev = pwords.device
     if dev.type == "cpu":
@@ -152,7 +159,9 @@ def sortkeys(pwords, validbits, k, lsize, canonical, masks, tables=None):
     Mp = (L - k) // 16 + 1
     lib = _build.load("sortkeys", _SIGNATURES)
     with torch.cuda.device(dev):
-        out = torch.empty((B * 16 * Mp, 1), dtype=torch.int64, device=dev)
+        W = mw.nwords(2 * k)
+        Wk = 1 if mw.packs(W) else W
+        out = torch.empty((B * 16 * Mp, Wk), dtype=torch.int64, device=dev)
         n_valid = torch.empty((), dtype=torch.int64, device=dev)
         _build.check(
             lib.jf_sortkeys(pw.data_ptr(), vb.data_ptr(), pw.element_size(),

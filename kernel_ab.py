@@ -37,8 +37,8 @@ torch.profiler (an insert waits on the host). The "radix" case times the
 insert's sort alone, `radix_sort_pairs` of 8,890,770 seeded pairs below
 2^30 (a tree whose csrc/ holds only radix.cu serves: a variant of that
 kernel). The "pipeline" cases time the count's chunk pipeline,
-MerCounter.packed_sortkeys of one batch (8 chunks of 2^20 bases, k = 21,
--C, -s 100M), from numpy's words on the host and from int64 words on the
+MerCounter.packed_sortkeys of one batch (8 chunks of 2^20 bases, k = 21
+and k = 55, -C, -s 100M), from numpy's words on the host and from int64 words on the
 card, each also split by torch.profiler into its kernels. The wide cases (labels
 from "wide", keys above 7 columns) time the grain sort of k = 127 (2^26
 rows of Wk 8, keys only) at 40% and at 84% PAD rows (the share of a
@@ -284,9 +284,10 @@ def radix_cases(dev):
 
 def pipeline_cases(dev):
     """The count's chunk pipeline at its batch: MerCounter.packed_sortkeys
-    of 8 chunks of 2^20 bases of 150-base reads (k = 21, -C, -s 100M),
-    from numpy's uint32 words on the host (the count's input: two copies
-    to the card a call) and from int64 words already on the card."""
+    of 8 chunks of 2^20 bases of 150-base reads (k = 21 and k = 55, -C,
+    -s 100M), from numpy's uint32 words on the host (the count's input:
+    two copies to the card a call) and from int64 words already on the
+    card."""
     import numpy as np
     import torch
 
@@ -301,15 +302,18 @@ def pipeline_cases(dev):
     ok = np.isin(chunks | 0x20, np.frombuffer(b"acgt", np.uint8))
     vb = (ok.astype(np.uint32).reshape(8, -1, 32)
           << np.arange(32, dtype=np.uint32)).sum(axis=2, dtype=np.uint32)
-    counter = MerCounter(21, 100_000_000, canonical=True,
-                         rng=np.random.default_rng(21), device=dev)
     pw64, vb64 = (torch.from_numpy(x.astype(np.int64)).to(dev)
                   for x in (pw, vb))
-    label = "pipeline k = 21 -C -s 100M, 8 x 2^20 bases"
-    return [(f"{label}, host words",
-             lambda: counter.packed_sortkeys(pw, vb), 1),
-            (f"{label}, int64 words on the card",
-             lambda: counter.packed_sortkeys(pw64, vb64), 1)]
+    out = []
+    for k in (21, 55):
+        counter = MerCounter(k, 100_000_000, canonical=True,
+                             rng=np.random.default_rng(k), device=dev)
+        label = f"pipeline k = {k} -C -s 100M, 8 x 2^20 bases"
+        out += [(f"{label}, host words",
+                 lambda c=counter: c.packed_sortkeys(pw, vb), 1),
+                (f"{label}, int64 words on the card",
+                 lambda c=counter: c.packed_sortkeys(pw64, vb64), 1)]
+    return out
 
 
 def bloom_cases(dev):

@@ -1,11 +1,13 @@
 """kernels/sortkeys.py, the chunk pipeline of host-packed chunks in one
-kernel (2k <= 64): its plain route against the JAX package's
-_chunk_pipeline_packed_batch, a numpy model of the kernel's arithmetic
-(byte tables, funnel read, invalid-window test, canonical fold) against
-the plain route, the wrapper's checks, and the `pipeline` span's counts.
-Exact: integer arithmetic. The kernel itself runs only on the card: its
-test here skips without one, and chip_smoke.py's phase_sortkeys holds it
-bit for bit against the plain route at the count's batch shape."""
+kernel (2k <= 64: one packed column; 64 < 2k <= 128: 3 or 4 limb
+columns): its plain route against the JAX package's
+_chunk_pipeline_packed_batch, numpy models of both kernels' arithmetic
+(byte tables, funnel read, invalid-window test, canonical fold; 128-bit
+for the limb keys) against the plain route, the wrapper's checks, and the
+`pipeline` span's counts. Exact: integer arithmetic. The kernels
+themselves run only on the card: their tests here skip without one, and
+chip_smoke.py's phase_sortkeys holds them bit for bit against the plain
+route at the count's batch shape."""
 
 import functools
 
@@ -87,7 +89,8 @@ def _words(x):
 
 
 def _pad_preimage(k, matrix):
-    """The mer whose sortkey is all ones (the PAD key at 2k = 64)."""
+    """The mer whose sortkey is all ones (the PAD key at 2k = 64, and the
+    PAD limbs at 2k = 96 and 128)."""
     ones = mw.from_ints([(1 << (2 * k)) - 1], mw.nwords(2 * k))
     if matrix is None:
         return (1 << (2 * k)) - 1
@@ -233,6 +236,142 @@ def test_kernel_model_matches_plain_route(k, lsize, canonical, L):
     assert n == int(n_valid)
 
 
+# -- a numpy model of the limb-key kernel's arithmetic (64 < 2k <= 128) ------
+
+M64 = U64(0xFFFFFFFFFFFFFFFF)
+_REV8 = np.array([int(f"{v:08b}"[::-1], 2) for v in range(256)], U64)
+
+
+def _brev64(x):
+    """Reverse the 64 bits of each word (__brevll)."""
+    out = np.zeros_like(x)
+    for i in range(8):
+        out |= _REV8[((x >> U64(8 * i)) & U64(255)).astype(np.int64)] \
+            << U64(8 * (7 - i))
+    return out
+
+
+def _shr128(hi, lo, s):
+    """(hi, lo) >> s, 0 <= s < 64."""
+    if s == 0:
+        return hi, lo
+    return hi >> U64(s), (lo >> U64(s)) | (hi << U64(64 - s))
+
+
+def _pair_swap(r):
+    low = U64(0x5555555555555555)
+    return ((r >> U64(1)) & low) | ((r & low) << U64(1))
+
+
+def _wide_table_pos(hi, lo, tables):
+    pos = np.zeros_like(lo)
+    for i in range(tables.shape[0]):
+        word = lo if i < 8 else hi
+        byte = (word >> U64(8 * (i % 8))) & U64(255)
+        pos ^= tables[i][byte.astype(np.int64)]
+    return pos
+
+
+def limb_kernel_model(pw, vb, k, lsize, canonical, tables):
+    """csrc/sortkeys.cu's limb-key rows (32 < k <= 64), as it computes them:
+    slot m of chunk b reads code words m .. m + 4 and validity words m/2
+    .. m/2 + 2 (0 past the end), window phi is cut out of them by 128-bit
+    funnel shifts, folded with the 128-bit reverse complement, hashed by
+    one table entry a key byte, and written as W = nwords(2k) limbs (all
+    M32 when invalid)."""
+    B, npw = pw.shape
+    nvb, L, c, W = vb.shape[1], 16 * npw, 2 * k, mw.nwords(2 * k)
+    Mp, N = (L - k) // 16 + 1, L - k + 1
+    s, t = 128 - c, c - lsize
+    m = np.arange(Mp)
+
+    def at(a, i, n):
+        return np.where(i < n, a[:, np.minimum(i, n - 1)], 0).astype(U64)
+
+    a = (at(pw, m, npw) << U64(32)) | at(pw, m + 1, npw)
+    a2 = (at(pw, m + 2, npw) << U64(32)) | at(pw, m + 3, npw)
+    a3 = at(pw, m + 4, npw) << U64(32)
+    j = m >> 1
+    odd = (m & 1).astype(bool)
+    v01 = (at(vb, j + 1, nvb) << U64(32)) | at(vb, j, nvb)
+    v2 = at(vb, j + 2, nvb)
+    bad = ~np.where(odd, (v01 >> U64(16)) | (v2 << U64(48)), v01)
+    bad_hi = ~np.where(odd, v2 >> U64(16), v2) & U64(0xFFFFFFFF)
+    window_bits = M64 >> U64(64 - k)
+    out = np.empty((B, 16, Mp, W), np.int64)
+    valid_total = 0
+    for phi in range(16):
+        d = 2 * phi
+        yh = a if d == 0 else (a << U64(d)) | (a2 >> U64(64 - d))
+        yl = a2 if d == 0 else (a2 << U64(d)) | (a3 >> U64(64 - d))
+        hi, lo = _shr128(yh, yl, s)
+        if canonical:
+            rh, rl = _shr128(_pair_swap(_brev64(~lo)),
+                             _pair_swap(_brev64(~hi)), s)
+            less = (rh < hi) | ((rh == hi) & (rl < lo))
+            hi, lo = np.where(less, rh, hi), np.where(less, rl, lo)
+        pos = _wide_table_pos(hi, lo, tables)
+        if t >= 64:
+            ph, pl = pos << U64(t - 64), np.zeros_like(pos)
+        else:
+            ph, pl = (pos >> U64(1)) >> U64(63 - t), pos << U64(t)
+        kh, kl = (_shr128(hi, lo, lsize) if lsize < 64
+                  else (np.zeros_like(hi), hi))
+        sh, sl = ph | kh, pl | kl
+        w = bad if phi == 0 else (bad >> U64(phi)) | (bad_hi << U64(64 - phi))
+        valid = (16 * m + phi < N) & ((w & window_bits) == 0)
+        valid_total += int(valid.sum())
+        limbs = [sl & U64(mw.M32), sl >> U64(32), sh & U64(mw.M32),
+                 sh >> U64(32)][:W]
+        for col, limb in enumerate(limbs):
+            out[:, phi, :, col] = np.where(valid, limb.astype(np.int64),
+                                           np.int64(mw.M32))
+    return out.reshape(-1, W), valid_total
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("lsize", [27, 40])
+@pytest.mark.parametrize("k", [33, 48, 49, 55, 63, 64])
+def test_limb_kernel_model_matches_plain_route(k, lsize, canonical):
+    """The model of the limb-key kernel (byte tables of 9-16 key bytes,
+    32-bit entries at lsize 27 and 64-bit at 40) against the plain route
+    on random chunks, L a multiple of 32 and (k = 49, 63) of 16 only: the
+    same rows of 3 (k <= 48) or 4 limbs, and the same valid count."""
+    seed = 8400 + 3 * k + lsize + canonical
+    rng = np.random.default_rng(seed)
+    c, L = 2 * k, 528 if k in (49, 63) else 512
+    masks = hashing.masks_of_matrix(_matrix(k, lsize, seed), mw.nwords(c))
+    pw, vb = _chunks(rng, 3, L, k)
+    got, n = limb_kernel_model(pw, vb, k, lsize, canonical,
+                               byte_tables(masks, c))
+    keys, n_valid = sortkeys(_words(pw), _words(vb), k, lsize, canonical,
+                             masks)
+    assert keys.shape == (3 * 16 * ((L - k) // 16 + 1), mw.nwords(c))
+    np.testing.assert_array_equal(got, keys.numpy())
+    assert n == int(n_valid)
+
+
+@pytest.mark.parametrize("k,lsize", [(48, 27), (64, 40)])
+def test_limb_key_on_the_pad_pattern_counts(k, lsize):
+    """At 2k = 96 and 128 a real window's sortkey can be all-ones limbs,
+    the PAD pattern: spliced in twice, both the plain route and the model
+    write it as PAD limbs and count it as valid."""
+    seed = 8600 + k
+    matrix = _matrix(k, lsize, seed)
+    masks = hashing.masks_of_matrix(matrix, mw.nwords(2 * k))
+    pw, vb = _chunks(np.random.default_rng(seed), 2, 512, k)
+    mer = _pad_preimage(k, matrix)
+    _splice(pw, vb, mer, k, 100)
+    _splice(pw, vb, mer, k, 301)
+    keys, n_valid = sortkeys(_words(pw), _words(vb), k, lsize, False, masks)
+    got, n = limb_kernel_model(pw, vb, k, lsize, False,
+                               byte_tables(masks, 2 * k))
+    np.testing.assert_array_equal(got, keys.numpy())
+    assert n == int(n_valid)
+    pads = int((keys == mw.M32).all(dim=1).sum())
+    assert pads == keys.shape[0] - int(n_valid) + 2
+
+
 @pytest.mark.parametrize("k,lsize", [(1, 2), (4, 5), (16, 32), (17, 33),
                                      (21, 27), (21, 42), (32, 27), (32, 64)])
 def test_byte_tables_hash_as_masks_do(k, lsize):
@@ -286,8 +425,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     pw, vb = _words(pw), _words(vb)
     masks = hashing.masks_of_matrix(_matrix(21, 27, 5), 2)
     args = (21, 27, True, masks)
-    with pytest.raises(ValueError, match="k = 33"):
-        sortkeys(pw, vb, 33, 27, True, None)
+    with pytest.raises(ValueError, match="k = 65"):
+        sortkeys(pw, vb, 65, 27, True, None)
+    with pytest.raises(ValueError, match="lsize"):
+        sortkeys(pw, vb, 40, 65, True, np.zeros((65, 3), np.uint32))
     with pytest.raises(ValueError, match="dtype"):
         sortkeys(pw.to(torch.int16), vb.to(torch.int16), *args)
     with pytest.raises(ValueError, match="dtype"):
@@ -306,13 +447,25 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         sortkeys(pw.to("meta"), vb.to("meta"), *args)
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("k", [33, 64])
+def test_wrapper_refuses_the_identity_hash_of_limb_keys(k, device):
+    """At 2k > 64 the kernel takes only tables (MerCounter always hashes
+    such keys): the identity hash raises in the wrapper's checks, before
+    any dispatch by device (a meta tensor would raise otherwise)."""
+    pw, vb = _chunks(np.random.default_rng(6), 2, 256, k)
+    with pytest.raises(ValueError, match="identity hash"):
+        sortkeys(_words(pw).to(device), _words(vb).to(device), k, 2 * k,
+                 True, None)
+
+
 def test_pipeline_span_counts_rows():
     """`rows` counts every row a batch gives and `fused_rows` those the
-    kernel wrote: none on the CPU, none at 2k > 64 (the plain pipeline,
-    limb columns)."""
+    kernel wrote: none on the CPU, at any width (one packed column, 3 and
+    4 limb columns, and 5 above the kernels' widths)."""
     L, B = 512, 2
     launches = sk_mod.sortkeys.launches
-    for k in (21, 33):
+    for k in (21, 33, 55, 65):
         c = MerCounter(k, 1 << 12, canonical=True,
                        rng=np.random.default_rng(k), device="cpu")
         pw, vb = _chunks(np.random.default_rng(k), B, L, k)
@@ -337,7 +490,8 @@ def cuda():
 @pytest.mark.chip
 @pytest.mark.parametrize("k,lsize,canonical", [
     (21, 27, True), (1, 0, False), (17, 27, False), (32, 0, False),
-    (32, 40, True)])
+    (32, 40, True), (55, 27, True), (33, 27, False), (64, 40, True),
+    (48, 27, True)])
 def test_kernel_matches_plain_route_on_the_card(cuda, k, lsize, canonical):
     rng = np.random.default_rng(600 + k)
     c = 2 * k
@@ -354,3 +508,26 @@ def test_kernel_matches_plain_route_on_the_card(cuda, k, lsize, canonical):
     want = sortkeys_plain(_words(pw), _words(vb), *args)
     assert torch.equal(got[0].cpu(), want[0])
     assert int(got[1]) == int(want[1])
+
+
+@pytest.mark.chip
+def test_counter_fuses_limb_keys_on_the_card(cuda):
+    """MerCounter(55, 100M, canonical) on the card: one batch is one
+    launch of the limb-key kernel, `fused_rows` equals `rows`, and the keys
+    equal those of the same counter's matrix on the CPU."""
+    k, B, L = 55, 2, 4096
+    pw, vb = _chunks(np.random.default_rng(655), B, L, k)
+    card = MerCounter(k, 100_000_000, canonical=True,
+                      rng=np.random.default_rng(55), device=cuda)
+    host = MerCounter(k, 100_000_000, canonical=True,
+                      rng=np.random.default_rng(55), device="cpu")
+    before = sortkeys.launches
+    keys, n_valid = card.packed_sortkeys(pw, vb)
+    assert sortkeys.launches == before + 1
+    card.reset()
+    span = card.trace.jobs[-1]["pipeline"]
+    assert span["rows"] == keys.shape[0] == B * 16 * ((L - k) // 16 + 1)
+    assert span["fused_rows"] == span["rows"]
+    want, want_valid = host.packed_sortkeys(pw, vb)
+    assert torch.equal(keys.cpu(), want)
+    assert int(n_valid) == int(want_valid)
