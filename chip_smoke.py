@@ -3509,7 +3509,7 @@ def exchange_shares(counter, staged, n_chunks=SHARD_PROFILE_CHUNKS,
     outer = {"step": "exchange", "finalize": "finalize"}
     targets = [
         (MerCounter, "packed_sortkeys", "pipeline"),
-        (sharded, "_dedup", "dedup"), (sharded, "compact", "send_k2"),
+        (MerCounter, "masked_run", "dedup"), (sharded, "compact", "send_k2"),
         (SortedCountStore, "insert_run", "store"),
         (sharded.ShardedMerCounter, "add_chunks_packed", "step"),
         (sharded.ShardedMerCounter, "finalize_np", "finalize")]

@@ -7,19 +7,20 @@ Per batch of host-packed chunks, or per ASCII chunk:
     window extraction -> canonical fold -> GF(2) hash -> hash-order
     sortkeys as store key columns, premasked to PAD
 
-A batch of packed chunks with keys of up to 4 limbs (2k <= 128) runs on
-the card as one kernel (kernels/sortkeys.py); longer keys, ASCII chunks
-and CPU tensors run it in plain PyTorch (the hash as AND + XOR-fold
-parity).
+kernels/sortkeys.sortkeys runs a batch of packed chunks and picks its
+route: one kernel on the card where it covers the width, plain PyTorch
+otherwise (the hash as AND + XOR-fold parity). ASCII chunks run in plain
+PyTorch.
 
 No per-batch sort: raw runs accumulate in SortedCountStore, whose grain
 consolidations and merges run the hand-written kernels. With a mer filter
 (`count --bc`, `--bf-size`) each ASCII chunk is counted on its own
-(`_chunk_pipeline_dedup`), its distinct mers recovered and filtered, and
-the filtered run goes to the store as a counted run (`insert_run`).
+(`chunk_counts`), its distinct mers recovered and filtered, and the
+filtered run goes to the store as a counted run (`insert_run`).
 finalize_np() yields the whole table in the reference's dump order
-(ascending (pos, key)). With restrict_to (`count --if`) it yields the
-allowed mers instead, each with its count or 0.
+(ascending (pos, key)), a filter it is given applied once per mer. With
+restrict_to (`count --if`) it yields the allowed mers instead, each with
+its count or 0.
 
 The counter records its own spans in `self.trace` (trace.py), which its
 stores share: `pipeline` around each batch's (or chunk's) pipeline
@@ -41,11 +42,10 @@ from jellyfish_tpu_torch.device import resolve_device
 from jellyfish_tpu_torch.gf2 import GF2Matrix
 from jellyfish_tpu_torch.kernels.merge_path import MAX_KEY_COLS
 from jellyfish_tpu_torch.kernels.sortkeys import (
-    MAX_K as SORTKEYS_MAX_K,
-    hash_tables,
     premasked,
+    route_tables,
+    runs_kernel,
     sortkeys,
-    sortkeys_plain,
 )
 from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.hashing import (
@@ -71,31 +71,6 @@ def _chunk_pipeline(chunk_u8, masks, k, lsize, canonical):
     n_valid scalar)."""
     mers, valid = extract_mers_phased(encode_codes(chunk_u8), k, canonical)
     return premasked(mers, valid, masks, k, lsize)
-
-
-def _dedup(sk, n_valid):
-    """Premasked sortkey columns [N, Wk] -> their distinct keys with
-    their counts, as a masked run (sorted; each count on its segment's
-    last row, 0 on the others). The PAD segment's count is corrected by
-    the pad rows, so it holds 0, or the true count when a real mer's
-    sortkey is the PAD key."""
-    keys, counts = consolidate_premasked(sk)
-    # remove the PAD inflation: the last sorted row always ends the final
-    # (PAD or maximal) segment, and pads = N - n_valid
-    pads = sk.shape[0] - n_valid
-    counts[-1] -= pads
-    return keys, counts
-
-
-def _chunk_pipeline_dedup(chunk_u8, masks, k, lsize, canonical):
-    """An ASCII chunk's distinct sortkeys with their counts (_dedup)."""
-    return _dedup(*_chunk_pipeline(chunk_u8, masks, k, lsize, canonical))
-
-
-def _recover_mers(keys, inv_masks, k, lsize, W):
-    """Store key columns [n, Wk] -> mer limbs [n, W]."""
-    return mers_of_sortkeys(mw.limbs_of_key_columns(keys, W), inv_masks, k,
-                            lsize)
 
 
 def _sortkey_order_view(rows: np.ndarray) -> np.ndarray:
@@ -178,11 +153,7 @@ class MerCounter:
         else:
             self._A = masks_of_matrix(self.matrix, self.W)
             self._Ainv = inverse_masks_of_matrix(self.matrix, self.W)
-        # the fused pipeline's hash tables (2k <= 128, on the card)
-        self._fused = self.k <= SORTKEYS_MAX_K
-        self._tables = (hash_tables(self._A, self.k, self.device)
-                        if self._fused and self.device.type == "cuda"
-                        else None)
+        self._tables = route_tables(self._A, self.k, self.device)
         self._pad = mw.pad_key(self.W)
         self.trace = Trace()
         self.store = SortedCountStore(self.W, self.device, key_bits=c,
@@ -204,22 +175,50 @@ class MerCounter:
 
     def packed_sortkeys(self, pwords, validbits):
         """B equal-length host-packed chunks (L >= k) -> (premasked
-        sortkey columns [B * 16 * Mp, Wk], n_valid scalar) on the device:
-        one kernel on the card for keys of up to 4 limbs (2k <= 128), the
-        plain pipeline otherwise. The `pipeline` span counts the rows
-        (`rows`) and those the kernel wrote (`fused_rows`)."""
+        sortkey columns [B * 16 * Mp, Wk], n_valid scalar) on the device,
+        by kernels/sortkeys.sortkeys on the route it picks. The `pipeline`
+        span counts the rows (`rows`) and those the kernel wrote
+        (`fused_rows`)."""
         with self.trace.span("pipeline") as span:
-            pw = self._words(pwords)
-            vb = self._words(validbits)
-            args = (self.k, self.lsize, self.canonical, self._A)
-            if self._fused:
-                keys, n_valid = sortkeys(pw, vb, *args, self._tables)
-            else:
-                keys, n_valid = sortkeys_plain(pw, vb, *args)
-            fused = self._fused and keys.is_cuda
-            span.add("rows", keys.shape[0])
-            span.add("fused_rows", keys.shape[0] if fused else 0)
+            keys, n_valid = sortkeys(
+                self._words(pwords), self._words(validbits), self.k,
+                self.lsize, self.canonical, self._A, self._tables)
+            n = keys.shape[0]
+            span.add("rows", n)
+            span.add("fused_rows", n if runs_kernel(self.k, keys.device)
+                     else 0)
             return keys, n_valid
+
+    def chunk_sortkeys(self, chunk_u8):
+        """An ASCII chunk (uint8, host or device; L >= k) -> (premasked
+        sortkey columns [16 * Mp, Wk], n_valid scalar) on the device, in
+        plain PyTorch."""
+        if isinstance(chunk_u8, torch.Tensor):
+            chunk = chunk_u8.to(device=self.device, dtype=torch.uint8)
+        else:
+            chunk = torch.from_numpy(
+                np.ascontiguousarray(chunk_u8, dtype=np.uint8)).to(self.device)
+        return _chunk_pipeline(chunk, self._A, self.k, self.lsize,
+                               self.canonical)
+
+    def masked_run(self, sk, n_valid):
+        """Premasked sortkey columns [N, Wk] and their valid count (as
+        packed_sortkeys and chunk_sortkeys give them) -> their distinct
+        keys with their counts, as a masked run (sorted; each count on its
+        segment's last row, 0 on the others). The PAD segment's count is
+        corrected by the pad rows, so it holds 0, or the true count when a
+        real mer's sortkey is the PAD key."""
+        keys, counts = consolidate_premasked(sk)
+        # remove the PAD inflation: the last sorted row always ends the
+        # final (PAD or maximal) segment, and pads = N - n_valid
+        pads = sk.shape[0] - n_valid
+        counts[-1] -= pads
+        return keys, counts
+
+    def mers_of_keys(self, keys) -> torch.Tensor:
+        """Store key columns [n, Wk] -> mer limbs [n, W] on the device."""
+        return mers_of_sortkeys(mw.limbs_of_key_columns(keys, self.W),
+                                self._Ainv, self.k, self.lsize)
 
     def add_chunks_packed_batch(self, pwords, validbits) -> None:
         """Count the k-mers of B equal-length host-packed chunks:
@@ -235,21 +234,12 @@ class MerCounter:
         self.add_chunks_packed_batch(self._words(pwords)[None],
                                      self._words(validbits)[None])
 
-    def _chunk(self, chunk_u8) -> torch.Tensor:
-        if isinstance(chunk_u8, torch.Tensor):
-            return chunk_u8.to(device=self.device, dtype=torch.uint8)
-        return torch.from_numpy(
-            np.ascontiguousarray(chunk_u8, dtype=np.uint8)).to(self.device)
-
     def chunk_counts(self, chunk_u8):
         """An ASCII chunk's distinct mers: (sortkey columns [n, Wk] as a
         masked run, mer limbs [n, W], counts [n]); rows of count 0 are no
         mer (bc inserts them with weight 0, the filters skip them)."""
-        keys, counts = _chunk_pipeline_dedup(
-            self._chunk(chunk_u8), self._A, self.k, self.lsize,
-            self.canonical)
-        mers = _recover_mers(keys, self._Ainv, self.k, self.lsize, self.W)
-        return keys, mers, counts
+        keys, counts = self.masked_run(*self.chunk_sortkeys(chunk_u8))
+        return keys, self.mers_of_keys(keys), counts
 
     def add_chunk(self, chunk_u8) -> None:
         """Count the k-mers of a chunk of ASCII sequence (uint8, host or
@@ -263,9 +253,7 @@ class MerCounter:
             self.store.insert_run(keys, self.mer_filter(mers, counts))
         else:
             with self.trace.span("pipeline"):
-                keys, n_valid = _chunk_pipeline(
-                    self._chunk(chunk_u8), self._A, self.k, self.lsize,
-                    self.canonical)
+                keys, n_valid = self.chunk_sortkeys(chunk_u8)
             self.store.insert_raw(keys, n_valid)
 
     def add_mers_np(self, mers_int_iterable, value: int = 1) -> None:
@@ -285,15 +273,19 @@ class MerCounter:
         counting, only the mers of these ASCII chunks appear in the output,
         each with its count, 0 if it was never counted. reset() keeps the
         restriction, so every --disk partial is restricted too."""
+        store = self.open_restriction()
+        for chunk_u8 in chunks_iter:
+            if len(chunk_u8) >= self.k:
+                store.insert_raw(*self.chunk_sortkeys(chunk_u8))
+
+    def open_restriction(self) -> SortedCountStore:
+        """A new, empty restriction store (raw or counted runs of store
+        keys): from now on finalize_np yields only the mers inserted into
+        it, each with its count or 0, as restrict_to does."""
         self._restrict_store = SortedCountStore(self.W, self.device,
                                                 key_bits=2 * self.k,
                                                 trace=self.trace)
-        for chunk_u8 in chunks_iter:
-            if len(chunk_u8) < self.k:
-                continue
-            self._restrict_store.insert_raw(*_chunk_pipeline(
-                self._chunk(chunk_u8), self._A, self.k, self.lsize,
-                self.canonical))
+        return self._restrict_store
 
     # -- extraction -----------------------------------------------------------
 
@@ -332,21 +324,35 @@ class MerCounter:
         return (np.zeros((0, self.W), dtype=np.uint32),
                 np.zeros(0, dtype=np.uint64))
 
-    def _mers_np(self, keys) -> np.ndarray:
+    def _recovered(self, keys) -> torch.Tensor:
         with self.trace.span("finalize.recover"):
-            mers = _recover_mers(keys, self._Ainv, self.k, self.lsize,
-                                 self.W)
-        return self._to_host(mers, np.uint32)
+            return self.mers_of_keys(keys)
 
-    def finalize_np(self):
+    def _mers_np(self, keys) -> np.ndarray:
+        return self._to_host(self._recovered(keys), np.uint32)
+
+    def finalize_np(self, mer_filter=None):
         """Return (mer limbs [n, W] uint32, counts [n] uint64) in hash
-        order (the reference's dump order: ascending (pos, key))."""
+        order (the reference's dump order: ascending (pos, key)).
+        `mer_filter` (as the constructor's, on this counter's device), when
+        given, maps the table's (mers, counts) to new counts here, once per
+        mer: a mer it zeroes is dropped, or dumped at 0 when the
+        restriction allows it."""
         with self.trace.span("finalize"):
             keys, counts = self._corrected(self.store)
+            if mer_filter is not None and len(counts):
+                counts = self._to_host(mer_filter(
+                    self._recovered(keys),
+                    torch.from_numpy(counts.astype(np.int64)).to(keys.device),
+                ), np.uint64)
             if self._restrict_store is not None:
                 # before the emptiness check: an empty count still dumps
                 # the allowed mers at 0
                 return self._apply_restriction(keys, counts)
+            if mer_filter is not None:
+                keep = counts > 0
+                keys = keys[torch.from_numpy(keep).to(keys.device)]
+                counts = counts[keep]
             if len(counts) == 0:
                 return self._empty()
             return self._mers_np(keys), counts

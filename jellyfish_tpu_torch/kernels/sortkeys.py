@@ -3,9 +3,9 @@ B chunks -> the premasked sortkey columns of their windows and the valid
 count, for keys of one packed column (2k <= 64) and of 3 or 4 limb
 columns (64 < 2k <= 128), one kernel for each width.
 
-`sortkeys` launches a kernel on CUDA tensors and runs `sortkeys_plain` on
-CPU tensors; any other device raises, and so does 2k > 128 (MerCounter
-takes `sortkeys_plain` for those). The plain version is
+`sortkeys` takes any k and picks the route: it launches a kernel on CUDA
+tensors at 2k <= 128 (`runs_kernel`), and runs `sortkeys_plain` on CPU
+tensors and above that width; any other device raises. The plain version is
 ops/mers.extract_mers_packed, then `premasked`: windows in phase-major
 order (batch b, phase phi, slot m is row b 16 Mp + phi Mp + m, window
 start 16m + phi), the canonical fold, the GF(2) hash and the
@@ -14,9 +14,10 @@ out-of-range windows the PAD key. Both give the same tensors bit for bit.
 
 The kernels hash by per-byte column tables (`byte_tables`): entry [i, v]
 is pos of the key whose only set bits are byte v at byte i, so pos of any
-key is the XOR of one entry a key byte. `hash_tables` puts them on the
-device once per counter. Above 2k = 64 only tables are taken (MerCounter
-always hashes such keys); the identity hash raises there.
+key is the XOR of one entry a key byte. `route_tables` puts them on the
+device once per counter where the kernel runs. Above 2k = 64 only tables
+are taken (MerCounter always hashes such keys); the identity hash raises
+there, on either route.
 `sortkeys.launches` counts calls that launched on the card, one kernel
 launch each.
 """
@@ -33,8 +34,8 @@ from jellyfish_tpu_torch.ops import multiword as mw
 from jellyfish_tpu_torch.ops.hashing import sortkey_of_mers
 from jellyfish_tpu_torch.ops.mers import extract_mers_packed
 
-__all__ = ["byte_tables", "hash_tables", "premasked", "sortkeys",
-           "sortkeys_plain"]
+__all__ = ["byte_tables", "hash_tables", "premasked", "route_tables",
+           "runs_kernel", "sortkeys", "sortkeys_plain"]
 
 MAX_K = 64  # keys of 2k <= 128 bits: one packed column, or 3-4 limbs
 _WORD_DTYPES = (torch.int32, torch.int64)
@@ -76,6 +77,18 @@ def hash_tables(masks, k: int, device):
     return torch.from_numpy(tab.view(np.int32)).to(device)
 
 
+def runs_kernel(k: int, device) -> bool:
+    """Whether `sortkeys` launches its kernel for k-mers on `device`: on a
+    CUDA device, for keys of at most 4 limbs (2k <= 128)."""
+    return torch.device(device).type == "cuda" and k <= MAX_K
+
+
+def route_tables(masks, k: int, device):
+    """What `sortkeys`' route on `device` takes as `tables`: hash_tables
+    where the kernel runs, None where the plain route runs."""
+    return hash_tables(masks, k, device) if runs_kernel(k, device) else None
+
+
 def premasked(mers, valid, masks, k, lsize):
     """Mers [N, W] -> (sortkey columns [N, Wk], invalid windows carrying
     the PAD key; the valid count, a device scalar)."""
@@ -103,9 +116,8 @@ def sortkeys_plain(pwords, validbits, k, lsize, canonical, masks):
 
 
 def _checked(pwords, validbits, k, lsize, masks):
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"sortkeys takes 1 <= k <= {MAX_K} (keys of at "
-                         f"most 4 limbs), not k = {k}")
+    if k < 1:
+        raise ValueError(f"sortkeys takes k >= 1, not k = {k}")
     if not mw.packs(mw.nwords(2 * k)) and masks is None:
         raise ValueError(f"sortkeys: k = {k} keys take a hash's tables; the "
                          "identity hash runs only at 2k <= 64")
@@ -133,17 +145,17 @@ def _checked(pwords, validbits, k, lsize, masks):
 
 def sortkeys(pwords, validbits, k, lsize, canonical, masks, tables=None):
     """B host-packed chunks (pwords [B, L/16], validbits [B, ceil(L/32)],
-    int32 or int64 words, L a multiple of 16 and >= k, 2k <= 128) ->
-    (premasked sortkey columns [B * 16 * Mp, Wk] int64, n_valid int64
-    scalar): Wk 1 at k <= 32, else the nwords(2k) limbs. `tables`
-    (hash_tables of masks, on the card) is made from masks when not
-    given."""
+    int32 or int64 words, L a multiple of 16 and >= k) -> (premasked
+    sortkey columns [B * 16 * Mp, Wk] int64, n_valid int64 scalar): Wk 1
+    at k <= 32, else the nwords(2k) limbs. One kernel launch where
+    `runs_kernel`, sortkeys_plain otherwise. `tables` (hash_tables of
+    masks, on the card) is made from masks when not given."""
     L = _checked(pwords, validbits, k, lsize, masks)
     dev = pwords.device
-    if dev.type == "cpu":
-        return sortkeys_plain(pwords, validbits, k, lsize, canonical, masks)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"sortkeys: unsupported device {dev}")
+    if not runs_kernel(k, dev):
+        return sortkeys_plain(pwords, validbits, k, lsize, canonical, masks)
     if masks is not None and tables is None:
         tables = hash_tables(masks, k, dev)
     if (masks is None) != (tables is None):

@@ -69,18 +69,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from jellyfish_tpu_torch.counter import (
-    MerCounter,
-    _chunk_pipeline_dedup,
-    _dedup,
-    _recover_mers,
-    ceil_log2,
-)
+from jellyfish_tpu_torch.counter import MerCounter, ceil_log2
 from jellyfish_tpu_torch.device import resolve_device
 from jellyfish_tpu_torch.gf2 import GF2Matrix
 from jellyfish_tpu_torch.kernels.compact import compact
 from jellyfish_tpu_torch.ops import multiword as mw
-from jellyfish_tpu_torch.store import SortedCountStore
 
 __all__ = ["ShardedMerCounter", "make_mesh"]
 
@@ -230,8 +223,13 @@ class ShardedMerCounter:
         self.store = _ShardedStore((s.store for s in self.shards),
                                    group=group, device=self.device)
         self.mer_filter = mer_filter
+        on_first = None if mer_filter is None else (
+            lambda mers, counts: mer_filter(mers.to(self.device),
+                                            counts.to(self.device)))
         # on the sender in stream order, or at finalize across processes
-        self._ingest_filter = mer_filter if self.world == 1 else None
+        # (once per mer, on its owner shard)
+        self._ingest_filter = on_first if self.world == 1 else None
+        self._final_filter = on_first if self.world > 1 else None
 
     # -- ingestion ------------------------------------------------------------
 
@@ -258,8 +256,8 @@ class ShardedMerCounter:
         runs = []
         if int(pwords.shape[1]) * 16 >= self.k:
             runs = [
-                _dedup(*s.packed_sortkeys(pwords[p:p + 1],
-                                          validbits[p:p + 1]))
+                s.masked_run(*s.packed_sortkeys(pwords[p:p + 1],
+                                                validbits[p:p + 1]))
                 for p, s in enumerate(self.shards)
             ]
         self._send(runs, self.store.stores, self._ingest_filter)
@@ -291,12 +289,7 @@ class ShardedMerCounter:
         Across processes each rank gives its own chunks and the rounds run
         in lockstep (any_rank): the restriction is the union of every
         rank's chunks."""
-        stores = []
-        for s in self.shards:
-            s._restrict_store = SortedCountStore(self.W, s.device,
-                                                 key_bits=2 * self.k,
-                                                 trace=s.trace)
-            stores.append(s._restrict_store)
+        stores = [s.open_restriction() for s in self.shards]
         chunks = (c for c in chunks_iter if len(c) >= self.k)
         while True:
             batch = list(itertools.islice(chunks, self.n_local))
@@ -307,12 +300,8 @@ class ShardedMerCounter:
     def _ascii_runs(self, chunks):
         """ASCII chunk p deduplicated on shard p's device, for each of the
         (at most local) chunks."""
-        return [
-            _chunk_pipeline_dedup(self.shards[p]._chunk(c),
-                                  self.shards[p]._A, self.k, self.lsize,
-                                  self.canonical)
-            for p, c in enumerate(chunks)
-        ]
+        return [s.masked_run(*s.chunk_sortkeys(c))
+                for s, c in zip(self.shards, chunks)]
 
     def _send(self, runs, stores, mer_filter) -> None:
         """The exchange. runs[p] is local sender p's deduplicated chunk, a
@@ -322,11 +311,8 @@ class ShardedMerCounter:
         exact = []
         for p, (keys, counts) in enumerate(runs):
             if mer_filter is not None:
-                mers = _recover_mers(keys, self.shards[p]._Ainv, self.k,
-                                     self.lsize, self.W)
-                counts = mer_filter(
-                    mers.to(self.device), counts.to(self.device)
-                ).to(keys.device)
+                counts = mer_filter(self.shards[p].mers_of_keys(keys),
+                                    counts).to(keys.device)
             exact.append(compact(keys, counts)[:2])
         if self.group is not None:
             self._exchange(exact, stores)
@@ -398,28 +384,6 @@ class ShardedMerCounter:
 
     # -- extraction -----------------------------------------------------------
 
-    def _shard_np(self, s):
-        """Shard s's (mer limbs [n, W] uint32, counts [n] uint64), the mer
-        filter applied here when it was not applied on the senders: once
-        per mer, on its owner shard (a mer it zeroes is dropped, or kept
-        at 0 when --if allows it, as on one device)."""
-        if self.mer_filter is None or self._ingest_filter is not None:
-            return s.finalize_np()
-        keys, counts = s._corrected(s.store)
-        if len(counts):
-            mers = _recover_mers(keys, s._Ainv, self.k, self.lsize, self.W)
-            counts = s._to_host(self.mer_filter(
-                mers.to(self.device),
-                torch.from_numpy(counts.astype(np.int64)).to(self.device),
-            ), np.uint64)
-        if s._restrict_store is not None:
-            return s._apply_restriction(keys, counts)
-        keep = counts > 0
-        if not keep.any():
-            return s._empty()
-        return s._mers_np(keys[torch.from_numpy(keep).to(keys.device)]), \
-            counts[keep]
-
     def finalize_local_np(self):
         """[(global shard id, mer limbs [n, W] uint32, counts [n] uint64),
         ...] for this process's non-empty shards, ascending shard id:
@@ -427,7 +391,7 @@ class ShardedMerCounter:
         hash order."""
         out = []
         for p, s in enumerate(self.shards):
-            mers, counts = self._shard_np(s)
+            mers, counts = s.finalize_np(self._final_filter)
             if len(counts):
                 out.append((self.first_shard + p, mers, counts))
         return out

@@ -276,6 +276,40 @@ def test_no_jax_imports_in_sources():
             assert top not in ("jax", "jaxlib", "jellyfish_tpu"), (f, mod)
 
 
+def test_sharded_uses_only_public_names_of_the_counter():
+    """parallel/sharded.py builds on MerCounter's public methods: it
+    imports no `_`-prefixed name from counter.py and reads no
+    `_`-prefixed attribute through a shard (`s._...`, `shards[p]._...`)."""
+    path = ROOT / "jellyfish_tpu_torch" / "parallel" / "sharded.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    shards = set()  # the names a shard is bound to
+    for node in ast.walk(tree):
+        if isinstance(node, ast.comprehension) or isinstance(node, ast.For):
+            over = node.iter
+            if isinstance(over, ast.Call) and getattr(
+                    over.func, "id", None) in ("enumerate", "zip"):
+                over = over.args[-1] if over.func.id == "enumerate" \
+                    else over.args[0]
+            if isinstance(over, ast.Attribute) and over.attr == "shards":
+                shards |= {n.id for n in ast.walk(node.target)
+                           if isinstance(n, ast.Name)}
+    assert "s" in shards, "no loop over the shards found"
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module and \
+                node.module.endswith("counter"):
+            bad += [a.name for a in node.names if a.name.startswith("_")]
+        if isinstance(node, ast.Attribute) and node.attr.startswith("_"):
+            base = node.value
+            if isinstance(base, ast.Subscript):
+                base = base.value
+            if (isinstance(base, ast.Name) and base.id in shards) or (
+                    isinstance(base, ast.Attribute)
+                    and base.attr == "shards"):
+                bad.append(f"{ast.unparse(node)} (line {node.lineno})")
+    assert not bad, bad
+
+
 def test_counter_without_card_raises(monkeypatch):
     from jellyfish_tpu_torch.counter import MerCounter
 

@@ -421,12 +421,17 @@ def test_cpu_route_takes_int32_and_int64_words():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """The wrapper's checks raise; k = 65, above the kernels' widths, is
+    not refused but runs the plain route, bit for bit, with no launch."""
     pw, vb = _chunks(np.random.default_rng(5), 2, 256, 21)
     pw, vb = _words(pw), _words(vb)
     masks = hashing.masks_of_matrix(_matrix(21, 27, 5), 2)
     args = (21, 27, True, masks)
-    with pytest.raises(ValueError, match="k = 65"):
-        sortkeys(pw, vb, 65, 27, True, None)
+    wide = (65, 27, True, hashing.masks_of_matrix(_matrix(65, 27, 5), 5))
+    launches = sortkeys.launches
+    got, want = sortkeys(pw, vb, *wide), sortkeys_plain(pw, vb, *wide)
+    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    assert sortkeys.launches == launches
     with pytest.raises(ValueError, match="lsize"):
         sortkeys(pw, vb, 40, 65, True, np.zeros((65, 3), np.uint32))
     with pytest.raises(ValueError, match="dtype"):
